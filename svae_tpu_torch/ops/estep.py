@@ -1,0 +1,348 @@
+"""Packed stationary-diagonal LDS E-step (port of the forward half of
+svae_tpu/ops/pallas_estep.py).
+
+The chain is time-homogeneous (one expected pair potential under q(theta))
+and the recognition evidence is diagonal, so the two serial recursions of
+the E-step take the pair blocks once and stream only the per-frame
+evidence:
+
+* :func:`filter_fwd` runs the forward information filter and the
+  time-reversed backward filter side by side (lanes ``[0, B)`` and
+  ``[B, 2B)``);
+* :func:`sampler_fwd` draws the S posterior samples backward in time from
+  the forward filter's messages.
+
+Each is a CUDA kernel (``csrc/estep.cu``) for tensors on a card and a plain
+PyTorch twin (``*_plain``: the same recursion as batched ``torch.linalg``
+ops over the lanes, one step at a time) for tensors on the CPU. A wrapper
+never falls back: on a CUDA tensor it launches its kernel or raises. Each
+wrapper counts its launches in ``.launches``; each twin counts its calls
+in ``.calls``.
+
+Between the two recursions sits plain batched algebra: the smoothed-moment
+assembly, the statistics, the local KL and the terminal sample.
+"""
+
+import math
+
+import torch
+
+from svae_tpu_torch.ops import _build
+from svae_tpu_torch.utils import smallchol
+from svae_tpu_torch.utils.psd import eye_like, mvn_logZ_info, symmetrize
+
+LOG2PI = math.log(2 * math.pi)
+KERNEL_DIMS = (2, 3, 4, 8, 10, 16)
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+# --------------------------------------------------------------------------
+
+
+def _check_kernel_args(name, d, tensors):
+    if d not in KERNEL_DIMS:
+        raise ValueError(f"{name}: no kernel for d={d}; built for "
+                         f"{KERNEL_DIMS}")
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name}: every tensor must be on one CUDA "
+                             f"device, got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the kernel takes float32, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def _launch(name, fn, dev, *args):
+    ptr = lambda a: a.data_ptr() if isinstance(a, torch.Tensor) else a
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(ptr(a) for a in args), stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")
+
+
+def filter_fwd(J0, h0, A, C, D, jd, n2):
+    """Both information filters over a batch of stationary chains.
+
+    ``J0`` (d*d, 2B) and ``h0`` (d, 2B): initial messages, forward lanes
+    first. ``A``, ``C``, ``D`` (2, d, d): per direction [forward, backward]
+    the offset added to the carried message, the next marginal's offset and
+    the coupling block. ``jd``, ``n2`` (T, d, B): diagonal node evidence
+    (precision contribution -1/2 diag(jd)) in frame order; forward lanes
+    read frames 1..T-1, backward lanes frames T-1..1, and the evidence goes
+    into C forward and into A backward. Returns per step ``J``
+    (T-1, d*d, 2B), ``h`` (T-1, d, 2B) and the summed log-normalizer
+    increments ``ln`` (2B,)."""
+    if J0.device.type == "cpu":
+        return filter_fwd_plain(J0, h0, A, C, D, jd, n2)
+    T, d, B = jd.shape
+    args = (J0, h0, A, C, D, jd, n2)
+    _check_kernel_args("filter_fwd", d, args)
+    if T < 2:
+        raise ValueError("filter_fwd: needs T >= 2")
+    if (J0.shape != (d * d, 2 * B) or h0.shape != (d, 2 * B)
+            or any(m.shape != (2, d, d) for m in (A, C, D))
+            or n2.shape != jd.shape):
+        raise ValueError("filter_fwd: inconsistent shapes")
+    J = torch.empty((T - 1, d * d, 2 * B), dtype=J0.dtype, device=J0.device)
+    h = torch.empty((T - 1, d, 2 * B), dtype=J0.dtype, device=J0.device)
+    ln = torch.empty((2 * B,), dtype=J0.dtype, device=J0.device)
+    lib = _build.load_library()
+    _launch("filter_fwd", lib.svae_filter_fwd_f32, J0.device, d, B, T,
+            *args, J, h, ln)
+    filter_fwd.launches += 1
+    return J, h, ln
+
+
+filter_fwd.launches = 0
+
+
+def sampler_fwd(P2, P3, Jf, hf, eps, xT):
+    """Backward conditional sampler for S*B chains (lane ``s*B + b``).
+
+    ``P2``, ``P3`` (d, d): the stationary pair blocks. ``Jf`` (T-1, d*d, B)
+    and ``hf`` (T-1, d, B): forward-filter messages of frames 0..T-2,
+    shared by the S samples of a sequence. ``eps`` (T-1, d, S*B): standard
+    normal noise. ``xT`` (d, S*B): the terminal samples. Returns ``x``
+    (T-1, d, S*B), frames 0..T-2."""
+    if P2.device.type == "cpu":
+        return sampler_fwd_plain(P2, P3, Jf, hf, eps, xT)
+    T1, dd, B = Jf.shape
+    d, SB = xT.shape
+    args = (P2, P3, Jf, hf, eps, xT)
+    _check_kernel_args("sampler_fwd", d, args)
+    if (P2.shape != (d, d) or P3.shape != (d, d) or dd != d * d
+            or hf.shape != (T1, d, B) or eps.shape != (T1, d, SB)
+            or SB % B or T1 < 1):
+        raise ValueError("sampler_fwd: inconsistent shapes")
+    x = torch.empty((T1, d, SB), dtype=xT.dtype, device=xT.device)
+    lib = _build.load_library()
+    _launch("sampler_fwd", lib.svae_sampler_fwd_f32, xT.device, d, B,
+            SB // B, T1 + 1, *args, x)
+    sampler_fwd.launches += 1
+    return x
+
+
+sampler_fwd.launches = 0
+
+
+# --------------------------------------------------------------------------
+# plain twins
+# --------------------------------------------------------------------------
+
+
+def filter_fwd_plain(J0, h0, A, C, D, jd, n2):
+    """Plain PyTorch twin of :func:`filter_fwd` (same arguments)."""
+    filter_fwd_plain.calls += 1
+    T, d, B = jd.shape
+    NL = 2 * B
+    rep = lambda M: M.repeat_interleave(B, dim=0)       # (2,d,d)->(NL,d,d)
+    Al, Cl, DlT = rep(A), rep(C), rep(D).mT
+    wA = (torch.arange(NL, device=jd.device) >= B).to(jd.dtype)[:, None]
+    wC = 1.0 - wA
+    # step t: forward lanes read frame t+1, backward lanes frame T-1-t
+    jds = torch.cat([jd[1:], jd.flip(0)[:T - 1]], dim=-1)  # (T-1, d, NL)
+    n2s = torch.cat([n2[1:], n2.flip(0)[:T - 1]], dim=-1)
+    J = J0.T.reshape(NL, d, d)
+    h = h0.T
+    ln = torch.zeros(NL, dtype=jd.dtype, device=jd.device)
+    Js, hs = [], []
+    for t in range(T - 1):
+        jv, nv = jds[t].T, n2s[t].T
+        L = smallchol.chol(J + Al + torch.diag_embed(wA * jv))
+        v = smallchol.solve_lower(L, h + wA * nv)
+        ln = ln + (0.5 * d * LOG2PI
+                   - torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+                   + 0.5 * (v * v).sum(-1))
+        Y = torch.linalg.solve_triangular(L, DlT, upper=False)  # L^-1 D^T
+        J = Cl + torch.diag_embed(wC * jv) - Y.mT @ Y
+        h = (Y.mT @ v[..., None])[..., 0] + wC * nv
+        Js.append(J.reshape(NL, d * d).T)
+        hs.append(h.T)
+    return torch.stack(Js), torch.stack(hs), ln
+
+
+filter_fwd_plain.calls = 0
+
+
+def sampler_fwd_plain(P2, P3, Jf, hf, eps, xT):
+    """Plain PyTorch twin of :func:`sampler_fwd` (same arguments)."""
+    sampler_fwd_plain.calls += 1
+    T1, dd, B = Jf.shape
+    d, SB = xT.shape
+    S = SB // B
+    Jc = Jf.permute(0, 2, 1).reshape(T1, B, d, d) - 2.0 * P3
+    L = smallchol.chol(Jc).repeat(1, S, 1, 1)            # (T1, SB, d, d)
+    hfl = hf.permute(0, 2, 1).repeat(1, S, 1)             # (T1, SB, d)
+    x = xT.T
+    xs = [None] * T1
+    for t in reversed(range(T1)):
+        y = smallchol.solve_lower(L[t], hfl[t] + x @ P2)
+        x = smallchol.solve_upper_from_lower(L[t], y + eps[t].T)
+        xs[t] = x.T
+    return torch.stack(xs)
+
+
+sampler_fwd_plain.calls = 0
+
+
+# --------------------------------------------------------------------------
+# smoothed-moment assembly (batched torch ops, stationary pairs)
+# --------------------------------------------------------------------------
+
+
+def _assembly(E1, E2, E3, jd, Jf, hf, Jb, hb):
+    """Smoothed node and pair moments from the two filters' messages
+    (port of pallas_estep._assembly_xla). Jf/Jb (B, T, d, d), hf/hb
+    (B, T, d)."""
+    Js = Jf + Jb
+    L = smallchol.chol(symmetrize(Js))
+    Ex = smallchol.cho_solve(L, hf + hb)
+    Sig = smallchol.cho_solve_mat(L, eye_like(Js))
+    ExxT = symmetrize(Sig + Ex[..., :, None] * Ex[..., None, :])
+
+    J12l = -E2.mT                                  # shared (d, d)
+    J11 = -2.0 * E3 + Jf[:, :-1]
+    # J22 = -2 (P1 + N1[t+1]) + Jb[t+1]; N1 diagonal = -1/2 diag(jd)
+    J22 = -2.0 * E1 + torch.diag_embed(jd[:, 1:]) + Jb[:, 1:]
+    L11 = smallchol.chol(symmetrize(J11))
+    J11inv_J12 = smallchol.cho_solve_mat(L11, J12l.expand(J11.shape))
+    S = J22 - J12l.mT @ J11inv_J12
+    LS = smallchol.chol(symmetrize(S))
+    Sinv = smallchol.cho_solve_mat(LS, eye_like(S))
+    Cov12 = -J11inv_J12 @ Sinv
+    Exnxt = Cov12 + Ex[:, :-1, :, None] * Ex[:, 1:, None, :]
+    return Ex, ExxT, Exnxt
+
+
+# --------------------------------------------------------------------------
+# public entries
+# --------------------------------------------------------------------------
+
+
+def filter_inputs(init, pair_mats, nodes_diag):
+    """The packed arguments of :func:`filter_fwd` for a batch: initial
+    messages (forward lanes start from the t=0 marginal, backward lanes from
+    0), the per-direction stationary blocks and the node evidence in
+    (T, d, B) layout."""
+    I1, I2 = init[:2]
+    E1, E2, E3 = pair_mats[:3]
+    jd, n2 = nodes_diag
+    B, T, d = n2.shape
+    dd = d * d
+    # per direction [forward, backward]: C forward = -2 P1, backward -2 P3
+    A = torch.stack([-2.0 * E3, -2.0 * E1])
+    C = torch.stack([-2.0 * E1, -2.0 * E3])
+    D = torch.stack([E2, E2.mT])
+    J0f = -2.0 * I1 + torch.diag_embed(jd[:, 0])          # (B, d, d)
+    h0f = I2 + n2[:, 0]
+    J0 = torch.cat([J0f.reshape(B, dd).T, J0f.new_zeros(dd, B)], dim=1)
+    h0 = torch.cat([h0f.T, h0f.new_zeros(d, B)], dim=1)
+    return (J0, h0, A, C, D, jd.permute(1, 2, 0).contiguous(),
+            n2.permute(1, 2, 0).contiguous())
+
+
+def _filter_and_moments(init, pair_mats, nodes_diag, plain=False):
+    """Both filters plus the smoothed-moment assembly. Returns ``(logZ (B,),
+    Ex (B,T,d), ExxT (B,T,d,d), Exnxt (B,T-1,d,d), Jf, hf)`` with the
+    forward messages (Jf, hf) in the packed (T, d*d, B) / (T, d, B) layout
+    for the sampler."""
+    Ic = init[2]
+    E1, E2, E3, Pc = pair_mats
+    jd, n2 = nodes_diag
+    B, T, d = n2.shape
+    dd = d * d
+    filt = filter_fwd_plain if plain else filter_fwd
+    args = filter_inputs(init, pair_mats, nodes_diag)
+    Jr, hr, ln = filt(*args)
+    J0, h0 = args[:2]
+
+    # align the halves in frame order, packed (T, dd, B)
+    Jf = torch.cat([J0[None, :, :B], Jr[:, :, :B]])
+    hf = torch.cat([h0[None, :, :B], hr[:, :, :B]])
+    Jb = torch.cat([Jr[:, :, B:].flip(0), Jr.new_zeros(1, dd, B)])
+    hb = torch.cat([hr[:, :, B:].flip(0), hr.new_zeros(1, d, B)])
+
+    JfT = Jf[-1].T.reshape(B, d, d)
+    logZ = ln[:B] + (T - 1) * Pc + Ic + mvn_logZ_info(JfT, hf[-1].T)
+
+    unpack_J = lambda x: x.permute(2, 0, 1).reshape(B, T, d, d)
+    unpack_h = lambda x: x.permute(2, 0, 1)
+    Ex, ExxT, Exnxt = _assembly(E1, E2, E3, jd, unpack_J(Jf), unpack_h(hf),
+                                unpack_J(Jb), unpack_h(hb))
+    return logZ, Ex, ExxT, Exnxt, Jf, hf
+
+
+def sampler_inputs(pair_mats, Jf, hf, eps):
+    """The arguments of :func:`sampler_fwd` from the packed forward messages
+    ``Jf`` (T, d*d, B), ``hf`` (T, d, B) and the noise ``eps`` (S, B, T, d),
+    plus the terminal samples ``xT`` (S, B, d) drawn here."""
+    E2, E3 = pair_mats[1], pair_mats[2]
+    S, B, T, d = eps.shape
+    LT = smallchol.chol(symmetrize(Jf[-1].T.reshape(B, d, d)))
+    xT = (smallchol.cho_solve(LT, hf[-1].T)
+          + smallchol.solve_upper_from_lower(LT, eps[:, :, -1]))
+    epsb = eps[:, :, :-1].reshape(S * B, T - 1, d).permute(1, 2, 0)
+    args = (E2.contiguous(), E3.contiguous(), Jf[:-1], hf[:-1],
+            epsb.contiguous(), xT.reshape(S * B, d).T.contiguous())
+    return args, xT
+
+
+def lds_moments_stationary(init, pair_mats, nodes_diag):
+    """Smoothed posterior moments, no sampling: ``(logZ (B,), Ex (B,T,d),
+    ExxT (B,T,d,d), Exnxt (B,T-1,d,d))``."""
+    logZ, Ex, ExxT, Exnxt, _, _ = _filter_and_moments(
+        init, pair_mats, nodes_diag)
+    return logZ, Ex, ExxT, Exnxt
+
+
+def lds_estep_stationary(init, pair_mats, nodes_diag, generator,
+                         num_samples, eps=None, plain=False):
+    """Minibatch E-step for stationary pairs and diagonal node evidence.
+
+    ``init`` = (I1, I2, Ic), ``pair_mats`` = (E1, E2, E3, Pc): the expected
+    init and pair potentials under q(theta), not broadcast over time.
+    ``nodes_diag`` = (jd, h), each (B, T, d), with node precision
+    contribution -1/2 diag(jd). ``generator`` draws the (S, B, T, d) noise
+    unless ``eps`` gives it. ``plain=True`` runs the twins on any device;
+    it exists only so that chip_smoke.py can time the twin-path E-step on
+    the card beside the kernel path, and no model code sets it.
+
+    Returns ``(samples (S, B, T, d), (niw_stats, mniw_stats), local_kl)``,
+    the statistics summed over the batch."""
+    jd, n2 = nodes_diag
+    B, T, d = n2.shape
+    S = int(num_samples)
+    T1 = T - 1
+    samp = sampler_fwd_plain if plain else sampler_fwd
+
+    logZ, Ex, ExxT, Exnxt, Jf, hf = _filter_and_moments(
+        init, pair_mats, nodes_diag, plain=plain)
+
+    cnt = torch.tensor(float(B), dtype=n2.dtype, device=n2.device)
+    niw_stats = (ExxT[:, 0].sum(0), Ex[:, 0].sum(0), cnt, cnt)
+    ExnxtT = Exnxt.mT                               # E[x_{t+1} x_t^T]
+    mniw_stats = (ExxT[:, 1:].sum((0, 1)), ExnxtT.sum((0, 1)),
+                  ExxT[:, :-1].sum((0, 1)), T1 * cnt)
+
+    # local KL: sum N1*ExxT + sum h*Ex - sum logZ (N1 diagonal)
+    diag_ExxT = torch.diagonal(ExxT, dim1=-2, dim2=-1)
+    local_kl = (-0.5 * (jd * diag_ExxT).sum() + (n2 * Ex).sum()
+                - logZ.sum())
+
+    if eps is None:
+        if generator is None:
+            raise ValueError("lds_estep_stationary: pass a torch.Generator "
+                             "or eps; the global RNG is not used")
+        eps = torch.randn((S, B, T, d), generator=generator, dtype=n2.dtype,
+                          device=n2.device)
+    args, xT = sampler_inputs(pair_mats, Jf, hf, eps)
+    xb = samp(*args)                                      # (T-1, d, S*B)
+    x_body = xb.permute(2, 0, 1).reshape(S, B, T1, d)
+    samples = torch.cat([x_body, xT[:, :, None]], dim=2)
+    return samples, (niw_stats, mniw_stats), local_kl

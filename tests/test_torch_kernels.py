@@ -1,0 +1,90 @@
+"""The CUDA kernels of svae_tpu_torch/csrc/estep.cu against their plain
+twins, on a card. Every test is marked ``gpu`` and skips on a host without
+one. The file imports no JAX, so it also runs where JAX is missing:
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -q
+
+Kernels run in float32, twins in float64 on the same inputs; the
+tolerances are chip_smoke.py's (the float32 tiers of
+tests/test_f32_parity.py)."""
+
+import os
+import sys
+
+import pytest
+import torch
+
+from svae_tpu_torch.ops import estep
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def smoke():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.parametrize("shape", ["small", "config2"])
+def test_kernels_match_twins(smoke, shape):
+    smoke.check_kernels(smoke.SHAPES[shape], seed=0)
+
+
+@pytest.mark.parametrize("d", estep.KERNEL_DIMS)
+def test_kernels_match_twins_at_every_built_d(smoke, d):
+    smoke.check_kernels(dict(B=5, T=9, d=d, S=3), seed=d)
+
+
+def test_estep_on_card_matches_cpu_twins(smoke):
+    init, mats, nodes, eps = smoke._problem(dict(B=7, T=12, d=4, S=2), 1,
+                                            "cuda")
+    f32 = smoke._f32
+    samples, stats, lkl = estep.lds_estep_stationary(
+        f32(init), f32(mats), f32(nodes), None, 2, eps=eps.float())
+    cpu = lambda xs: tuple(x.cpu() for x in xs)
+    samples_r, stats_r, lkl_r = estep.lds_estep_stationary(
+        cpu(init), cpu(mats), cpu(nodes), None, 2, eps=eps.cpu())
+    assert float((samples.double().cpu() - samples_r).abs().max()) < 2e-3
+    assert abs(float(lkl) - float(lkl_r)) / abs(float(lkl_r)) < 2e-4
+    for a, b in zip(stats[0] + stats[1], stats_r[0] + stats_r[1]):
+        assert float((a.double().cpu() - b).abs().max()) <= (
+            2e-4 * float(b.abs().max()))
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(smoke):
+    init, mats, nodes, _ = smoke._problem(smoke.SHAPES["small"], 0, "cuda")
+    fin = estep.filter_inputs(init, mats, nodes)
+    with pytest.raises(TypeError, match="float32"):
+        estep.filter_fwd(*fin)
+    f32 = list(smoke._f32(fin))
+    strided = list(f32)
+    strided[5] = f32[5].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        estep.filter_fwd(*strided)
+    mixed = list(f32)
+    mixed[2] = f32[2].cpu()
+    with pytest.raises(ValueError, match="CUDA"):
+        estep.filter_fwd(*mixed)
+    init5, mats5, nodes5, _ = smoke._problem(dict(B=3, T=7, d=5, S=2), 0,
+                                             "cuda")
+    with pytest.raises(ValueError, match="d=5"):
+        estep.filter_fwd(*smoke._f32(estep.filter_inputs(init5, mats5,
+                                                         nodes5)))
+
+
+def test_launch_counters_count_launches(smoke):
+    init, mats, nodes, eps = smoke._problem(smoke.SHAPES["small"], 0, "cuda")
+    f32 = smoke._f32
+    before = (estep.filter_fwd.launches, estep.sampler_fwd.launches,
+              estep.filter_fwd_plain.calls, estep.sampler_fwd_plain.calls)
+    estep.lds_estep_stationary(f32(init), f32(mats), f32(nodes), None, 2,
+                               eps=eps.float())
+    torch.cuda.synchronize()
+    after = (estep.filter_fwd.launches, estep.sampler_fwd.launches,
+             estep.filter_fwd_plain.calls, estep.sampler_fwd_plain.calls)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 0, 0]

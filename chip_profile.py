@@ -1,5 +1,5 @@
-"""Where the time goes in the PyTorch port's inference path, on one CUDA
-card.
+"""Where the time goes in the PyTorch port's inference and training
+paths, on one CUDA card.
 
     python3 chip_profile.py [--calls N] [--tables FILE]
 
@@ -7,8 +7,11 @@ Stages, at BASELINE config 2 (LDS-SVAE on 1-D dot videos, B=64, T=100,
 d_latent=10, d_obs=20, S=2, MLP recognizer and decoder of width 64, float32,
 random weights from a seed): the expected potentials, the global KL, the
 E-step (``lds_estep_stationary``), ``run_inference`` (the three, plus its
-finiteness check) and one MC-ELBO batch (recognize, ``run_inference``,
-decode).
+finiteness check), one MC-ELBO batch (recognize, ``run_inference``,
+decode; no gradient) and one SVI train step (``loop.make_train_step``: the
+ELBO, its gradient through the adjoint kernels, the natural gradient and
+the Adam update), also without ``run_inference``'s finiteness check, the
+step's one host sync.
 
 One run takes every reading, in this order:
 
@@ -47,14 +50,16 @@ from svae_tpu_torch.data.synthetic import make_dot_data
 from svae_tpu_torch.models import lds
 from svae_tpu_torch.nets import decoders, recognition
 from svae_tpu_torch.ops import _build, estep
-from svae_tpu_torch.train import elbo
+from svae_tpu_torch.train import elbo, loop
+from svae_tpu_torch.utils import smallchol
 
 B, T, S, D_OBS = 64, 100, 2, 20
 TOP = 8
 
 
 def stages(device="cuda"):
-    """The stages of the config-2 inference path as no-argument calls."""
+    """The stages of the config-2 inference and training paths as
+    no-argument calls."""
     prior, glob, rec, dec = chip_smoke._config2_models(device)
     data = make_dot_data(seed=0, num_seqs=B, T=T, image_width=D_OBS)
     batch = torch.from_numpy(data).to(device)
@@ -62,9 +67,29 @@ def stages(device="cuda"):
     with torch.no_grad():
         nodes = rec(batch)
     init, mats = lds._expected_potentials(glob, torch.float32)
-    objective = elbo.make_objective(
-        lds.run_inference, recognition.mlp_recognize, decoders.mlp_loglike,
-        prior, 50 * B, num_samples=S)
+    parts = (lds.run_inference, recognition.mlp_recognize,
+             decoders.mlp_loglike, prior, 50 * B)
+    objective = elbo.make_objective(*parts, num_samples=S)
+    opt_init, step = loop.make_train_step(*parts, num_samples=S)
+    state = [glob, (rec, dec), opt_init(glob, (rec, dec))]
+
+    def value():
+        with torch.no_grad():
+            return objective(glob, (rec, dec), batch, gen)
+
+    def train_step():
+        state[0], state[1], state[2], _, _ = step(*state, batch, gen)
+
+    def train_step_nosync():
+        # the same step without run_inference's one host sync (its
+        # finiteness check): what a CUDA graph of the step would drop
+        check = smallchol.check_finite
+        smallchol.check_finite = lambda *a: None
+        try:
+            train_step()
+        finally:
+            smallchol.check_finite = check
+
     return {
         "expected_potentials": lambda: lds._expected_potentials(
             glob, torch.float32),
@@ -73,7 +98,9 @@ def stages(device="cuda"):
                                                     S),
         "run_inference": lambda: lds.run_inference(prior, glob, nodes, gen,
                                                    S),
-        "objective": lambda: objective(glob, (rec, dec), batch, gen),
+        "objective": value,
+        "train_step": train_step,
+        "train_step_nosync": train_step_nosync,
     }
 
 
@@ -126,7 +153,10 @@ def profiled_readings(fn, calls):
             issue.append(time.perf_counter() - t)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / calls
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # device kernels and copies; user annotations (such as the
+    # optimizer's step range) span kernels and are not device work
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
     by_name = collections.Counter()
     count = collections.Counter()
     for e in dev:

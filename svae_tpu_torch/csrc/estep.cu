@@ -29,38 +29,9 @@
 // accepts that (a warp per chain, splitting the d x d work across lanes,
 // is the known next step).
 
-#include <cuda_runtime.h>
+#include "estep_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 32;
-constexpr float kLog2Pi = 1.8378770664093453f;
-
-// In-place lower Cholesky factor of the lower triangle of L (row by row);
-// rd gets the reciprocal diagonal. Returns sum_i log L_ii (half logdet).
-// A non-positive pivot gives NaN, which then propagates to every output.
-template <int D>
-__device__ __forceinline__ float chol_inplace(float (&L)[D][D],
-                                              float (&rd)[D]) {
-  float half_logdet = 0.f;
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-#pragma unroll
-    for (int j = 0; j <= i; ++j) {
-      float s = L[i][j];
-#pragma unroll
-      for (int k = 0; k < j; ++k) s -= L[i][k] * L[j][k];
-      if (i == j) {
-        L[i][i] = sqrtf(s);
-        rd[i] = 1.f / L[i][i];
-        half_logdet += logf(L[i][i]);
-      } else {
-        L[i][j] = s * rd[j];
-      }
-    }
-  }
-  return half_logdet;
-}
 
 // One thread per (sequence b, direction r). Per step t:
 //   M = J + A_r (+ diag jd on the backward direction), L = chol(M),

@@ -34,8 +34,9 @@ def init_pgm_param(d, generator, niw_conc=10.0, mniw_conc=10.0, A_scale=0.9,
     """Random global natparams: NIW on the initial state, MNIW centered on
     the slightly contractive dynamics ``A_scale * Q`` for a random
     orthogonal Q. The random draw is made on ``generator``'s device and the
-    result placed on ``device`` (default: the same)."""
-    device = generator.device if device is None else device
+    result placed on ``device`` (default ``"cuda"``; pass ``"cpu"`` to run
+    on the CPU)."""
+    device = "cuda" if device is None else device
     G = torch.randn((d, d), generator=generator, dtype=dtype,
                     device=generator.device).to(device)
     Q_, _ = torch.linalg.qr(G)

@@ -25,6 +25,8 @@ class MLPDecoder(nn.Module):
 
 def init_mlp_decode(d_latent, hidden_sizes, d_obs, generator,
                     dtype=torch.float32, device=None):
+    """Random MLP decoder on ``device`` (default ``"cuda"``; pass ``"cpu"``
+    to run on the CPU), drawn from ``generator``."""
     sizes = (d_latent,) + tuple(hidden_sizes)
     hidden = init_mlp(sizes, generator, dtype=dtype, device=device)
     head = GaussianMeanHead(

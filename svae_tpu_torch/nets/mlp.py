@@ -26,11 +26,13 @@ class Dense(nn.Module):
 
 def init_dense(n_in, n_out, generator, scale=1.0, dtype=torch.float32,
                device=None):
-    """Glorot-normal weights drawn on ``generator``'s device, zero bias."""
+    """Glorot-normal weights drawn on ``generator``'s device, zero bias,
+    placed on ``device`` (default ``"cuda"``; pass ``"cpu"`` to run on the
+    CPU)."""
     std = scale * math.sqrt(2.0 / (n_in + n_out))
     W = std * torch.randn((n_in, n_out), generator=generator, dtype=dtype,
                           device=generator.device)
-    device = generator.device if device is None else device
+    device = "cuda" if device is None else device
     return Dense(W.to(device), torch.zeros(n_out, dtype=dtype, device=device))
 
 
@@ -54,7 +56,8 @@ class MLP(nn.Module):
 
 
 def init_mlp(sizes, generator, scale=1.0, dtype=torch.float32, device=None):
-    """Hidden stack for sizes = (d_in, h1, ..., hk)."""
+    """Hidden stack for sizes = (d_in, h1, ..., hk), on ``device``
+    (default ``"cuda"``)."""
     return MLP([init_dense(m, n, generator, scale, dtype, device)
                 for m, n in zip(sizes[:-1], sizes[1:])])
 

@@ -21,6 +21,8 @@ class MLPRecognizer(nn.Module):
 
 def init_mlp_recognize(d_obs, hidden_sizes, d_latent, generator,
                        dtype=torch.float32, device=None):
+    """Random MLP recognizer on ``device`` (default ``"cuda"``; pass ``"cpu"``
+    to run on the CPU), drawn from ``generator``."""
     sizes = (d_obs,) + tuple(hidden_sizes)
     hidden = init_mlp(sizes, generator, dtype=dtype, device=device)
     head = GaussianInfoHead(

@@ -1,24 +1,28 @@
-"""Build and load the E-step's CUDA kernels (``csrc/estep.cu``).
+"""Build and load the E-step's CUDA kernels (``csrc/*.cu``).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, under ``svae_tpu_torch/_build/`` and named by the
-source's content hash, at the first CUDA use; it is then loaded with
-``ctypes``. A failed build or load raises: there is no fallback. ``nvcc`` is
-``$CUDA_HOME/bin/nvcc`` when ``CUDA_HOME`` is set, else the one on ``PATH``,
-else ``/usr/local/cuda/bin/nvcc``.
+Each source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into an
+object, all in parallel processes, and the objects are linked into one
+shared library with a plain C interface, under ``svae_tpu_torch/_build/``
+and named by the hash of every file in ``csrc/``, at the first CUDA use; it
+is then loaded with ``ctypes``. A failed build or load raises: there is no
+fallback. ``nvcc`` is ``$CUDA_HOME/bin/nvcc`` when ``CUDA_HOME`` is set, else
+the one on ``PATH``, else ``/usr/local/cuda/bin/nvcc``.
 """
 
+import concurrent.futures
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "estep.cu")
+CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+COMPILE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 
@@ -37,29 +41,52 @@ def nvcc_path():
 
 
 def library_path():
-    with open(SOURCE, "rb") as f:
-        sha = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libsvae_estep_{sha}.so")
+    sha = hashlib.sha256()
+    for path in sorted(glob.glob(os.path.join(CSRC, "*"))):
+        sha.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            sha.update(f.read())
+    return os.path.join(BUILD_DIR, f"libsvae_estep_{sha.hexdigest()[:16]}.so")
 
 
 def build():
-    """Compile the kernels unless a library of this source exists; returns
-    its path. ``nvcc``'s report (registers, spills) is kept beside it in
-    ``<library>.log``."""
+    """Compile the kernels unless a library of these sources exists;
+    returns its path. ``nvcc``'s report (registers, spills) and each
+    source's compile seconds are kept beside it in ``<library>.log``."""
     so = library_path()
     if os.path.exists(so):
         return so
     nvcc = nvcc_path()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
+    tmp = f"{so}.{os.getpid()}"
+
+    def compile_one(src):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc, *COMPILE_FLAGS, "-c", "-o", obj, src],
+                              capture_output=True, text=True)
+        return src, obj, proc, time.perf_counter() - t0
+
+    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+        jobs = list(pool.map(compile_one, srcs))
+    failed = [f"nvcc failed ({proc.returncode}) on {src}:\n{proc.stderr}"
+              for src, _, proc, _ in jobs if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    log = [f"== {os.path.basename(src)}: {secs:.1f} s\n"
+           f"{proc.stdout}{proc.stderr}" for src, _, proc, secs in jobs]
+    objs = [obj for _, obj, _, _ in jobs]
+    proc = subprocess.run([nvcc, "-shared", "-o", f"{tmp}.so", *objs],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) linking {so}:\n"
+                           f"{proc.stderr}")
+    for obj in objs:
+        os.remove(obj)
     with open(so + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
+        f.writelines(log)
+    os.replace(f"{tmp}.so", so)
     return so
 
 
@@ -69,9 +96,12 @@ def load_library():
     if _lib is None:
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.svae_filter_fwd_f32.argtypes = [i, i, i] + [p] * 11
-        lib.svae_filter_fwd_f32.restype = i
-        lib.svae_sampler_fwd_f32.argtypes = [i, i, i, i] + [p] * 8
-        lib.svae_sampler_fwd_f32.restype = i
+        for name, ints, ptrs in (("svae_filter_fwd_f32", 3, 11),
+                                 ("svae_sampler_fwd_f32", 4, 8),
+                                 ("svae_filter_adj_f32", 3, 16),
+                                 ("svae_sampler_adj_f32", 4, 13)):
+            fn = getattr(lib, name)
+            fn.argtypes = [i] * ints + [p] * ptrs
+            fn.restype = i
         _lib = lib
     return _lib

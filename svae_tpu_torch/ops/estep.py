@@ -1,4 +1,4 @@
-"""Packed stationary-diagonal LDS E-step (port of the forward half of
+"""Packed stationary-diagonal LDS E-step (port of
 svae_tpu/ops/pallas_estep.py).
 
 The chain is time-homogeneous (one expected pair potential under q(theta))
@@ -10,14 +10,25 @@ evidence:
   time-reversed backward filter side by side (lanes ``[0, B)`` and
   ``[B, 2B)``);
 * :func:`sampler_fwd` draws the S posterior samples backward in time from
-  the forward filter's messages.
+  the forward filter's messages;
+* :func:`filter_adj` and :func:`sampler_adj` are their adjoints, the
+  backward of :class:`FilterFwd` and :class:`SamplerFwd`
+  (``torch.autograd.Function``s, the counterparts of the JAX package's
+  ``custom_vjp`` primitives).
 
-Each is a CUDA kernel (``csrc/estep.cu``) for tensors on a card and a plain
-PyTorch twin (``*_plain``: the same recursion as batched ``torch.linalg``
-ops over the lanes, one step at a time) for tensors on the CPU. A wrapper
-never falls back: on a CUDA tensor it launches its kernel or raises. Each
-wrapper counts its launches in ``.launches``; each twin counts its calls
-in ``.calls``.
+Each is a CUDA kernel (``csrc/*.cu``) for tensors on a card and a plain
+PyTorch version (``*_plain``) for tensors on the CPU: the forward twins run
+the same recursion as batched ``torch.linalg`` ops over the lanes, one step
+at a time, and each plain adjoint is the vector-Jacobian product of its
+forward twin by ``torch.autograd``, independent of the kernels'
+hand-derived algebra. A wrapper never falls back: on a CUDA tensor it
+launches its kernel or raises. Each wrapper counts its launches in
+``.launches``; each plain version counts its calls in ``.calls``.
+
+On a card the E-step runs the Functions where a gradient may be taken, so
+it goes through the adjoint kernels, and the forward kernels alone where
+none can be; on the CPU it runs the forward twins and its gradient is
+torch's own autograd through them.
 
 Between the two recursions sits plain batched algebra: the smoothed-moment
 assembly, the statistics, the local KL and the terminal sample.
@@ -46,14 +57,42 @@ def _check_kernel_args(name, d, tensors):
                          f"{KERNEL_DIMS}")
     dev = tensors[0].device
     for t in tensors:
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"{name}: every tensor must be on one CUDA "
-                             f"device, got {t.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: the kernel takes float32, got "
                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name}: every tensor must be on one CUDA "
+                             f"device, got {t.device}")
+
+
+def _check_filter_shapes(name, J0, h0, A, C, D, jd, n2, *outs):
+    """Shapes of :func:`filter_fwd`'s inputs and, for the adjoint, of its
+    outputs and their cotangents ``(J, h, dJ, dh, dln)``."""
+    T, d, B = jd.shape
+    if T < 2:
+        raise ValueError(f"{name}: needs T >= 2")
+    want = [(d * d, 2 * B), (d, 2 * B)] + [(2, d, d)] * 3 + [jd.shape] * 2
+    if outs:
+        step = [(T - 1, d * d, 2 * B), (T - 1, d, 2 * B)]
+        want += step * 2 + [(2 * B,)]
+    if [tuple(t.shape) for t in (J0, h0, A, C, D, jd, n2, *outs)] != want:
+        raise ValueError(f"{name}: inconsistent shapes")
+
+
+def _check_sampler_shapes(name, P2, P3, Jf, hf, eps, xT, *outs):
+    """Shapes of :func:`sampler_fwd`'s inputs and, for the adjoint, of its
+    output and its cotangent ``(x, dx)``."""
+    T1, dd, B = Jf.shape
+    d, SB = xT.shape
+    want = ([(d, d)] * 2 + [(T1, d * d, B), (T1, d, B), (T1, d, SB),
+                             (d, SB)] + [(T1, d, SB)] * len(outs))
+    if (T1 < 1 or SB % B
+            or [tuple(t.shape) for t in (P2, P3, Jf, hf, eps, xT, *outs)]
+            != want):
+        raise ValueError(f"{name}: inconsistent shapes")
 
 
 def _launch(name, fn, dev, *args):
@@ -82,13 +121,8 @@ def filter_fwd(J0, h0, A, C, D, jd, n2):
         return filter_fwd_plain(J0, h0, A, C, D, jd, n2)
     T, d, B = jd.shape
     args = (J0, h0, A, C, D, jd, n2)
+    _check_filter_shapes("filter_fwd", *args)
     _check_kernel_args("filter_fwd", d, args)
-    if T < 2:
-        raise ValueError("filter_fwd: needs T >= 2")
-    if (J0.shape != (d * d, 2 * B) or h0.shape != (d, 2 * B)
-            or any(m.shape != (2, d, d) for m in (A, C, D))
-            or n2.shape != jd.shape):
-        raise ValueError("filter_fwd: inconsistent shapes")
     J = torch.empty((T - 1, d * d, 2 * B), dtype=J0.dtype, device=J0.device)
     h = torch.empty((T - 1, d, 2 * B), dtype=J0.dtype, device=J0.device)
     ln = torch.empty((2 * B,), dtype=J0.dtype, device=J0.device)
@@ -112,14 +146,11 @@ def sampler_fwd(P2, P3, Jf, hf, eps, xT):
     (T-1, d, S*B), frames 0..T-2."""
     if P2.device.type == "cpu":
         return sampler_fwd_plain(P2, P3, Jf, hf, eps, xT)
-    T1, dd, B = Jf.shape
+    T1, _, B = Jf.shape
     d, SB = xT.shape
     args = (P2, P3, Jf, hf, eps, xT)
+    _check_sampler_shapes("sampler_fwd", *args)
     _check_kernel_args("sampler_fwd", d, args)
-    if (P2.shape != (d, d) or P3.shape != (d, d) or dd != d * d
-            or hf.shape != (T1, d, B) or eps.shape != (T1, d, SB)
-            or SB % B or T1 < 1):
-        raise ValueError("sampler_fwd: inconsistent shapes")
     x = torch.empty((T1, d, SB), dtype=xT.dtype, device=xT.device)
     lib = _build.load_library()
     _launch("sampler_fwd", lib.svae_sampler_fwd_f32, xT.device, d, B,
@@ -129,6 +160,82 @@ def sampler_fwd(P2, P3, Jf, hf, eps, xT):
 
 
 sampler_fwd.launches = 0
+
+
+def _filter_adj_outputs(dnode, dJ0, dh0, dpar, d, B):
+    """The adjoint kernel's per-direction and per-lane outputs -> the
+    cotangents of :func:`filter_fwd`'s inputs: node cotangents summed over
+    the two directions, parameter partials summed over each direction's
+    lanes into (2, d, d)."""
+    djd, dn2 = dnode.sum(1)
+    dA, dC, dD = (dpar.reshape(3, d * d, 2, B).sum(-1).transpose(1, 2)
+                  .reshape(3, 2, d, d))
+    return dJ0, dh0, dA, dC, dD, djd, dn2
+
+
+def filter_adj(J0, h0, A, C, D, jd, n2, J, h, dJ, dh, dln):
+    """Adjoint of :func:`filter_fwd`: its inputs, its outputs ``J``, ``h``
+    and their cotangents ``dJ``, ``dh``, ``dln`` -> the cotangents of its
+    inputs ``(dJ0, dh0, dA, dC, dD, djd, dn2)``, shaped as the inputs."""
+    if J0.device.type == "cpu":
+        return filter_adj_plain(J0, h0, A, C, D, jd, n2, J, h, dJ, dh, dln)
+    T, d, B = jd.shape
+    args = (J0, h0, A, C, D, jd, n2, J, h, dJ, dh, dln)
+    _check_filter_shapes("filter_adj", *args)
+    _check_kernel_args("filter_adj", d, args)
+    kw = dict(dtype=J0.dtype, device=J0.device)
+    dnode = torch.empty((2, 2, T, d, B), **kw)
+    dJ0 = torch.empty((d * d, 2 * B), **kw)
+    dh0 = torch.empty((d, 2 * B), **kw)
+    dpar = torch.empty((3, d * d, 2 * B), **kw)
+    lib = _build.load_library()
+    _launch("filter_adj", lib.svae_filter_adj_f32, J0.device, d, B, T, J0,
+            h0, A, D, jd, n2, J, h, dJ, dh, dln, dnode, dJ0, dh0, dpar)
+    filter_adj.launches += 1
+    return _filter_adj_outputs(dnode, dJ0, dh0, dpar, d, B)
+
+
+filter_adj.launches = 0
+
+
+def _sampler_adj_outputs(dJc, dhf, dxT, dP2, B):
+    """The adjoint kernel's per-lane outputs -> the cotangents of
+    :func:`sampler_fwd`'s inputs ``(dP2, dP3, dJf, dhf, dxT)``: the S
+    samples of a sequence summed, dP3 = -2 sum dJc, dP2 summed over the
+    lanes."""
+    T1, dd, SB = dJc.shape
+    d = dhf.shape[1]
+    dJf = dJc.reshape(T1, dd, SB // B, B).sum(2)
+    dhf = dhf.reshape(T1, d, SB // B, B).sum(2)
+    dP3 = -2.0 * dJf.sum((0, 2)).reshape(d, d)
+    return dP2.sum(1).reshape(d, d), dP3, dJf, dhf, dxT
+
+
+def sampler_adj(P2, P3, Jf, hf, eps, xT, x, dx):
+    """Adjoint of :func:`sampler_fwd`: its inputs, its output ``x`` and
+    the cotangent ``dx`` -> the cotangents ``(dP2, dP3, dJf, dhf, dxT)`` of
+    its inputs other than the noise (which has none: it is i.i.d. and
+    nothing upstream depends on it)."""
+    if P2.device.type == "cpu":
+        return sampler_adj_plain(P2, P3, Jf, hf, eps, xT, x, dx)
+    T1, dd, B = Jf.shape
+    d, SB = xT.shape
+    args = (P2, P3, Jf, hf, eps, xT, x, dx)
+    _check_sampler_shapes("sampler_adj", *args)
+    _check_kernel_args("sampler_adj", d, args)
+    kw = dict(dtype=xT.dtype, device=xT.device)
+    dJc = torch.empty((T1, dd, SB), **kw)
+    dhf = torch.empty((T1, d, SB), **kw)
+    dxT = torch.empty((d, SB), **kw)
+    dP2 = torch.empty((dd, SB), **kw)
+    lib = _build.load_library()
+    _launch("sampler_adj", lib.svae_sampler_adj_f32, xT.device, d, B,
+            SB // B, T1 + 1, *args, dJc, dhf, dxT, dP2)
+    sampler_adj.launches += 1
+    return _sampler_adj_outputs(dJc, dhf, dxT, dP2, B)
+
+
+sampler_adj.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -189,6 +296,90 @@ def sampler_fwd_plain(P2, P3, Jf, hf, eps, xT):
 
 
 sampler_fwd_plain.calls = 0
+
+
+def _vjp(fn, inputs, cotangents):
+    """Gradients of ``fn(*inputs)`` against ``cotangents`` with respect to
+    every input (zeros where an input is unused)."""
+    ins = [x.detach().requires_grad_() for x in inputs]
+    with torch.enable_grad():
+        outs = fn(*ins)
+    grads = torch.autograd.grad(outs, ins, cotangents, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g
+            for x, g in zip(ins, grads)]
+
+
+def filter_adj_plain(J0, h0, A, C, D, jd, n2, J, h, dJ, dh, dln):
+    """Plain version of :func:`filter_adj` (same arguments, same outputs):
+    the vector-Jacobian product of :func:`filter_fwd_plain` (``J`` and
+    ``h`` are not read)."""
+    filter_adj_plain.calls += 1
+    return tuple(_vjp(filter_fwd_plain, (J0, h0, A, C, D, jd, n2),
+                      (dJ, dh, dln)))
+
+
+filter_adj_plain.calls = 0
+
+
+def sampler_adj_plain(P2, P3, Jf, hf, eps, xT, x, dx):
+    """Plain version of :func:`sampler_adj` (same arguments, same
+    outputs): the vector-Jacobian product of :func:`sampler_fwd_plain`
+    (``x`` is not read)."""
+    sampler_adj_plain.calls += 1
+    fwd = lambda P2, P3, Jf, hf, xT: sampler_fwd_plain(P2, P3, Jf, hf, eps,
+                                                        xT)
+    return tuple(_vjp(fwd, (P2, P3, Jf, hf, xT), (dx,)))
+
+
+sampler_adj_plain.calls = 0
+
+
+# --------------------------------------------------------------------------
+# autograd Functions (the JAX package's filter_prim / sampler_prim)
+# --------------------------------------------------------------------------
+
+
+class FilterFwd(torch.autograd.Function):
+    """:func:`filter_fwd` with :func:`filter_adj` as its backward."""
+
+    @staticmethod
+    def forward(ctx, J0, h0, A, C, D, jd, n2):
+        J, h, ln = filter_fwd(J0, h0, A, C, D, jd, n2)
+        ctx.save_for_backward(J0, h0, A, C, D, jd, n2, J, h)
+        return J, h, ln
+
+    @staticmethod
+    def backward(ctx, dJ, dh, dln):
+        return filter_adj(*ctx.saved_tensors, dJ.contiguous(),
+                          dh.contiguous(), dln.contiguous())
+
+
+class SamplerFwd(torch.autograd.Function):
+    """:func:`sampler_fwd` with :func:`sampler_adj` as its backward; the
+    noise gets no cotangent, as in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, P2, P3, Jf, hf, eps, xT):
+        x = sampler_fwd(P2, P3, Jf, hf, eps, xT)
+        ctx.save_for_backward(P2, P3, Jf, hf, eps, xT, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, dx):
+        dP2, dP3, dJf, dhf, dxT = sampler_adj(*ctx.saved_tensors,
+                                              dx.contiguous())
+        return dP2, dP3, dJf, dhf, None, dxT
+
+
+def _forward(kernel, twin, function, args, plain=False):
+    """One forward recursion: the twin on the CPU (or with ``plain``); on a
+    card the kernel, through its autograd ``function`` only when a gradient
+    may be asked of it, so that inference saves nothing for a backward."""
+    if plain or args[0].device.type == "cpu":
+        return twin(*args)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return function.apply(*args)
+    return kernel(*args)
 
 
 # --------------------------------------------------------------------------
@@ -257,9 +448,9 @@ def _filter_and_moments(init, pair_mats, nodes_diag, plain=False):
     jd, n2 = nodes_diag
     B, T, d = n2.shape
     dd = d * d
-    filt = filter_fwd_plain if plain else filter_fwd
     args = filter_inputs(init, pair_mats, nodes_diag)
-    Jr, hr, ln = filt(*args)
+    Jr, hr, ln = _forward(filter_fwd, filter_fwd_plain, FilterFwd, args,
+                          plain)
     J0, h0 = args[:2]
 
     # align the halves in frame order, packed (T, dd, B)
@@ -319,7 +510,6 @@ def lds_estep_stationary(init, pair_mats, nodes_diag, generator,
     B, T, d = n2.shape
     S = int(num_samples)
     T1 = T - 1
-    samp = sampler_fwd_plain if plain else sampler_fwd
 
     logZ, Ex, ExxT, Exnxt, Jf, hf = _filter_and_moments(
         init, pair_mats, nodes_diag, plain=plain)
@@ -342,7 +532,8 @@ def lds_estep_stationary(init, pair_mats, nodes_diag, generator,
         eps = torch.randn((S, B, T, d), generator=generator, dtype=n2.dtype,
                           device=n2.device)
     args, xT = sampler_inputs(pair_mats, Jf, hf, eps)
-    xb = samp(*args)                                      # (T-1, d, S*B)
+    xb = _forward(sampler_fwd, sampler_fwd_plain, SamplerFwd, args,
+                  plain)                                  # (T-1, d, S*B)
     x_body = xb.permute(2, 0, 1).reshape(S, B, T1, d)
     samples = torch.cat([x_body, xT[:, :, None]], dim=2)
     return samples, (niw_stats, mniw_stats), local_kl

@@ -26,7 +26,7 @@ def check_finite(tree, what):
     whose outputs are finite had every factor succeed."""
     leaves = tree_leaves(tree)
     dev = leaves[0].device
-    flat = torch.cat([torch.as_tensor(x, device=dev).reshape(-1)
+    flat = torch.cat([torch.as_tensor(x, device=dev).detach().reshape(-1)
                       for x in leaves])
     if not bool(torch.isfinite(flat).all()):
         raise FloatingPointError(

@@ -176,7 +176,8 @@ def test_cpu_runs_twins_and_build_raises_without_nvcc(tmp_path):
         "from svae_tpu_torch.models import lds\n"
         "from svae_tpu_torch.ops import _build, estep\n"
         "g = torch.Generator().manual_seed(0)\n"
-        "glob = lds.init_pgm_param(3, g, dtype=torch.float64)\n"
+        "glob = lds.init_pgm_param(3, g, dtype=torch.float64, "
+        "device='cpu')\n"
         "pots = (torch.rand(2, 5, 3, dtype=torch.float64, generator=g) + .5,\n"
         "        torch.randn(2, 5, 3, dtype=torch.float64, generator=g))\n"
         "s, stats, gkl, lkl = lds.run_inference(glob, glob, pots, g, 2)\n"

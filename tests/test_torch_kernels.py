@@ -1,12 +1,12 @@
-"""The CUDA kernels of svae_tpu_torch/csrc/estep.cu against their plain
-twins, on a card. Every test is marked ``gpu`` and skips on a host without
-one. The file imports no JAX, so it also runs where JAX is missing:
+"""The CUDA kernels of svae_tpu_torch/csrc/*.cu against their plain
+versions, on a card. Every test is marked ``gpu`` and skips on a host
+without one. The file imports no JAX, so it also runs where JAX is missing:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
-Kernels run in float32, twins in float64 on the same inputs; the
+Kernels run in float32, plain versions in float64 on the same inputs; the
 tolerances are chip_smoke.py's (the float32 tiers of
-tests/test_f32_parity.py)."""
+tests/test_f32_parity.py, and a normwise 1e-3 for the adjoints)."""
 
 import os
 import sys
@@ -88,3 +88,51 @@ def test_launch_counters_count_launches(smoke):
     after = (estep.filter_fwd.launches, estep.sampler_fwd.launches,
              estep.filter_fwd_plain.calls, estep.sampler_fwd_plain.calls)
     assert [a - b for a, b in zip(after, before)] == [1, 1, 0, 0]
+
+
+@pytest.mark.parametrize("shape", ["small", "config2"])
+def test_adjoints_match_plain(smoke, shape):
+    smoke.check_adjoints(smoke.SHAPES[shape], seed=0)
+
+
+@pytest.mark.parametrize("d", estep.KERNEL_DIMS)
+def test_adjoints_match_plain_at_every_built_d(smoke, d):
+    smoke.check_adjoints(dict(B=5, T=9, d=d, S=3), seed=d)
+
+
+def _estep_grads(init, mats, nodes, eps):
+    """Gradients of a fixed scalar of the E-step's outputs with respect to
+    its inputs (init, pair matrices, jd, h)."""
+    leaves = [x.detach().clone().requires_grad_()
+              for x in (*init, *mats, *nodes)]
+    init, mats, nodes = leaves[:3], leaves[3:7], leaves[7:]
+    s, (niw_s, mniw_s), kl = estep.lds_estep_stationary(
+        init, mats, nodes, None, eps.shape[0], eps=eps)
+    parts = (s, niw_s[0], niw_s[1], mniw_s[0], mniw_s[1], mniw_s[2], kl)
+    g = torch.Generator().manual_seed(4)
+    w = [torch.randn(p.shape, generator=g, dtype=torch.float64) for p in parts]
+    loss = sum((wi.to(p) * p).sum() for wi, p in zip(w, parts))
+    return torch.autograd.grad(loss, leaves)
+
+
+def test_estep_gradients_on_card_match_cpu_twins(smoke):
+    """The Functions' backward (the adjoint kernels) against torch's
+    autograd through the float64 twins on the CPU."""
+    init, mats, nodes, eps = smoke._problem(dict(B=7, T=12, d=4, S=2), 1,
+                                            "cuda")
+    f32 = smoke._f32
+    got = _estep_grads(f32(init), f32(mats), f32(nodes), eps.float())
+    cpu = lambda xs: tuple(x.cpu() for x in xs)
+    want = _estep_grads(cpu(init), cpu(mats), cpu(nodes), eps.cpu())
+    for a, b in zip(got, want):
+        assert float((a.double().cpu() - b).norm() / b.norm()) < 1e-3
+
+
+def test_adjoint_launch_counters_count_launches(smoke):
+    init, mats, nodes, eps = smoke._problem(smoke.SHAPES["small"], 0, "cuda")
+    f32 = smoke._f32
+    smoke._reset_counters()
+    _estep_grads(f32(init), f32(mats), f32(nodes), eps.float())
+    torch.cuda.synchronize()
+    assert [w.launches for w in smoke.WRAPPERS] == [1, 1, 1, 1]
+    assert [p.calls for p in smoke.PLAINS] == [0, 0, 0, 0]

@@ -44,8 +44,8 @@ def _close(port, ref):
     port_leaves, ref_leaves = tree_leaves(port), jax.tree.leaves(ref)
     assert len(port_leaves) == len(ref_leaves)
     for p, r in zip(port_leaves, ref_leaves):
-        np.testing.assert_allclose(np.asarray(p), np.asarray(r), rtol=RTOL,
-                                   atol=ATOL)
+        np.testing.assert_allclose(torch.as_tensor(p).detach().numpy(),
+                                   np.asarray(r), rtol=RTOL, atol=ATOL)
 
 
 @pytest.fixture(scope="module")
@@ -133,7 +133,8 @@ def test_failed_factor_raises(model, entry):
 
 def test_init_pgm_param_is_seeded_and_valid():
     make = lambda seed: lds.init_pgm_param(
-        d, torch.Generator().manual_seed(seed), dtype=torch.float64)
+        d, torch.Generator().manual_seed(seed), dtype=torch.float64,
+        device="cpu")
     a, b, c = make(0), make(0), make(1)
     for x, y in zip(tree_leaves(a), tree_leaves(b)):
         torch.testing.assert_close(x, y, rtol=0, atol=0)

@@ -13,7 +13,8 @@ from svae_tpu.nets import decoders as jax_decoders
 from svae_tpu.nets import recognition as jax_recognition
 
 from svae_tpu_torch import convert
-from svae_tpu_torch.nets import decoders, recognition
+from svae_tpu_torch.models import lds
+from svae_tpu_torch.nets import decoders, mlp, recognition
 from svae_tpu_torch.nets.mlp import softplus
 
 torch.set_num_threads(1)
@@ -90,7 +91,8 @@ def test_mlp_loglike_matches_jax(nets, masked):
 
 def test_init_is_seeded_and_shaped():
     make = lambda seed: recognition.init_mlp_recognize(
-        D_OBS, HIDDEN, D_LAT, torch.Generator().manual_seed(seed))
+        D_OBS, HIDDEN, D_LAT, torch.Generator().manual_seed(seed),
+        device="cpu")
     a, b, c = make(0), make(0), make(1)
     x = torch.randn(4, D_OBS, generator=torch.Generator().manual_seed(9))
     Ja, ha = a(x)
@@ -98,6 +100,38 @@ def test_init_is_seeded_and_shaped():
     torch.testing.assert_close(b(x), (Ja, ha), rtol=0, atol=0)
     assert not torch.allclose(c(x)[1], ha)
     dec = decoders.init_mlp_decode(D_LAT, HIDDEN, D_OBS,
-                                   torch.Generator().manual_seed(0))
+                                   torch.Generator().manual_seed(0),
+                                   device="cpu")
     mu, ls = dec(ha)
     assert mu.shape == ls.shape == (4, D_OBS)
+
+
+INITS = {
+    "init_pgm_param": lambda g, **kw: lds.init_pgm_param(D_LAT, g, **kw),
+    "init_dense": lambda g, **kw: mlp.init_dense(D_OBS, D_LAT, g, **kw),
+    "init_mlp": lambda g, **kw: mlp.init_mlp((D_OBS,) + HIDDEN, g, **kw),
+    "init_mlp_recognize": lambda g, **kw: recognition.init_mlp_recognize(
+        D_OBS, HIDDEN, D_LAT, g, **kw),
+    "init_mlp_decode": lambda g, **kw: decoders.init_mlp_decode(
+        D_LAT, HIDDEN, D_OBS, g, **kw),
+}
+
+
+def _devices(made):
+    if isinstance(made, torch.nn.Module):
+        return {p.device.type for p in made.parameters()}
+    return {t.device.type for t in jax.tree.leaves(made)}
+
+
+@pytest.mark.parametrize("name", sorted(INITS))
+def test_init_defaults_to_the_card(name):
+    """The entry points run on the card unless asked for the CPU: with no
+    ``device`` they place their tensors on "cuda" even when the generator
+    is a CPU one, which raises where there is no card."""
+    g = torch.Generator().manual_seed(0)
+    assert _devices(INITS[name](g, device="cpu")) == {"cpu"}
+    if torch.cuda.is_available():
+        assert _devices(INITS[name](g)) == {"cuda"}
+    else:
+        with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
+            INITS[name](g)

@@ -73,6 +73,19 @@ def stages(device="cuda"):
     opt_init, step = loop.make_train_step(*parts, num_samples=S)
     state = [glob, (rec, dec), opt_init(glob, (rec, dec))]
 
+    seqs = chip_smoke.ragged_corpus()
+    buckets = {b[0].shape[1]: b for b in chip_smoke._ragged_epoch(
+        seqs, B, chip_smoke.RAGGED_PAD, device)}
+    ropt_init, rstep = loop.make_train_step(*parts[:4], len(seqs),
+                                            num_samples=1, ragged=True)
+    rstate = [glob, (rec, dec), ropt_init(glob, (rec, dec))]
+
+    def ragged_step(T):
+        def run():
+            rstate[0], rstate[1], rstate[2], _, _ = rstep(*rstate,
+                                                          buckets[T], gen)
+        return run
+
     def value():
         with torch.no_grad():
             return objective(glob, (rec, dec), batch, gen)
@@ -101,6 +114,8 @@ def stages(device="cuda"):
         "objective": value,
         "train_step": train_step,
         "train_step_nosync": train_step_nosync,
+        "ragged_train_step_T128": ragged_step(128),
+        "ragged_train_step_T512": ragged_step(512),
     }
 
 

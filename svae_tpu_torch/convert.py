@@ -12,6 +12,8 @@ this module needs no JAX:
   :class:`~svae_tpu_torch.nets.decoders.MLPDecoder`.
 
 Dense weights keep their (n_in, n_out) layout (svae_tpu_torch/nets/mlp.py).
+Like the ``init_*`` entry points, each function places its tensors on the
+card unless given ``device="cpu"``.
 """
 
 import numpy as np
@@ -28,7 +30,7 @@ def _tensor(a, dtype, device):
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
-def natparam(tree, dtype=None, device=None):
+def natparam(tree, dtype=None, device="cuda"):
     """Nested tuples of arrays -> nested tuples of tensors."""
     return tree_map(lambda a: _tensor(a, dtype, device), tree)
 
@@ -42,7 +44,7 @@ def _hidden(params, dtype, device):
     return MLP([_dense(p, dtype, device) for p in params])
 
 
-def recognizer(params, dtype=None, device=None):
+def recognizer(params, dtype=None, device="cuda"):
     hidden, (j_layer, h_layer) = params
     return MLPRecognizer(
         _hidden(hidden, dtype, device),
@@ -50,7 +52,7 @@ def recognizer(params, dtype=None, device=None):
                          _dense(h_layer, dtype, device)))
 
 
-def decoder(params, dtype=None, device=None):
+def decoder(params, dtype=None, device="cuda"):
     hidden, (mean_layer, sig_layer) = params
     return MLPDecoder(
         _hidden(hidden, dtype, device),

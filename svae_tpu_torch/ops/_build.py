@@ -99,7 +99,11 @@ def load_library():
         for name, ints, ptrs in (("svae_filter_fwd_f32", 3, 11),
                                  ("svae_sampler_fwd_f32", 4, 8),
                                  ("svae_filter_adj_f32", 3, 16),
-                                 ("svae_sampler_adj_f32", 4, 13)):
+                                 ("svae_sampler_adj_f32", 4, 13),
+                                 ("svae_bidir_fwd_f32", 3, 12),
+                                 ("svae_sampler_bp_fwd_f32", 4, 8),
+                                 ("svae_bidir_adj_f32", 3, 18),
+                                 ("svae_sampler_bp_adj_f32", 4, 13)):
             fn = getattr(lib, name)
             fn.argtypes = [i] * ints + [p] * ptrs
             fn.restype = i

@@ -383,24 +383,28 @@ def _forward(kernel, twin, function, args, plain=False):
 
 
 # --------------------------------------------------------------------------
-# smoothed-moment assembly (batched torch ops, stationary pairs)
+# smoothed-moment assembly (batched torch ops)
 # --------------------------------------------------------------------------
 
 
-def _assembly(E1, E2, E3, jd, Jf, hf, Jb, hb):
-    """Smoothed node and pair moments from the two filters' messages
-    (port of pallas_estep._assembly_xla). Jf/Jb (B, T, d, d), hf/hb
-    (B, T, d)."""
+def smoother_assembly(pairs, nodes, Jf, hf, Jb, hb):
+    """Smoothed node and pair moments ``(Ex (B, T, d), ExxT (B, T, d, d),
+    Exnxt (B, T-1, d, d))`` from the two filters' messages Jf/Jb
+    (B, T, d, d), hf/hb (B, T, d) (port of pallas_estep._assembly_xla and
+    pallas_vjp._smoother_assembly). ``pairs`` = (P1, P2, P3, ...), shared
+    (d, d) or (T-1, d, d), or per sequence (B, T-1, d, d); ``nodes`` =
+    (N1 (B, T, d, d), N2)."""
+    P1, P2, P3 = pairs[:3]
+    N1 = nodes[0]
     Js = Jf + Jb
     L = smallchol.chol(symmetrize(Js))
     Ex = smallchol.cho_solve(L, hf + hb)
     Sig = smallchol.cho_solve_mat(L, eye_like(Js))
     ExxT = symmetrize(Sig + Ex[..., :, None] * Ex[..., None, :])
 
-    J12l = -E2.mT                                  # shared (d, d)
-    J11 = -2.0 * E3 + Jf[:, :-1]
-    # J22 = -2 (P1 + N1[t+1]) + Jb[t+1]; N1 diagonal = -1/2 diag(jd)
-    J22 = -2.0 * E1 + torch.diag_embed(jd[:, 1:]) + Jb[:, 1:]
+    J12l = -P2.mT
+    J11 = -2.0 * P3 + Jf[:, :-1]
+    J22 = -2.0 * (P1 + N1[:, 1:]) + Jb[:, 1:]
     L11 = smallchol.chol(symmetrize(J11))
     J11inv_J12 = smallchol.cho_solve_mat(L11, J12l.expand(J11.shape))
     S = J22 - J12l.mT @ J11inv_J12
@@ -443,8 +447,7 @@ def _filter_and_moments(init, pair_mats, nodes_diag, plain=False):
     Ex (B,T,d), ExxT (B,T,d,d), Exnxt (B,T-1,d,d), Jf, hf)`` with the
     forward messages (Jf, hf) in the packed (T, d*d, B) / (T, d, B) layout
     for the sampler."""
-    Ic = init[2]
-    E1, E2, E3, Pc = pair_mats
+    Ic, Pc = init[2], pair_mats[3]
     jd, n2 = nodes_diag
     B, T, d = n2.shape
     dd = d * d
@@ -464,8 +467,9 @@ def _filter_and_moments(init, pair_mats, nodes_diag, plain=False):
 
     unpack_J = lambda x: x.permute(2, 0, 1).reshape(B, T, d, d)
     unpack_h = lambda x: x.permute(2, 0, 1)
-    Ex, ExxT, Exnxt = _assembly(E1, E2, E3, jd, unpack_J(Jf), unpack_h(hf),
-                                unpack_J(Jb), unpack_h(hb))
+    Ex, ExxT, Exnxt = smoother_assembly(
+        pair_mats, (-0.5 * torch.diag_embed(jd), n2), unpack_J(Jf),
+        unpack_h(hf), unpack_J(Jb), unpack_h(hb))
     return logZ, Ex, ExxT, Exnxt, Jf, hf
 
 

@@ -17,31 +17,41 @@ Two gradient channels:
 
 import torch
 
+from svae_tpu_torch.models.lds import _length_mask
 from svae_tpu_torch.utils.pytree import (tree_add, tree_map, tree_scale,
                                          tree_sub)
-
-_RAGGED = ("ragged batches (ragged=True) are not ported yet: ROADMAP.md "
-           "Queue 1, 'Ragged and masked LDS'")
 
 
 def masked_forward(run_inference, recognize, loglike, pgm_prior,
                    pgm_params, net_params, batch, generator, num_samples,
-                   mask_fn=None):
+                   mask_fn=None, ragged=False):
     """Recognition -> inference -> decoder log-likelihood. Returns
-    ``(ll, stats, global_kl, local_kl, B)``. ``mask_fn``: ``batch ->
-    (clean_batch, mask)`` for data with missing frames; the mask goes to
-    ``run_inference(mask=)`` and to ``loglike(mask=)``."""
+    ``(ll, stats, global_kl, local_kl, B)``. The masks compose: ``mask_fn``
+    (``frames -> (clean_frames, mask)``) marks missing frames, whose mask
+    goes to ``run_inference(mask=)`` and ``loglike(mask=)``; a ``ragged``
+    batch is a ``(frames, lengths)`` pair whose lengths go to
+    ``run_inference(lengths=)`` and whose pad frames also drop out of the
+    decoder term."""
     recogn_net, loglike_net = net_params
-    B = batch.shape[0]
+    frames, lengths = batch if ragged else (batch, None)
+    B = frames.shape[0]
     if mask_fn is None:
-        clean, mask = batch, None
+        clean, mask = frames, None
     else:
-        clean, mask = mask_fn(batch)
+        clean, mask = mask_fn(frames)
     nn_potentials = recognize(recogn_net, clean)
     kw = {} if mask is None else {"mask": mask}
+    if lengths is not None:
+        kw["lengths"] = lengths
     samples, stats, global_kl, local_kl = run_inference(
         pgm_prior, pgm_params, nn_potentials, generator, num_samples, **kw)
-    ll = loglike(loglike_net, samples, clean, **kw)
+    ll_mask = mask
+    if lengths is not None:
+        lm = _length_mask(lengths, B, clean.shape[-2], clean.dtype,
+                          clean.device)
+        ll_mask = lm if ll_mask is None else ll_mask * lm
+    ll_kw = {} if ll_mask is None else {"mask": ll_mask}
+    ll = loglike(loglike_net, samples, clean, **ll_kw)
     return ll, stats, global_kl, local_kl, B
 
 
@@ -51,14 +61,15 @@ def make_objective(run_inference, recognize, loglike, pgm_prior, N,
     (elbo_per_datapoint, (stats, terms))`` with ``net_params =
     (recognizer, decoder)``. The value carries the autograd graph to the
     nets' parameters; ``stats`` (for the natural gradient) and ``terms``
-    (the ELBO's three components per datapoint) are detached."""
-    if ragged:
-        raise NotImplementedError(_RAGGED)
+    (the ELBO's three components per datapoint) are detached. ``ragged``:
+    the batch is a ``(frames (B, T, d_obs), lengths (B,))`` pair from a
+    length-bucketed loader (svae_tpu_torch.data.loader), with the exact
+    padded-batch semantics of ``run_inference(lengths=)``."""
 
     def objective(pgm_params, net_params, batch, generator):
         ll, stats, global_kl, local_kl, B = masked_forward(
             run_inference, recognize, loglike, pgm_prior, pgm_params,
-            net_params, batch, generator, num_samples, mask_fn)
+            net_params, batch, generator, num_samples, mask_fn, ragged)
         elbo = (N / B) * (ll - local_kl) - global_kl
         terms = {
             "loglike": ll / B,
@@ -97,7 +108,7 @@ def make_gradfun(run_inference, recognize, loglike, pgm_prior, N,
                                ragged=ragged)
 
     def gradfun(pgm_params, net_params, batch, generator):
-        B = batch.shape[0]
+        B = (batch[0] if ragged else batch).shape[0]
         params = net_parameters(net_params)
         with torch.enable_grad():
             elbo, (stats, terms) = objective(pgm_params, net_params, batch,

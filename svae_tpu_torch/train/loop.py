@@ -1,5 +1,6 @@
-"""Training loop: one SVI step, a k-step loop and a host-side epoch loop
-with callbacks (port of svae_tpu/train/loop.py).
+"""Training loop: one SVI step, a k-step loop and host-side epoch loops
+with callbacks, over a dense array or a loader (port of
+svae_tpu/train/loop.py).
 
 PyTorch runs eagerly, so there is no jit and no buffer donation: a step is
 the sequence of kernels its ops launch, and the nets are updated in place
@@ -12,11 +13,13 @@ import torch
 
 from svae_tpu_torch.train.elbo import make_gradfun
 from svae_tpu_torch.train.optim import make_optimizer
+from svae_tpu_torch.utils.pytree import tree_leaves
 
 
 def make_train_step(run_inference, recognize, loglike, pgm_prior, N,
                     num_samples=1, natgrad_scale=1.0, pgm_step_size=1.0,
-                    net_optimizer=None, net_step_size=1e-3, mask_fn=None):
+                    net_optimizer=None, net_step_size=1e-3, mask_fn=None,
+                    ragged=False):
     """Build ``(init_state, train_step)``:
 
       init_state(pgm_params, net_params) -> opt_state
@@ -24,9 +27,12 @@ def make_train_step(run_inference, recognize, loglike, pgm_prior, N,
           -> (pgm_params, net_params, opt_state, elbo, terms)
 
     ``terms`` carries the ELBO components and the net-gradient norm, as
-    device scalars; ``generator`` draws the step's sampling noise."""
+    device scalars; ``generator`` draws the step's sampling noise.
+    ``ragged`` makes ``batch`` a ``(frames, lengths)`` pair from a
+    length-bucketed loader (see elbo.make_objective)."""
     gradfun = make_gradfun(run_inference, recognize, loglike, pgm_prior, N,
-                           num_samples, natgrad_scale, mask_fn=mask_fn)
+                           num_samples, natgrad_scale, mask_fn=mask_fn,
+                           ragged=ragged)
     opt_init, opt_update = make_optimizer(net_optimizer, pgm_step_size,
                                           net_step_size)
 
@@ -117,3 +123,72 @@ def run(train_step, pgm_params, net_params, opt_state, data, generator,
                          generator)
     history = torch.stack(history).tolist() if history else []
     return pgm_params, net_params, opt_state, history, generator
+
+
+def _batch_signature(batch):
+    """Shape identity of a loader batch: its structure and each leaf's
+    shape and dtype. The JAX package scans consecutive batches of one
+    signature in one dispatch."""
+    leaves = tree_leaves(batch)
+    return (isinstance(batch, (tuple, list)),
+            tuple((tuple(x.shape), str(x.dtype)) for x in leaves))
+
+
+def run_loader(train_step, pgm_params, net_params, opt_state, get_batches,
+               generator, num_epochs, callback=None, callback_every=1,
+               steps_per_dispatch=1):
+    """Epoch loop driven by a loader factory (``data.loader.make_loader``):
+    each epoch iterates ``get_batches(epoch)``, already shuffled,
+    length-bucketed and on the device, so ragged corpora train through the
+    same callback contract as :func:`run`. Batches may be ``(frames,
+    lengths)`` pairs (with ``make_train_step(ragged=True)``).
+
+    Steps run one at a time, in loader order, each drawing its noise from
+    ``generator`` after the one before. ``steps_per_dispatch=k`` keeps the
+    JAX package's callback cadence: there, runs of k consecutive batches
+    of one shape go into one dispatch and the callback fires at the end of
+    such a group when a multiple of ``callback_every`` fell within it (a
+    shape change or an epoch end runs the partial group step by step). The
+    trajectory does not depend on k, as the JAX package's docstring
+    guarantees for its own; fusing a group into one CUDA graph is later
+    work (ROADMAP.md Queue 1, item 2). The total step count is not known
+    up front, so the callback fires on the cadence only.
+
+    ``callback(step, elbo, (pgm_params, net_params, opt_state), terms,
+    generator)`` gets ``elbo`` as a float (one host sync per firing). The
+    ELBO history stays on the device and is fetched once at the end.
+    Returns (pgm_params, net_params, opt_state, elbo_history, generator).
+    """
+    k_grp = max(int(steps_per_dispatch), 1)
+    state = [pgm_params, net_params, opt_state]
+    history = []
+    step_idx = 0
+
+    def steps(batches):
+        nonlocal step_idx
+        for batch in batches:
+            pgm, net, st, elbo, terms = train_step(*state, batch, generator)
+            state[:] = [pgm, net, st]
+            history.append(elbo)  # device scalar: no host sync
+        step_idx += len(batches)
+        # a multiple of callback_every fell within the steps just run
+        if callback is not None and step_idx % callback_every < len(batches):
+            callback(step_idx - 1, float(elbo), tuple(state), terms,
+                     generator)
+
+    for epoch in range(num_epochs):
+        pending, sig = [], None
+        for batch in get_batches(epoch):
+            if pending and _batch_signature(batch) != sig:
+                for b in pending:
+                    steps([b])
+                pending = []
+            pending.append(batch)
+            sig = _batch_signature(batch)
+            if len(pending) == k_grp:
+                steps(pending)
+                pending = []
+        for b in pending:
+            steps([b])
+    history = torch.stack(history).tolist() if history else []
+    return state[0], state[1], state[2], history, generator

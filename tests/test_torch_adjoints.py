@@ -124,7 +124,7 @@ def problem():
             eps=eps)
         return _score(jnp, s, niw_s, mniw_s, kl, w)
 
-    grads_ref = jax.grad(loss_jax, argnums=(0, 1, 2, 3))(
+    grads_ref = jax.jit(jax.grad(loss_jax, argnums=(0, 1, 2, 3)))(
         jinit, jmats, jnp.asarray(jd), jnp.asarray(h))
     return dict(filt=filt, filt_ref=filt_ref, samp=samp, samp_ref=samp_ref,
                 init=init, mats=tuple(_t(m) for m in mats), jd=_t(jd),

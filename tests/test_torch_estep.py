@@ -87,11 +87,16 @@ def problem():
                                    epsb, xT)),
         d=d, U=1, interpret=True)
 
-    nodes = (jnp.asarray(jd), jnp.asarray(h))
-    estep_ref = pallas_estep.lds_estep_stationary(
-        init, mats, nodes, None, S, block_b=8, interpret=True, eps=eps)
-    moments_ref = pallas_estep.lds_moments_stationary(
-        init, mats, nodes, block_b=8, interpret=True)
+    @jax.jit     # one compile: eager dispatch takes several times longer
+    def references(nodes, eps):
+        return (pallas_estep.lds_estep_stationary(
+                    init, mats, nodes, None, S, block_b=8, interpret=True,
+                    eps=eps),
+                pallas_estep.lds_moments_stationary(
+                    init, mats, nodes, block_b=8, interpret=True))
+
+    estep_ref, moments_ref = references((jnp.asarray(jd), jnp.asarray(h)),
+                                        jnp.asarray(eps))
     return dict(
         init=tuple(_t(x) for x in init), mats=tuple(_t(m) for m in mats),
         jd=_t(jd), h=_t(h), eps=_t(eps),

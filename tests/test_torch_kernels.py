@@ -14,7 +14,8 @@ import sys
 import pytest
 import torch
 
-from svae_tpu_torch.ops import estep
+from svae_tpu_torch.models import lds
+from svae_tpu_torch.ops import bpairs, estep
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 pytestmark = pytest.mark.gpu
@@ -136,3 +137,66 @@ def test_adjoint_launch_counters_count_launches(smoke):
     torch.cuda.synchronize()
     assert [w.launches for w in smoke.WRAPPERS] == [1, 1, 1, 1]
     assert [p.calls for p in smoke.PLAINS] == [0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("shape", ["small", "ragged"])
+def test_bpairs_kernels_match_plain(smoke, shape):
+    smoke.check_bpairs(smoke.RAGGED_SHAPES[shape], seed=0)
+
+
+@pytest.mark.parametrize("d", estep.KERNEL_DIMS)
+def test_bpairs_kernels_match_plain_at_every_built_d(smoke, d):
+    smoke.check_bpairs(dict(B=5, T=9, d=d, S=3), seed=d)
+
+
+def _ragged_grads(init, mats, nodes, eps, lengths):
+    """Gradients of a fixed scalar of the per-sequence-pairs E-step's
+    outputs with respect to the node potentials (N1, N2) of a ragged
+    batch."""
+    jd, h, _ = lds._prepare(nodes, None, lengths, False)
+    pairs, (N1, N2) = lds._ragged_chain(mats, (jd, h), lengths)
+    N1, N2 = (x.detach().clone().requires_grad_() for x in (N1, N2))
+    s, moments, logZ = bpairs.lds_estep(init, pairs, (N1, N2), None,
+                                        eps.shape[0], eps=eps)
+    parts = (s,) + moments + (logZ,)
+    g = torch.Generator().manual_seed(5)
+    w = [torch.randn(p.shape, generator=g, dtype=torch.float64) for p in parts]
+    loss = sum((wi.to(p) * p).sum() for wi, p in zip(w, parts))
+    return torch.autograd.grad(loss, (N1, N2))
+
+
+def test_ragged_estep_gradients_on_card_match_cpu_twins(smoke):
+    """BidirFwd / SamplerBp on the card (the four bpairs kernels, one launch
+    each, no plain version) against torch's autograd through the float64
+    twins on the CPU."""
+    init, mats, nodes, eps = smoke._problem(dict(B=7, T=12, d=4, S=2), 1,
+                                            "cuda")
+    lengths = torch.tensor([12, 9, 2, 12, 5, 7, 11], device="cuda")
+    f32 = smoke._f32
+    smoke._reset_counters()
+    got = _ragged_grads(f32(init), f32(mats), f32(nodes), eps.float(),
+                        lengths)
+    torch.cuda.synchronize()
+    assert [w.launches for w in smoke.RAGGED_WRAPPERS] == [1, 1, 1, 1]
+    assert [p.calls for p in smoke.RAGGED_PLAINS] == [0, 0, 0, 0]
+    cpu = lambda xs: tuple(x.cpu() for x in xs)
+    want = _ragged_grads(cpu(init), cpu(mats), cpu(nodes), eps.cpu(),
+                         lengths.cpu())
+    for a, b in zip(got, want):
+        assert float((a.double().cpu() - b).norm() / b.norm()) < 1e-3
+
+
+def test_bpairs_wrappers_reject_what_the_kernels_do_not_take(smoke):
+    filt, samp, _ = smoke.bpairs_problem(smoke.RAGGED_SHAPES["small"], 0,
+                                         "cuda")
+    with pytest.raises(TypeError, match="float32"):
+        bpairs.bidir_fwd(*filt[:8])
+    with pytest.raises(TypeError, match="float32"):
+        bpairs.sampler_bp_adj(*samp)
+    mixed = list(smoke._f32(filt[:8]))
+    mixed[3] = mixed[3].cpu()
+    with pytest.raises(ValueError, match="CUDA"):
+        bpairs.bidir_fwd(*mixed)
+    filt5, _, _ = smoke.bpairs_problem(dict(B=3, T=7, d=5, S=1), 0, "cuda")
+    with pytest.raises(ValueError, match="d=5"):
+        bpairs.bidir_adj(*smoke._f32(filt5))

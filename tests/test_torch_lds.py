@@ -57,7 +57,8 @@ def model():
     jd = np.logaddexp(rng.standard_normal((B, T, d)), 0.0) + 0.4
     h = rng.standard_normal((B, T, d))
     mask = (rng.random((B, T)) > 0.3).astype(np.float64)
-    to_t = functools.partial(convert.natparam, dtype=torch.float64)
+    to_t = functools.partial(convert.natparam, dtype=torch.float64,
+                             device="cpu")
     return dict(prior_j=prior, glob_j=glob, prior=to_t(_np(prior)),
                 glob=to_t(_np(glob)), jd=jd, h=h, mask=mask)
 
@@ -82,9 +83,11 @@ def test_run_inference_matches_jax_scan_path(model, case):
                                         torch.from_numpy(h)),
         torch.Generator().manual_seed(0), S,
         mask=None if mask is None else torch.from_numpy(mask))
-    s_r, stats_r, gkl_r, lkl_r = jax_lds.run_inference(
-        model["prior_j"], model["glob_j"], (jnp.asarray(jd), jnp.asarray(h)),
-        jax.random.key(1), S, backend="xla", mask=mask)
+    s_r, stats_r, gkl_r, lkl_r = jax.jit(
+        lambda prior, glob, pots, mask: jax_lds.run_inference(
+            prior, glob, pots, jax.random.key(1), S, backend="xla",
+            mask=mask))(model["prior_j"], model["glob_j"],
+                        (jnp.asarray(jd), jnp.asarray(h)), mask)
     assert samples.shape == s_r.shape
     assert bool(torch.isfinite(samples).all())
     _close(stats, stats_r)
@@ -98,14 +101,13 @@ def test_posterior_moments_match_jax_scan_path(model, case):
     out = lds.posterior_moments(
         model["glob"], (torch.from_numpy(jd), torch.from_numpy(h)),
         mask=torch.from_numpy(mask))
-    ref = jax_lds.posterior_moments(
-        model["glob_j"], (jnp.asarray(jd), jnp.asarray(h)), mask=mask,
-        backend="xla")
+    ref = jax.jit(lambda glob, pots, mask: jax_lds.posterior_moments(
+        glob, pots, mask=mask, backend="xla"))(
+            model["glob_j"], (jnp.asarray(jd), jnp.asarray(h)), mask)
     _close(out, ref)
 
 
-@pytest.mark.parametrize("kw", [{"lengths": torch.tensor([8, 5, 8, 3])},
-                                {"parallel": True}])
+@pytest.mark.parametrize("kw", [{"parallel": True}])
 def test_unported_options_raise(model, kw):
     pots = (torch.from_numpy(model["jd"]), torch.from_numpy(model["h"]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -158,24 +160,31 @@ def test_slice_elbo_matches_jax_composition(model):
     eps = np.random.default_rng(4).standard_normal((S, B, T, d))
 
     # JAX: elbo.py:95-107 with run_inference(backend="pallas") spelled out
-    glob, prior = model["glob_j"], model["prior_j"]
-    pots = jax_recognition.mlp_recognize(rp, jnp.asarray(y))
-    (I1, I2), Ic = jax_niw.expected_gaussian_natparam(glob[0])
-    mats = jax_mniw.expected_pair_potential(glob[1])
-    samples, stats_r, lkl = pallas_estep.lds_estep_stationary(
-        (I1, I2, Ic), mats, pots, None, S, block_b=8, interpret=True,
-        eps=eps)
-    gkl = jax_lds.prior_kl(glob, prior)
-    ll = jax_decoders.mlp_loglike(dp, samples, jnp.asarray(y))
-    elbo_r = ((N / B) * (ll - lkl) - gkl) / N
-    terms_r = {"loglike": ll / B, "local_kl": lkl / B, "global_kl": gkl / N}
+    @jax.jit     # one compile: eager dispatch takes several times longer
+    def reference(glob, prior, rp, dp, y, eps):
+        pots = jax_recognition.mlp_recognize(rp, y)
+        (I1, I2), Ic = jax_niw.expected_gaussian_natparam(glob[0])
+        mats = jax_mniw.expected_pair_potential(glob[1])
+        samples, stats_r, lkl = pallas_estep.lds_estep_stationary(
+            (I1, I2, Ic), mats, pots, None, S, block_b=8, interpret=True,
+            eps=eps)
+        gkl = jax_lds.prior_kl(glob, prior)
+        ll = jax_decoders.mlp_loglike(dp, samples, y)
+        elbo_r = ((N / B) * (ll - lkl) - gkl) / N
+        return elbo_r, stats_r, {"loglike": ll / B, "local_kl": lkl / B,
+                                 "global_kl": gkl / N}
+
+    elbo_r, stats_r, terms_r = reference(model["glob_j"], model["prior_j"],
+                                         rp, dp, jnp.asarray(y),
+                                         jnp.asarray(eps))
 
     objective = elbo.make_objective(
         functools.partial(lds.run_inference, eps=torch.from_numpy(eps)),
         recognition.mlp_recognize, decoders.mlp_loglike, model["prior"], N,
         num_samples=S)
-    nets = (convert.recognizer(_np(rp), dtype=torch.float64),
-            convert.decoder(_np(dp), dtype=torch.float64))
+    f64 = dict(dtype=torch.float64, device="cpu")
+    nets = (convert.recognizer(_np(rp), **f64),
+            convert.decoder(_np(dp), **f64))
     value, (stats, terms) = objective(model["glob"], nets,
                                       torch.from_numpy(y), None)
     _close(value, elbo_r)

@@ -42,8 +42,9 @@ def nets():
     rp = (rp[0], ((Wj, bj.at[0].set(25.0)), head_h))
     dp = jax_decoders.init_mlp_decode(k2, D_LAT, HIDDEN, D_OBS,
                                       dtype=jnp.float64)
-    return (rp, dp, convert.recognizer(_np(rp), dtype=torch.float64),
-            convert.decoder(_np(dp), dtype=torch.float64))
+    f64 = dict(dtype=torch.float64, device="cpu")
+    return (rp, dp, convert.recognizer(_np(rp), **f64),
+            convert.decoder(_np(dp), **f64))
 
 
 def test_recognizer_matches_jax(nets):
@@ -135,3 +136,24 @@ def test_init_defaults_to_the_card(name):
     else:
         with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
             INITS[name](g)
+
+
+CONVERTS = {
+    "natparam": lambda m, **kw: convert.natparam(
+        ((np.eye(2), np.zeros(2)), np.ones(())), **kw),
+    "recognizer": lambda m, **kw: convert.recognizer(_np(m[0]), **kw),
+    "decoder": lambda m, **kw: convert.decoder(_np(m[1]), **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONVERTS))
+def test_convert_defaults_to_the_card(nets, name):
+    """Parameters carried over from the JAX package land on the card
+    unless the caller asks for the CPU, as the ``init_*`` entry points'
+    do."""
+    assert _devices(CONVERTS[name](nets, device="cpu")) == {"cpu"}
+    if torch.cuda.is_available():
+        assert _devices(CONVERTS[name](nets)) == {"cuda"}
+    else:
+        with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
+            CONVERTS[name](nets)

@@ -87,7 +87,8 @@ def jax_model():
                                     image_width=D_OBS).astype(np.float64)
     eps = np.random.default_rng(5).standard_normal((S, B, T, d))
     gradfun = jax_elbo.make_gradfun(*JAX_PARTS, prior, N, num_samples=S)
-    grad_out = gradfun(glob, (rp, dp), jnp.asarray(y), jnp.asarray(eps))
+    grad_out = jax.jit(gradfun)(glob, (rp, dp), jnp.asarray(y),
+                                jnp.asarray(eps))
     return dict(prior=prior, glob=glob, nets=(rp, dp), y=y, eps=eps,
                 grad_out=grad_out, steps={})
 
@@ -108,7 +109,7 @@ def _jax_step(jax_model, name):
 
 def _port(jax_model):
     """The JAX model's parameters, data and noise as the port's objects."""
-    f64 = dict(dtype=torch.float64)
+    f64 = dict(dtype=torch.float64, device="cpu")
     rp, dp = jax_model["nets"]
     nets = (convert.recognizer(_np(rp), **f64), convert.decoder(_np(dp),
                                                                 **f64))
@@ -265,8 +266,3 @@ def test_run_callback_cadence_matches_jax():
     assert fired[0][2] == ["global_kl", "local_kl", "loglike",
                            "net_grad_norm"]
     assert state.step == 8
-
-
-def test_ragged_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Ragged and masked"):
-        elbo.make_gradfun(*_tiny()[3], ragged=True)

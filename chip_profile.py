@@ -37,6 +37,7 @@ There is no CPU path.
 
 import argparse
 import collections
+import functools
 import subprocess
 import time
 
@@ -46,8 +47,9 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke
-from svae_tpu_torch.data.synthetic import make_dot_data
-from svae_tpu_torch.models import lds
+from svae_tpu_torch.data.synthetic import (make_dot_data,
+                                           make_switching_dot_data)
+from svae_tpu_torch.models import lds, slds
 from svae_tpu_torch.nets import decoders, recognition
 from svae_tpu_torch.ops import _build, estep
 from svae_tpu_torch.train import elbo, loop
@@ -90,6 +92,8 @@ def stages(device="cuda"):
         with torch.no_grad():
             return objective(glob, (rec, dec), batch, gen)
 
+    slds_stages = slds_stage_fns(device, gen)
+
     def train_step():
         state[0], state[1], state[2], _, _ = step(*state, batch, gen)
 
@@ -116,6 +120,61 @@ def stages(device="cuda"):
         "train_step_nosync": train_step_nosync,
         "ragged_train_step_T128": ragged_step(128),
         "ragged_train_step_T512": ragged_step(512),
+        **slds_stages,
+    }
+
+
+def slds_stage_fns(device, gen):
+    """The SLDS stages as no-argument calls."""
+    cfg = chip_smoke.SLDS_CONFIG
+    K, d, Ts, Bs = cfg["K"], cfg["d"], cfg["T"], cfg["B"]
+    prior, glob, rec, dec = chip_smoke._slds_models(device, K, d,
+                                                    cfg["width"],
+                                                    cfg["hidden"])
+    data = torch.from_numpy(make_switching_dot_data(
+        0, cfg["N"], Ts, cfg["width"])).to(device)
+    with torch.no_grad():
+        jd, h = rec(data[:Bs])
+    e_pi0, e_Pi, chain_init, E_pair = slds._expected_globals(glob,
+                                                             torch.float32)
+    nodes = (-0.5 * torch.diag_embed(jd), h)
+    r_next = torch.full((Bs, Ts - 1, K), 1.0 / K, device=device)
+    moments = slds._x_step(E_pair, chain_init, nodes, r_next)[2]
+
+    def x_step():
+        with torch.no_grad():
+            return slds._x_step(E_pair, chain_init, nodes, r_next)
+
+    def z_step():
+        with torch.no_grad():
+            return slds._z_step(E_pair, e_pi0, e_Pi, moments)
+
+    ms = chip_smoke.MEASURE_SLDS
+    g = torch.Generator().manual_seed(0)
+    mglob = slds.init_pgm_param(ms["K"], ms["d"], g, device=device)
+    mjd = (torch.logaddexp(torch.randn((ms["B"], ms["T"], ms["d"]),
+                                       generator=g), torch.zeros(()))
+           + 0.5).to(device)
+    mh = torch.randn((ms["B"], ms["T"], ms["d"]), generator=g).to(device)
+
+    run = functools.partial(slds.run_inference,
+                            num_meanfield_iters=cfg["sweeps"])
+    opt_init, step = loop.make_train_step(
+        run, recognition.mlp_recognize, decoders.mlp_loglike, prior,
+        cfg["N"], num_samples=cfg["S"], pgm_step_size=cfg["pgm_step_size"],
+        net_step_size=cfg["net_step_size"])
+    state = [glob, (rec, dec), opt_init(glob, (rec, dec))]
+
+    def train_step():
+        state[0], state[1], state[2], _, _ = step(*state, data[:Bs], gen)
+
+    return {
+        "slds_x_step": x_step,
+        "slds_z_step": z_step,
+        "slds_run_inference": lambda: slds.run_inference(
+            mglob, mglob, (mjd, mh), gen, ms["S"],
+            num_meanfield_iters=ms["sweeps"]),
+        "slds_train_step": train_step,
     }
 
 

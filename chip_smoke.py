@@ -41,21 +41,49 @@ exits non-zero:
    ``posterior_moments(lengths=)``
    on one batch, and the padded-batch theorem on the card (two sequences:
    stats and local KL of the padded batch against the two alone);
+3h. each HMM forward-backward kernel (``ops/hmm_fb.py``: streamed and
+   stationary, forward and adjoint) in float32 against its plain version
+   in float64 on the same inputs and random cotangents, and
+   ``hmm_posterior`` on the card against the float64 CPU path: at a small
+   odd shape, at the slds_synth sweep shape (B=16, T=80, K=4; stationary,
+   time-varying with ragged pair weights, and a forced near-forbidden
+   switch) and at bench.py measure_hmm's (B=128, T=100, K=8); then
+   ``hmm_posterior(kernel="stationary")`` with its gradient, the path that
+   runs the stationary kernels, against float64;
+4s. SLDS-SVAE training at the slds_synth preset (svae_tpu/config.py
+   SLDSConfig, examples/slds_synth.py: ``make_switching_dot_data`` with
+   N=256, T=80, 16-pixel frames, K=4, d_latent=4, MLP width 64, 12
+   mean-field sweeps, S=2, B=16, Adam at 1e-3, natural-gradient step 0.5;
+   random weights from a seed): one epoch of 16 steps through ``loop.run``
+   with the launch counters showing each step's schedule (13 launches of
+   the bpairs filter and of the HMM pass, 2 of each adjoint, one sampler
+   and its adjoint) and nothing else; ``most_likely_states`` on 8
+   sequences (segmentation purity printed, not gated); one step and one
+   ragged step against the float64 CPU path; the SLDS padded-batch theorem
+   on the card;
 5. CUDA-event timings (median of 25 runs, 10 for the plain versions at
    T=128) of each kernel and its plain version, of the E-step on the
    kernel path and on the twin path, of one train step and of the fused
    8-step call; of the bpairs kernels at B=64, T=128 and T=512, of one
    ragged train step per length bucket, and of the bucketed epoch against
-   the same corpus padded to T=512.
+   the same corpus padded to T=512; of the HMM kernels and their plain
+   versions at the slds_synth and measure_hmm shapes, of
+   ``slds.run_inference`` at bench.py measure_slds's shape (B=16, T=50,
+   K=4, d=3, 10 sweeps, S=2) on the kernels and on the twins, of one
+   slds_synth train step and of its epoch (host clock).
 
 The line before the last is a JSON object with one entry per kernel (its
-launches on the training path that runs it, error, times and bound); the
-last line is ``{"ok": true, "device": {...}}``. There is no CPU path.
+launches on the path that runs it: the training paths, and phase 3h's
+stationary ``hmm_posterior`` for the stationary HMM kernels; error, times
+and bound); the last line is ``{"ok": true, "device": {...}}``. There is
+no CPU path.
 """
 
+import contextlib
 import copy
 import functools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -65,11 +93,12 @@ import numpy as np
 import torch
 
 from svae_tpu_torch.data import loader as data_loader
-from svae_tpu_torch.data.synthetic import make_dot_data
+from svae_tpu_torch.data.synthetic import (make_dot_data,
+                                           make_switching_dot_data)
 from svae_tpu_torch.expfam import mniw, niw
-from svae_tpu_torch.models import lds
+from svae_tpu_torch.models import lds, slds
 from svae_tpu_torch.nets import decoders, recognition
-from svae_tpu_torch.ops import _build, bpairs, estep
+from svae_tpu_torch.ops import _build, bpairs, estep, hmm_fb
 from svae_tpu_torch.train import elbo, loop
 from svae_tpu_torch.utils.pytree import tree_leaves, tree_map
 
@@ -92,6 +121,10 @@ KERNELS = {
     "bidir_adj": "svae_tpu/ops/pallas_bidir.py:121",
     "sampler_bp_fwd": "svae_tpu/ops/pallas_vjp.py:169",
     "sampler_bp_adj": "svae_tpu/ops/pallas_vjp.py:417",
+    "hmm_fb_fwd": "svae_tpu/ops/pallas_hmm.py:51",
+    "hmm_fb_adj": "svae_tpu/ops/pallas_hmm.py:257",
+    "hmm_fb_stat_fwd": "svae_tpu/ops/pallas_hmm.py:110",
+    "hmm_fb_stat_adj": "svae_tpu/ops/pallas_hmm.py:173",
 }
 SOURCES = {
     "filter_fwd": "svae_tpu_torch/csrc/estep.cu",
@@ -102,6 +135,10 @@ SOURCES = {
     "bidir_adj": "svae_tpu_torch/csrc/bidir_adj.cu",
     "sampler_bp_fwd": "svae_tpu_torch/csrc/bpairs.cu",
     "sampler_bp_adj": "svae_tpu_torch/csrc/sampler_bp_adj.cu",
+    "hmm_fb_fwd": "svae_tpu_torch/csrc/hmm_fb.cu",
+    "hmm_fb_adj": "svae_tpu_torch/csrc/hmm_fb_adj.cu",
+    "hmm_fb_stat_fwd": "svae_tpu_torch/csrc/hmm_fb.cu",
+    "hmm_fb_stat_adj": "svae_tpu_torch/csrc/hmm_fb_adj.cu",
 }
 # ragged batches of the bpairs kernels: lengths spread evenly over [2, T]
 RAGGED_SHAPES = {"small": dict(B=3, T=7, d=3, S=2),
@@ -110,6 +147,24 @@ RAGGED_LONG = dict(B=64, T=512, d=10, S=1)
 # benchmarks/ragged_throughput.py
 RAGGED_CORPUS = dict(N=512, T_min=64, T_max=512, d_obs=20)
 RAGGED_B, RAGGED_PAD = 64, 64
+# the HMM forward-backward kernels: a small odd shape, the slds_synth
+# mean-field's z-step (svae_tpu/config.py SLDSConfig: B=16, T=80, K=4) and
+# bench.py's measure_hmm shape
+HMM_SHAPES = {"small": dict(B=3, T=7, K=3), "slds": dict(B=16, T=80, K=4),
+              "measure_hmm": dict(B=128, T=100, K=8)}
+# float32 message kernels against float64 plain versions, normwise per
+# output: the log-normalizer tier carried to log-space messages (node
+# marginals of hmm_posterior are held to TOL_ABS, the adjoints to
+# TOL_ADJ_REL)
+TOL_MSG_REL = 2e-4
+# SLDS-SVAE training at the slds_synth preset (svae_tpu/config.py
+# SLDSConfig, examples/slds_synth.py): K=4 states, d_latent=4, T=80,
+# 16-pixel frames, MLP width 64, 12 mean-field sweeps, S=2, B=16 of N=256,
+# Adam at 1e-3, natural-gradient step 0.5
+SLDS_CONFIG = dict(K=4, d=4, T=80, width=16, N=256, hidden=64, sweeps=12,
+                   S=2, B=16, net_step_size=1e-3, pgm_step_size=0.5)
+# bench.py measure_slds: the SLDS E-step alone
+MEASURE_SLDS = dict(B=16, T=50, K=4, d=3, sweeps=10, S=2)
 # the padded-batch theorem in float32: stats and local KL of a padded
 # batch against its sequences run alone (tests/test_masking.py's Pallas
 # tier)
@@ -273,6 +328,154 @@ def check_bpairs(shape, seed=0, device="cuda"):
     return errs
 
 
+def hmm_problem(shape, seed=0, device="cuda", case="stationary"):
+    """float64 inputs of ``hmm_posterior`` at ``shape``: ``(log_init (K,),
+    log_trans, log_obs (B, T, K), pair_weights)``. ``case``:
+
+    * ``"stationary"``: random (K, K) log_trans, observations 3 N(0, 1);
+    * ``"ragged"``: time-varying (B, T-1, K, K) log_trans with uniform rows
+      at the pad transitions of lengths spread over [2, T], the pads'
+      observations zeroed and ``pair_weights`` marking the real
+      transitions, as the SLDS z-step of a ragged batch builds them;
+    * ``"forced"``: sticky transitions whose 0 -> 1 entry is -100, and
+      observations (0 on state 0 before a frame spread over [T/4, 3T/4]
+      and on state 1 from it, -100 elsewhere) that force every sequence
+      through that transition once: a route through a third state costs
+      16 nats more.
+
+    ``pair_weights`` is None but for ``"ragged"``."""
+    B, T, K = (shape[k] for k in "BTK")
+    g = torch.Generator().manual_seed(seed)
+    f64 = dict(dtype=torch.float64)
+    li = torch.randn(K, generator=g, **f64).log_softmax(-1)
+    lt = torch.randn((K, K), generator=g, **f64).log_softmax(-1)
+    lo = 3.0 * torch.randn((B, T, K), generator=g, **f64)
+    w = None
+    if case == "ragged":
+        lengths = torch.linspace(2, T, B).round()
+        w = (torch.arange(1, T)[None] < lengths[:, None]).double()
+        wm = w[..., None, None]
+        lt = (wm * torch.randn((B, T - 1, K, K), generator=g,
+                               **f64).log_softmax(-1)
+              + (1.0 - wm) * -math.log(K))
+        lo = torch.cat([lo[:, :1], lo[:, 1:] * w[..., None]], 1)
+    elif case == "forced":
+        eye = torch.eye(K, **f64)
+        lt = torch.log(0.999 * eye + 0.001 / (K - 1) * (1.0 - eye))
+        lt[0, 1] = -100.0
+        li = torch.log(torch.tensor([1.0 - 0.001 * (K - 1)]
+                                    + [0.001] * (K - 1), **f64))
+        lo = torch.full((B, T, K), -100.0, **f64)
+        switch = torch.linspace(T // 4, 3 * T // 4, B).round().long()
+        for b, s in enumerate(switch.tolist()):
+            lo[b, :s, 0] = 0.0
+            lo[b, s:, 1] = 0.0
+    on = lambda x: None if x is None else x.to(device)
+    return on(li), on(lt), on(lo), on(w)
+
+
+HMM_RUNS = (("hmm_fb_fwd", "hmm_fb_adj"),
+            ("hmm_fb_stat_fwd", "hmm_fb_stat_adj"))
+
+
+def hmm_kernel_args(li, lt, lo):
+    """The packed arguments of the streamed and, for a (K, K) ``lt``, the
+    stationary forward kernel, keyed by the forward's name."""
+    a0 = (li + lo[:, 0]).T.contiguous()
+    args = {"hmm_fb_fwd": (a0, hmm_fb._pack(lt + lo[:, 1:, None, :]))}
+    if lt.dim() == 2:
+        args["hmm_fb_stat_fwd"] = (a0, lt.contiguous(),
+                                   hmm_fb._pack(lo[:, 1:]))
+    return args
+
+
+def check_hmm(shape, case="stationary", seed=0, device="cuda"):
+    """The HMM kernels (float32) against their plain versions (float64) on
+    the same inputs and random cotangents at ``shape`` and ``case`` (see
+    :func:`hmm_problem`), and ``hmm_posterior`` on the card (float32, every
+    kernel choice) against the float64 CPU path; raises past
+    TOL_MSG_REL, TOL_ADJ_REL and TOL_ABS (node marginals), or if a forced
+    switch's pair count leaves (0.9, 1.1). Returns ``{kernel: (normwise
+    rel, max abs)}`` and the node marginals' max abs error."""
+    li, lt, lo, w = hmm_problem(shape, seed, device, case)
+    g = torch.Generator(device=device).manual_seed(seed + 1000)
+    cot = lambda x: torch.randn(x.shape, generator=g, dtype=x.dtype,
+                                device=device)
+    errs = {}
+    for fwd, adj in HMM_RUNS:
+        args = hmm_kernel_args(li, lt, lo).get(fwd)
+        if args is None:
+            continue
+        got = getattr(hmm_fb, fwd)(*_f32(args))
+        want = getattr(hmm_fb, fwd + "_plain")(*args)
+        torch.cuda.synchronize()
+        errs[fwd] = _rel_err(got, want)
+        adj_args = (*args, *want, cot(want[0]), cot(want[1]))
+        got = getattr(hmm_fb, adj)(*_f32(adj_args))
+        torch.cuda.synchronize()
+        errs[adj] = _rel_err(got, getattr(hmm_fb, adj + "_plain")(*adj_args))
+
+    cpu = lambda x: None if x is None else x.cpu()
+    f32 = lambda x: None if x is None else x.float()
+    ref = hmm_fb.hmm_posterior(cpu(li), cpu(lt), cpu(lo), pair_weights=cpu(w))
+    node_err, forced = 0.0, []
+    for kernel in (("auto", "stationary") if lt.dim() == 2 else ("auto",)):
+        out = hmm_fb.hmm_posterior(f32(li), f32(lt), f32(lo),
+                                   pair_weights=f32(w), kernel=kernel)
+        _finite(out, f"hmm_posterior(kernel={kernel!r}) [{case}]")
+        node_err = max(node_err,
+                       float((out[1].double().cpu() - ref[1]).abs().max()))
+        if case == "forced":
+            forced += out[2][:, 0, 1].tolist()
+    errs["node"] = node_err
+    ok = (all(errs[f][0] <= TOL_MSG_REL and errs[a][0] <= TOL_ADJ_REL
+              for f, a in HMM_RUNS if f in errs) and node_err <= TOL_ABS)
+    if case == "forced":
+        errs["forced_pair_count"] = (min(forced), max(forced))
+        ok = ok and 0.9 < min(forced) and max(forced) < 1.1
+    if not ok:
+        raise AssertionError(f"an HMM kernel disagrees with its plain "
+                             f"version at {shape} [{case}]: {errs}")
+    return errs
+
+
+def hmm_gradients(li, lt, lo, kernel):
+    """Gradients of the summed log-normalizer with respect to the three
+    inputs of ``hmm_posterior``: the expected statistics (init marginals,
+    summed pair marginals, node marginals). A loss of the marginals
+    themselves is no yardstick here: their derivatives are covariances,
+    differences of nearly equal terms, and the same algebra on the plain
+    versions in float32 misses the float64 gradient by 1e-2 at this
+    shape."""
+    ins = [x.detach().clone().requires_grad_() for x in (li, lt, lo)]
+    logZ = hmm_fb.hmm_posterior(*ins, kernel=kernel)[0]
+    return torch.autograd.grad(logZ.sum(), ins)
+
+
+def hmm_stationary_path(device="cuda"):
+    """Phase 3h: ``hmm_posterior(kernel="stationary")`` and its gradient
+    at the slds_synth sweep shape on the card, the path that runs the
+    stationary kernels: the counters show one launch of each and nothing
+    else; the gradients agree with the float64 CPU path within
+    TOL_ADJ_REL. Returns the launch counts."""
+    li, lt, lo, _ = hmm_problem(HMM_SHAPES["slds"], 1, device)
+    _reset_counters()
+    got = hmm_gradients(*_f32((li, lt, lo)), "stationary")
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in HMM_WRAPPERS}
+    plain_calls = {p.__name__: p.calls for p in HMM_PLAINS}
+    rel = _normwise(got, hmm_gradients(li.cpu(), lt.cpu(), lo.cpu(),
+                                       "stationary"))
+    print(f"hmm_posterior(kernel='stationary') with its gradient: launches "
+          f"{launches}, plain calls {plain_calls}; gradients vs float64 "
+          f"normwise rel {rel:.3e}")
+    if (launches != {"hmm_fb_fwd": 0, "hmm_fb_adj": 0, "hmm_fb_stat_fwd": 1,
+                     "hmm_fb_stat_adj": 1} or any(plain_calls.values())
+            or rel > TOL_ADJ_REL):
+        raise AssertionError("the stationary HMM path went wrong")
+    return launches
+
+
 def _time_ms(fn, runs=TIMING_RUNS, warmup=3):
     """Median CUDA-event time of ``fn()`` in ms."""
     for _ in range(warmup):
@@ -384,13 +587,17 @@ RAGGED_WRAPPERS = (bpairs.bidir_fwd, bpairs.bidir_adj, bpairs.sampler_bp_fwd,
                    bpairs.sampler_bp_adj)
 RAGGED_PLAINS = (bpairs.bidir_fwd_plain, bpairs.bidir_adj_plain,
                  bpairs.sampler_bp_fwd_plain, bpairs.sampler_bp_adj_plain)
+HMM_WRAPPERS = (hmm_fb.hmm_fb_fwd, hmm_fb.hmm_fb_adj, hmm_fb.hmm_fb_stat_fwd,
+                hmm_fb.hmm_fb_stat_adj)
+HMM_PLAINS = (hmm_fb.hmm_fb_fwd_plain, hmm_fb.hmm_fb_adj_plain,
+              hmm_fb.hmm_fb_stat_fwd_plain, hmm_fb.hmm_fb_stat_adj_plain)
 TRAIN_K = 8
 
 
 def _reset_counters():
-    for w in WRAPPERS + RAGGED_WRAPPERS:
+    for w in WRAPPERS + RAGGED_WRAPPERS + HMM_WRAPPERS:
         w.launches = 0
-    for p in PLAINS + RAGGED_PLAINS:
+    for p in PLAINS + RAGGED_PLAINS + HMM_PLAINS:
         p.calls = 0
 
 
@@ -503,34 +710,6 @@ def _ragged_epoch(seqs, B, pad, device=None):
     return [tuple(torch.from_numpy(a).to(device) for a in b) for b in out]
 
 
-def _ragged_step_vs_f64(pgm, nets, frames, lengths, gen, args, kw, d):
-    """One ragged ``make_gradfun`` step on the card against the float64
-    twin path on the CPU under the same noise; raises past the tiers."""
-    B, T = frames.shape[:2]
-    prior, N = args[-2:]
-    eps = torch.randn((1, B, T, d), generator=gen, device=frames.device)
-    cpu64 = lambda t: t.detach().double().cpu()
-    grad = elbo.make_gradfun(functools.partial(lds.run_inference, eps=eps),
-                             *args[1:], **kw)
-    val, nat, grads, _ = grad(pgm, nets, (frames, lengths), gen)
-    grad64 = elbo.make_gradfun(
-        functools.partial(lds.run_inference, eps=cpu64(eps)), *args[1:-2],
-        tree_map(cpu64, prior), N, **kw)
-    nets64 = tuple(copy.deepcopy(m).double().cpu() for m in nets)
-    val64, nat64, grads64, _ = grad64(tree_map(cpu64, pgm), nets64,
-                                      (cpu64(frames), lengths.cpu()), None)
-    rel = abs(float(val) - float(val64)) / abs(float(val64))
-    nat_rel = _normwise(tree_leaves(nat), tree_leaves(nat64))
-    grad_rel = [_normwise(g, g64) for g, g64 in zip(grads, grads64)]
-    print(f"ragged step (T={T}) vs float64 CPU twin path: elbo rel "
-          f"{rel:.3e}, natgrad rel {nat_rel:.3e}, recognizer grad rel "
-          f"{grad_rel[0]:.3e}, decoder grad rel {grad_rel[1]:.3e}")
-    if not (rel <= TOL_LOGZ_REL and nat_rel <= TOL_ADJ_REL
-            and max(grad_rel) <= TOL_ADJ_REL):
-        raise AssertionError(f"the ragged step at T={T} disagrees with the "
-                             f"f64 reference")
-
-
 def ragged_path(device="cuda", seqs=None, B=RAGGED_B, pad=RAGGED_PAD):
     """Phase 4c: one epoch of ragged training through the loader and
     ``run_loader``, one step against the float64 CPU path, and
@@ -578,7 +757,9 @@ def ragged_path(device="cuda", seqs=None, B=RAGGED_B, pad=RAGGED_PAD):
     longest = max(epoch, key=lambda b: b[0].shape[1])
     for batch in (longest, short):
         frames, lengths = (torch.from_numpy(a).to(device) for a in batch)
-        _ragged_step_vs_f64(pgm, nets, frames, lengths, gen, args, kw, d)
+        _step_vs_f64(lds.run_inference, pgm, nets, (frames, lengths), gen,
+                     prior, N, 1, d, f"ragged step (T={frames.shape[1]})",
+                     ragged=True)
     T = frames.shape[1]
 
     with torch.no_grad():
@@ -627,6 +808,256 @@ def padded_theorem(device="cuda", lengths=(61, 128), seed=6):
     if not (stat_rel <= TOL_PAD_REL and kl_rel <= TOL_PAD_REL):
         raise AssertionError("a padded batch disagrees with its sequences")
     return stat_rel, kl_rel
+
+
+def _slds_models(device, K, d, width, hidden, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    prior = slds.init_pgm_param(K, d, g, device=device)
+    glob = slds.init_pgm_param(K, d, g, device=device)
+    rec = recognition.init_mlp_recognize(width, (hidden,), d, g,
+                                         device=device)
+    dec = decoders.init_mlp_decode(d, (hidden,), width, g, device=device)
+    return prior, glob, rec, dec
+
+
+def _step_vs_f64(run, pgm, nets, batch, gen, prior, N, S, d, label,
+                 ragged=False):
+    """One ``make_gradfun`` step of ``run`` (a ``run_inference``) on the
+    card against the float64 twin path on the CPU under the same noise;
+    raises past the tiers. Returns the ELBO's relative error and the
+    natural gradient's and the net gradients' normwise errors."""
+    frames = batch[0] if ragged else batch
+    B, T = frames.shape[:2]
+    eps = torch.randn((S, B, T, d), generator=gen, device=frames.device)
+    cpu64 = lambda t: t.detach().double().cpu()
+    nets_fns = (recognition.mlp_recognize, decoders.mlp_loglike)
+    grad = elbo.make_gradfun(functools.partial(run, eps=eps), *nets_fns,
+                             prior, N, num_samples=S, ragged=ragged)
+    val, nat, grads, _ = grad(pgm, nets, batch, gen)
+    grad64 = elbo.make_gradfun(functools.partial(run, eps=cpu64(eps)),
+                               *nets_fns, tree_map(cpu64, prior), N,
+                               num_samples=S, ragged=ragged)
+    nets64 = tuple(copy.deepcopy(m).double().cpu() for m in nets)
+    batch64 = (cpu64(frames), batch[1].cpu()) if ragged else cpu64(frames)
+    val64, nat64, grads64, _ = grad64(tree_map(cpu64, pgm), nets64,
+                                      batch64, None)
+    rel = abs(float(val) - float(val64)) / abs(float(val64))
+    nat_rel = _normwise(tree_leaves(nat), tree_leaves(nat64))
+    grad_rel = [_normwise(g, g64) for g, g64 in zip(grads, grads64)]
+    print(f"{label} vs float64 CPU twin path: elbo rel {rel:.3e}, natgrad "
+          f"rel {nat_rel:.3e}, recognizer grad rel {grad_rel[0]:.3e}, "
+          f"decoder grad rel {grad_rel[1]:.3e}")
+    if not (rel <= TOL_LOGZ_REL and nat_rel <= TOL_ADJ_REL
+            and max(grad_rel) <= TOL_ADJ_REL):
+        raise AssertionError(f"{label} disagrees with the f64 reference")
+    return rel, nat_rel, max(grad_rel)
+
+
+def segmentation_purity(pred, true):
+    """examples/slds_synth.py's score: each predicted state mapped to its
+    majority true regime, the fraction of frames so explained."""
+    pred, true = np.asarray(pred).ravel(), np.asarray(true).ravel()
+    return sum(np.bincount(true[pred == k]).max()
+               for k in np.unique(pred)) / pred.size
+
+
+def slds_path(device="cuda", cfg=SLDS_CONFIG):
+    """Phase 4s: one epoch of SLDS-SVAE training at the slds_synth preset
+    through ``loop.run``, the launch counters showing the schedule's
+    launches of the SLDS path's six kernels every step and nothing else;
+    the MAP segmentation of 8 sequences (purity printed, not gated); one
+    step and one ragged step against the float64 CPU path. Returns the
+    launch counts of the epoch."""
+    K, d, T, B, S = (cfg[k] for k in ("K", "d", "T", "B", "S"))
+    N = cfg["N"]
+    data, states = make_switching_dot_data(0, N, T, cfg["width"],
+                                           return_states=True)
+    data = torch.from_numpy(data).to(device)
+    prior, glob, rec, dec = _slds_models(device, K, d, cfg["width"],
+                                         cfg["hidden"])
+    run = functools.partial(slds.run_inference,
+                            num_meanfield_iters=cfg["sweeps"])
+    opt_init, step = loop.make_train_step(
+        run, recognition.mlp_recognize, decoders.mlp_loglike, prior, N,
+        num_samples=S, pgm_step_size=cfg["pgm_step_size"],
+        net_step_size=cfg["net_step_size"])
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    _reset_counters()
+    pgm, nets, _, history, gen = loop.run(
+        step, glob, (rec, dec), opt_init(glob, (rec, dec)), data, gen,
+        num_epochs=1, batch_size=B)
+    torch.cuda.synchronize()
+    steps = N // B
+    # per step: every sweep and the final half-sweeps run one filter pass
+    # and one HMM pass; the differentiated ones (the last sweep and the
+    # final half-sweeps) one adjoint each; one sample draw and its adjoint
+    fwd, adj = cfg["sweeps"] + 1, 2
+    want = {"bidir_fwd": fwd, "bidir_adj": adj, "sampler_bp_fwd": 1,
+            "sampler_bp_adj": 1, "hmm_fb_fwd": fwd, "hmm_fb_adj": adj,
+            "hmm_fb_stat_fwd": 0, "hmm_fb_stat_adj": 0}
+    launches = {w.__name__: w.launches
+                for w in RAGGED_WRAPPERS + HMM_WRAPPERS}
+    stationary = {w.__name__: w.launches for w in WRAPPERS}
+    plain_calls = {p.__name__: p.calls
+                   for p in PLAINS + RAGGED_PLAINS + HMM_PLAINS}
+    print(f"slds path ({steps} steps of B={B}, T={T}, K={K}, d={d}, "
+          f"{cfg['sweeps']} sweeps): launches {launches} (per step "
+          f"{ {k: v / steps for k, v in launches.items()} }), stationary "
+          f"LDS kernels {stationary}, plain calls {plain_calls}")
+    if launches != {k: steps * v for k, v in want.items()}:
+        raise AssertionError(f"the SLDS path's launches are not the "
+                             f"schedule's {want} a step: {launches}")
+    if any(stationary.values()) or any(plain_calls.values()):
+        raise AssertionError("the SLDS path launched a stationary LDS "
+                             "kernel or called a plain version")
+    if len(history) != steps or not np.isfinite(history).all():
+        raise AssertionError(f"slds path: bad ELBO history {history}")
+    print(f"slds path: elbo/N {' '.join(f'{e:.4f}' for e in history)}")
+
+    with torch.no_grad():
+        paths = slds.most_likely_states(pgm, nets[0](data[:8]),
+                                        num_meanfield_iters=cfg["sweeps"])
+    paths = paths.cpu().numpy()
+    if paths.shape != (8, T) or paths.min() < 0 or paths.max() >= K:
+        raise AssertionError(f"most_likely_states: bad paths {paths.shape}")
+    purity = segmentation_purity(paths, states[:8])
+    print(f"slds segmentation purity {purity:.3f} (K={K} states vs 2 true "
+          f"regimes, 8 sequences, one epoch)")
+
+    _step_vs_f64(run, pgm, nets, data[:B], gen, prior, N, S, d, "slds step")
+    lengths = torch.linspace(T // 4, T, B, device=device).round().long()
+    _step_vs_f64(run, pgm, nets, (data[B:2 * B], lengths), gen, prior, N, S,
+                 d, "ragged slds step", ragged=True)
+    return launches
+
+
+def slds_padded_theorem(device="cuda", lengths=(37, 80), seed=8,
+                        cfg=SLDS_CONFIG):
+    """Phase 4s: a padded SLDS batch of two sequences against each
+    sequence alone, float32 on the card, 12 sweeps: the summed statistics
+    and local KL agree within TOL_PAD_REL. Returns the worst stats error
+    (relative to each leaf's largest entry) and the local KL's relative
+    error."""
+    K, d, T = cfg["K"], cfg["d"], max(lengths)
+    g = torch.Generator().manual_seed(seed)
+    glob = slds.init_pgm_param(K, d, g, device=device)
+    jd = (torch.logaddexp(torch.randn((2, T, d), generator=g),
+                          torch.zeros(())) + 0.5).to(device)
+    h = torch.randn((2, T, d), generator=g).to(device)  # pads: garbage
+    gen = torch.Generator(device=device).manual_seed(seed)
+    run = functools.partial(slds.run_inference,
+                            num_meanfield_iters=cfg["sweeps"])
+    with torch.no_grad():
+        alone = [run(glob, glob, (jd[i:i + 1, :n], h[i:i + 1, :n]), gen, 1)
+                 for i, n in enumerate(lengths)]
+        _, stats, _, lkl = run(glob, glob, (jd, h), gen, 1,
+                               lengths=torch.tensor(lengths, device=device))
+    ref = [a + b for a, b in zip(tree_leaves(alone[0][1]),
+                                 tree_leaves(alone[1][1]))]
+    stat_rel = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(tree_leaves(stats), ref))
+    kl_ref = alone[0][3] + alone[1][3]
+    kl_rel = abs(float(lkl - kl_ref)) / abs(float(kl_ref))
+    print(f"slds padded-batch theorem (lengths {lengths}, padded to {T}): "
+          f"stats rel {stat_rel:.3e}, local KL rel {kl_rel:.3e}")
+    if not (stat_rel <= TOL_PAD_REL and kl_rel <= TOL_PAD_REL):
+        raise AssertionError("a padded SLDS batch disagrees with its "
+                             "sequences")
+    return stat_rel, kl_rel
+
+
+@contextlib.contextmanager
+def _twins_on_card():
+    """Route the SLDS path's forward kernels to their plain twins, on
+    whatever device the tensors lie, to time the twin path beside the
+    kernel path (nothing in the package does this)."""
+    names = ((bpairs, "bidir_fwd"), (bpairs, "sampler_bp_fwd"),
+             (hmm_fb, "hmm_fb_fwd"), (hmm_fb, "hmm_fb_stat_fwd"))
+    saved = [getattr(mod, name) for mod, name in names]
+    for mod, name in names:
+        setattr(mod, name, getattr(mod, name + "_plain"))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(names, saved):
+            setattr(mod, name, fn)
+
+
+def slds_timings(device="cuda", cfg=SLDS_CONFIG, epochs=2):
+    """Phase 5, SLDS path: each HMM kernel and its plain version at the
+    slds_synth sweep shape and at measure_hmm's; ``slds.run_inference`` at
+    measure_slds's shape on the kernels and on the twins; one slds_synth
+    train step (CUDA events); and the wall time of an slds_synth epoch
+    (host clock around each, ending in a sync; one untimed, then the
+    median of ``epochs``)."""
+    t = {}
+    for tag, shape in (("", HMM_SHAPES["slds"]),
+                       ("_measure_hmm", HMM_SHAPES["measure_hmm"])):
+        li, lt, lo, _ = hmm_problem(shape, 0, device)
+        for fwd, adj in HMM_RUNS:
+            args = hmm_kernel_args(li, lt, lo)[fwd]
+            g = torch.Generator(device=device).manual_seed(3)
+            outs = getattr(hmm_fb, fwd + "_plain")(*args)
+            adj_args = _f32((*args, *outs) + tuple(
+                torch.randn(o.shape, generator=g, dtype=o.dtype,
+                            device=device) for o in outs))
+            args = _f32(args)
+            for name, a, runs in ((fwd, args, TIMING_RUNS),
+                                  (adj, adj_args, TIMING_RUNS),
+                                  (fwd + "_plain", args, 10),
+                                  (adj + "_plain", adj_args, 10)):
+                fn = getattr(hmm_fb, name)
+                t[name + tag] = _time_ms(lambda: fn(*a), runs=runs)
+
+    ms = MEASURE_SLDS
+    g = torch.Generator().manual_seed(0)
+    glob = slds.init_pgm_param(ms["K"], ms["d"], g, device=device)
+    jd = (torch.logaddexp(torch.randn((ms["B"], ms["T"], ms["d"]),
+                                      generator=g), torch.zeros(()))
+          + 0.5).to(device)
+    h = torch.randn((ms["B"], ms["T"], ms["d"]), generator=g).to(device)
+    gen = torch.Generator(device=device).manual_seed(4)
+    infer = lambda: slds.run_inference(glob, glob, (jd, h), gen, ms["S"],
+                                       num_meanfield_iters=ms["sweeps"])
+    t["slds_run_inference"] = _time_ms(infer)
+    with _twins_on_card():
+        t["slds_run_inference_twins"] = _time_ms(infer, runs=5, warmup=1)
+
+    N, B = cfg["N"], cfg["B"]
+    data = torch.from_numpy(make_switching_dot_data(
+        1, N, cfg["T"], cfg["width"])).to(device)
+    prior, glob, rec, dec = _slds_models(device, cfg["K"], cfg["d"],
+                                         cfg["width"], cfg["hidden"])
+    run = functools.partial(slds.run_inference,
+                            num_meanfield_iters=cfg["sweeps"])
+    opt_init, step = loop.make_train_step(
+        run, recognition.mlp_recognize, decoders.mlp_loglike, prior, N,
+        num_samples=cfg["S"], pgm_step_size=cfg["pgm_step_size"],
+        net_step_size=cfg["net_step_size"])
+    st = [glob, (rec, dec), opt_init(glob, (rec, dec))]
+
+    def one_step():
+        st[0], st[1], st[2], _, _ = step(*st, data[:B], gen)
+
+    t["slds_train_step"] = _time_ms(one_step, runs=10)
+    walls = []
+    for i in range(epochs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st[0], st[1], st[2], _, _ = loop.run(step, *st, data, gen,
+                                             num_epochs=1, batch_size=B)
+        torch.cuda.synchronize()
+        if i:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    t["slds_epoch_wall"] = float(np.median(walls))
+    seqs = {"slds_run_inference": ms["B"], "slds_run_inference_twins":
+            ms["B"], "slds_train_step": B, "slds_epoch_wall": N // B * B}
+    for k, v in t.items():
+        print(f"time {k}: {v:.4f} ms"
+              + (f" = {seqs[k] / v * 1e3:.1f} seqs/s" if k in seqs else ""))
+    print(f"slds epoch walls (ms): {walls}")
+    return t
 
 
 def timings(device="cuda"):
@@ -776,7 +1207,8 @@ def bound(name, B, T, d, S):
     the function needs of it; an output counts in full, as returned.
     Operations count 2 per multiply-add of the kernel's per-step algebra
     (csrc/*.cu), times the T-1 steps of every chain; the chains run no
-    early exit."""
+    early exit. For the HMM kernels ``d`` is the number of states K and
+    ``S`` is not read; each add, max, exp and log counts one operation."""
     dd, T1, NL, SB = d * d, T - 1, 2 * B, S * B
     tri = d * (d + 1) // 2
     if name == "filter_fwd":
@@ -850,6 +1282,29 @@ def bound(name, B, T, d, S):
         # samples), dxT
         floats = (T1 * (dd + 2 * tri + d) * B + T1 * (3 * dd + d) * B
                   + (2 * T1 - 1) * d * SB + 2 * d * SB)
+    elif name.startswith("hmm_fb"):
+        # here d is the number of states K; chains: one per sequence and
+        # direction
+        K, KK, chains = d, d * d, NL
+        stat = "_stat_" in name
+        # the chain elements: K*K a step and sequence, or the stationary
+        # (K, K) matrix once beside K observations a step and sequence
+        elements = KK + T1 * K * B if stat else T1 * KK * B
+        if name.endswith("_fwd"):
+            # per step K logsumexps of K terms: K adds (carry + element;
+            # K more for lt + lo in the stationary kernel), K-1 maxes, K
+            # subtractions, K exps, K adds, a log and an add
+            step = K * (5 * K + 1) + (KK if stat else 0)
+            # in: a0, the elements; out: alpha, beta
+            floats = K * B + elements + 2 * T1 * K * B
+        else:
+            # per step K^2 weights: an add, a subtraction, an exp, a
+            # multiply and an add (the stationary kernel: the lt + lo add
+            # and the dLT add too), and K adds of the direct cotangent
+            step = KK * (7 if stat else 5) + K
+            # in: a0, the elements, alpha, beta and their cotangents;
+            # out: da0 and the elements' cotangents (dM, or dLT and dlo)
+            floats = 2 * K * B + 2 * elements + 4 * T1 * K * B
     else:
         raise KeyError(name)
     flop_ms = chains * T1 * step / PEAK_F32_FLOPS * 1e3
@@ -920,19 +1375,39 @@ def main():
             errs[k] = max(errs.get(k, 0.0), e[k])
         for k in ("bidir_adj", "sampler_bp_adj"):
             errs[k] = max(errs.get(k, 0.0), e[k][1])
+    for name, shape in HMM_SHAPES.items():
+        for case in (("stationary", "ragged", "forced") if name == "slds"
+                     else ("stationary",)):
+            e = check_hmm(shape, case)
+            print(f"hmm kernels vs plain versions [{name} {shape} {case}] "
+                  f"(normwise rel, max abs; node marginals max abs): {e}")
+            for k in sum(HMM_RUNS, ()):
+                if k in e:
+                    errs[k] = max(errs.get(k, 0.0), e[k][1])
+    stat_launches = hmm_stationary_path()
 
     main_path()
     launches = train_path()
     launches.update(ragged_path())
     padded_theorem()
+    slds_launches = slds_path()
+    slds_padded_theorem()
+    launches.update({k: slds_launches[k] for k in HMM_RUNS[0]})
+    launches.update({k: stat_launches[k] for k in HMM_RUNS[1]})
     t = timings()
     t.update(ragged_timings())
+    t.update(slds_timings())
     print(f"chip_smoke wall since the build began: "
           f"{time.perf_counter() - t0:.1f} s")
     kernels = []
     for k in KERNELS:
-        shape = (SHAPES["config2"] if k in [w.__name__ for w in WRAPPERS]
-                 else RAGGED_SHAPES["ragged"])
+        if k.startswith("hmm_fb"):
+            shape = dict(HMM_SHAPES["slds"], S=1)
+            shape["d"] = shape["K"]
+        elif k in [w.__name__ for w in WRAPPERS]:
+            shape = SHAPES["config2"]
+        else:
+            shape = RAGGED_SHAPES["ragged"]
         bound_ms, bound_by = bound(k, shape["B"], shape["T"], shape["d"],
                                    shape["S"])
         kernels.append({

@@ -1,9 +1,14 @@
 """PyTorch / CUDA port of ``svae_tpu`` for an NVIDIA H100.
 
 The JAX package ``svae_tpu`` is the reference; this package mirrors its
-module names. It imports PyTorch and NumPy and never JAX. The first slice
-is the LDS-SVAE inference path: recognize (``nets.recognition``), the
-packed E-step (``models.lds`` on ``ops.estep``, whose filter and sampler
-are hand-written CUDA kernels in ``csrc/estep.cu``), decode
-(``nets.decoders``) and the MC-ELBO value (``train.elbo``).
+module names. It imports PyTorch and NumPy and never JAX. It holds the
+LDS-SVAE inference and training paths (``models.lds`` on the packed E-step
+of ``ops.estep`` or, for ragged batches, the per-sequence-pairs E-step of
+``ops.bpairs``) and SLDS-SVAE training (``models.slds``, a structured
+mean-field alternating ``ops.bpairs`` with the HMM forward-backward of
+``ops.hmm_fb``), with the recognition nets and decoders (``nets``), the
+MC-ELBO and its gradients (``train.elbo``), the optimizers and loops
+(``train``) and the data layer (``data``). Every serial recursion is a
+hand-written CUDA kernel in ``csrc/`` with a plain PyTorch twin for CPU
+tensors.
 """

@@ -1,4 +1,4 @@
-"""Build and load the E-step's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 Each source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into an
 object, all in parallel processes, and the objects are linked into one
@@ -103,7 +103,11 @@ def load_library():
                                  ("svae_bidir_fwd_f32", 3, 12),
                                  ("svae_sampler_bp_fwd_f32", 4, 8),
                                  ("svae_bidir_adj_f32", 3, 18),
-                                 ("svae_sampler_bp_adj_f32", 4, 13)):
+                                 ("svae_sampler_bp_adj_f32", 4, 13),
+                                 ("svae_hmm_fb_fwd_f32", 3, 5),
+                                 ("svae_hmm_fb_stat_fwd_f32", 3, 6),
+                                 ("svae_hmm_fb_adj_f32", 3, 10),
+                                 ("svae_hmm_fb_stat_adj_f32", 3, 12)):
             fn = getattr(lib, name)
             fn.argtypes = [i] * ints + [p] * ptrs
             fn.restype = i

@@ -51,10 +51,10 @@ KERNEL_DIMS = (2, 3, 4, 8, 10, 16)
 # --------------------------------------------------------------------------
 
 
-def _check_kernel_args(name, d, tensors):
-    if d not in KERNEL_DIMS:
-        raise ValueError(f"{name}: no kernel for d={d}; built for "
-                         f"{KERNEL_DIMS}")
+def _check_kernel_args(name, d, tensors, dims=KERNEL_DIMS, dim_name="d"):
+    if d not in dims:
+        raise ValueError(f"{name}: no kernel for {dim_name}={d}; built for "
+                         f"{dim_name} in {dims}")
     dev = tensors[0].device
     for t in tensors:
         if t.dtype != torch.float32:

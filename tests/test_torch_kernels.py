@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from svae_tpu_torch.models import lds
-from svae_tpu_torch.ops import bpairs, estep
+from svae_tpu_torch.ops import bpairs, estep, hmm_fb
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 pytestmark = pytest.mark.gpu
@@ -200,3 +200,79 @@ def test_bpairs_wrappers_reject_what_the_kernels_do_not_take(smoke):
     filt5, _, _ = smoke.bpairs_problem(dict(B=3, T=7, d=5, S=1), 0, "cuda")
     with pytest.raises(ValueError, match="d=5"):
         bpairs.bidir_adj(*smoke._f32(filt5))
+
+
+HMM_CASES = [("small", "stationary"), ("slds", "stationary"),
+             ("slds", "ragged"), ("slds", "forced"),
+             ("measure_hmm", "stationary")]
+
+
+@pytest.mark.parametrize("shape,case", HMM_CASES)
+def test_hmm_kernels_match_plain(smoke, shape, case):
+    smoke.check_hmm(smoke.HMM_SHAPES[shape], case)
+
+
+@pytest.mark.parametrize("K", hmm_fb.KERNEL_STATES)
+def test_hmm_kernels_match_plain_at_every_built_K(smoke, K):
+    smoke.check_hmm(dict(B=5, T=9, K=K), seed=K)
+
+
+def _hazard(name):
+    """tests/test_pallas_hmm.py's two hazards in float64: sharp messages
+    (sticky transitions, evidence 40 N(0, 1)) and a near-forbidden switch
+    forced by the observations."""
+    f64 = dict(dtype=torch.float64)
+    if name == "sharp":
+        g = torch.Generator().manual_seed(2)
+        return (torch.full((3,), 1.0 / 3.0, **f64).log(),
+                torch.log(0.999 * torch.eye(3, **f64) + 1e-3),
+                40.0 * torch.randn((2, 12, 3), generator=g, **f64))
+    lt = torch.log(torch.tensor([[0.999, 0.001], [0.001, 0.999]], **f64))
+    lt[0, 1] = -100.0
+    lo = torch.tensor([[50.0, -50.0]] * 3 + [[-50.0, 50.0]] * 3, **f64)
+    return torch.log(torch.tensor([0.999, 0.001], **f64)), lt, lo[None]
+
+
+@pytest.mark.parametrize("name", ["sharp", "forced"])
+def test_hmm_hazards_on_card_in_float32(smoke, name):
+    """The hazards on the kernels in float32: values and gradients finite,
+    node marginals within the moments tier of the float64 CPU path, and
+    the forced switch counted once."""
+    li, lt, lo = _hazard(name)
+    lo32 = lo.float().cuda().requires_grad_()
+    out = hmm_fb.hmm_posterior(li.float().cuda(), lt.float().cuda(), lo32)
+    (g,) = torch.autograd.grad(out[0].sum() + (out[1] ** 2).sum(), [lo32])
+    assert all(bool(torch.isfinite(x).all()) for x in (*out, g))
+    ref = hmm_fb.hmm_posterior(li, lt, lo)
+    node = out[1].detach().double().cpu()
+    assert float((node - ref[1]).abs().max()) <= smoke.TOL_ABS
+    if name == "forced":
+        assert 0.9 < float(out[2][0, 0, 1]) < 1.1
+
+
+def test_hmm_stationary_path(smoke):
+    smoke.hmm_stationary_path()
+
+
+def test_slds_training_on_card_matches_cpu(smoke):
+    """A small SLDS run on the card: the launch schedule of every step,
+    one step and one ragged step against the float64 CPU path, and the
+    padded-batch theorem."""
+    cfg = dict(smoke.SLDS_CONFIG, N=24, B=6, T=12, sweeps=3)
+    smoke.slds_path(cfg=cfg)
+    smoke.slds_padded_theorem(lengths=(5, 12), cfg=cfg)
+
+
+def test_hmm_wrappers_reject_what_the_kernels_do_not_take(smoke):
+    li, lt, lo, _ = smoke.hmm_problem(smoke.HMM_SHAPES["small"], 0, "cuda")
+    args = smoke.hmm_kernel_args(li, lt, lo)
+    with pytest.raises(TypeError, match="float32"):
+        hmm_fb.hmm_fb_fwd(*args["hmm_fb_fwd"])
+    mixed = list(smoke._f32(args["hmm_fb_stat_fwd"]))
+    mixed[1] = mixed[1].cpu()
+    with pytest.raises(ValueError, match="CUDA"):
+        hmm_fb.hmm_fb_stat_fwd(*mixed)
+    li, lt, lo, _ = smoke.hmm_problem(dict(B=3, T=7, K=5), 0, "cuda")
+    with pytest.raises(ValueError, match="K=5"):
+        hmm_fb.hmm_fb_fwd(*smoke._f32(smoke.hmm_kernel_args(
+            li, lt, lo)["hmm_fb_fwd"]))

@@ -13,7 +13,7 @@ from svae_tpu.nets import decoders as jax_decoders
 from svae_tpu.nets import recognition as jax_recognition
 
 from svae_tpu_torch import convert
-from svae_tpu_torch.models import lds
+from svae_tpu_torch.models import lds, slds
 from svae_tpu_torch.nets import decoders, mlp, recognition
 from svae_tpu_torch.nets.mlp import softplus
 
@@ -109,6 +109,8 @@ def test_init_is_seeded_and_shaped():
 
 INITS = {
     "init_pgm_param": lambda g, **kw: lds.init_pgm_param(D_LAT, g, **kw),
+    "slds_init_pgm_param": lambda g, **kw: slds.init_pgm_param(3, D_LAT, g,
+                                                               **kw),
     "init_dense": lambda g, **kw: mlp.init_dense(D_OBS, D_LAT, g, **kw),
     "init_mlp": lambda g, **kw: mlp.init_mlp((D_OBS,) + HIDDEN, g, **kw),
     "init_mlp_recognize": lambda g, **kw: recognition.init_mlp_recognize(

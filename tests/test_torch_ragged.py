@@ -514,3 +514,55 @@ def test_run_loader_trains_on_ragged_batches():
         assert out[2].step == 6
     assert len(histories[0]) == 6 and np.isfinite(histories[0]).all()
     assert histories[0] == histories[1]
+
+
+# --------------------------------------------------------------------------
+# (h) the JAX package's interleaved layout (kernels #10, #6, #8)
+# --------------------------------------------------------------------------
+
+
+def test_fb_pass_matches_interleaved_layout():
+    """``bpairs.fb_pass`` against ``pallas_vjp.fb_pass(bidir=False)``, the
+    interleaved layout that the JAX package picks itself when B mod
+    block_b lies outside [1, block_b / 2] (B=5 of block_b=8 here): values,
+    and the gradients of a random-weighted sum of every output with
+    respect to the initial, pair and node potentials, which run that
+    layout's adjoint kernels ``_filter_adj_kernel`` and
+    ``_backward_adj_kernel`` in interpret mode. On the card both layouts
+    are the bpairs kernels' lanes."""
+    Bi, Ti, di = 5, 4, 2
+    rng = np.random.default_rng(12)
+    glob = jax_lds.init_pgm_param(jax.random.key(13), di, dtype=jnp.float64)
+    (I1, I2), Ic = jax_niw.expected_gaussian_natparam(glob[0])
+    mats = tuple(jnp.broadcast_to(m, (Ti - 1,) + m.shape)
+                 for m in jax_mniw.expected_pair_potential(glob[1]))
+    lengths = np.array([4, 3, 2, 4, 1])
+    jd = np.logaddexp(rng.standard_normal((Bi, Ti, di)), 0.0) + 0.4
+    h = rng.standard_normal((Bi, Ti, di))
+    pairs = jax_lds._ragged_pairs(mats, lengths, Ti, jnp.float64)
+    N1 = -0.5 * jnp.vectorize(jnp.diag, signature="(d)->(d,d)")(jd)
+    leaves = (I1, I2, Ic) + tuple(pairs) + (N1, jnp.asarray(h))
+    assert not (-(-2 * Bi // 8) < 2 * (-(-Bi // 8)))  # the JAX default
+
+    def fb(lib, xs):
+        init, prs, nds = xs[:3], xs[3:7], xs[7:]
+        if lib is jnp:
+            return pallas_vjp.fb_pass(init, prs, nds, block_b=8,
+                                      interpret=True, bidir=False)
+        return bpairs.fb_pass(init, prs, nds)
+
+    weights = [rng.standard_normal(s) for s in
+               [(Bi,), (Bi, Ti, di, di), (Bi, Ti, di), (Bi, Ti, di, di),
+                (Bi, Ti, di)]]
+
+    def loss(lib, xs):
+        to = jnp.asarray if lib is jnp else _t
+        return sum((to(w) * o).sum() for w, o in zip(weights, fb(lib, xs)))
+
+    ref_out, ref_grads = jax.jit(lambda xs: (
+        fb(jnp, xs), jax.grad(lambda ys: loss(jnp, ys))(xs)))(leaves)
+    ins = [_t(x).requires_grad_() for x in leaves]
+    out = fb(torch, ins)
+    grads = torch.autograd.grad(loss(torch, ins), ins)
+    _close(out, ref_out)
+    _close(grads, ref_grads)

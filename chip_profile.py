@@ -11,7 +11,10 @@ finiteness check), one MC-ELBO batch (recognize, ``run_inference``,
 decode; no gradient) and one SVI train step (``loop.make_train_step``: the
 ELBO, its gradient through the adjoint kernels, the natural gradient and
 the Adam update), also without ``run_inference``'s finiteness check, the
-step's one host sync.
+step's one host sync; the same step through the chunked parallel-in-time
+E-step (``run_inference(parallel=8)``), and ``posterior_moments`` at
+benchmarks/bench_longT.py's shape (B=8, d=10) at T=512 and 2048, chunked
+(C=64) and sequential (``parallel=False``).
 
 One run takes every reading, in this order:
 
@@ -54,6 +57,7 @@ from svae_tpu_torch.nets import decoders, recognition
 from svae_tpu_torch.ops import _build, estep
 from svae_tpu_torch.train import elbo, loop
 from svae_tpu_torch.utils import smallchol
+from svae_tpu_torch.utils.pytree import tree_map
 
 B, T, S, D_OBS = 64, 100, 2, 20
 TOP = 8
@@ -93,6 +97,7 @@ def stages(device="cuda"):
             return objective(glob, (rec, dec), batch, gen)
 
     slds_stages = slds_stage_fns(device, gen)
+    chunked_stages = chunked_stage_fns(device, gen, batch)
 
     def train_step():
         state[0], state[1], state[2], _, _ = step(*state, batch, gen)
@@ -121,7 +126,35 @@ def stages(device="cuda"):
         "ragged_train_step_T128": ragged_step(128),
         "ragged_train_step_T512": ragged_step(512),
         **slds_stages,
+        **chunked_stages,
     }
+
+
+def chunked_stage_fns(device, gen, batch, C=64):
+    """The chunked E-step's stages as no-argument calls: a config-2 train
+    step through ``run_inference(parallel=chip_smoke.CHUNKS)``, and
+    ``posterior_moments`` at bench_longT's shape with ``parallel=C`` and
+    ``parallel=False``."""
+    prior, glob, rec, dec = chip_smoke._config2_models(device)
+    run = functools.partial(lds.run_inference, parallel=chip_smoke.CHUNKS)
+    opt_init, step = loop.make_train_step(
+        run, recognition.mlp_recognize, decoders.mlp_loglike, prior,
+        50 * B, num_samples=S)
+    state = [glob, (rec, dec), opt_init(glob, (rec, dec))]
+
+    def train_step():
+        state[0], state[1], state[2], _, _ = step(*state, batch, gen)
+
+    out = {"train_step_chunked": train_step}
+    for Tl in chip_smoke.LONG_T["Ts"]:
+        g, pots = chip_smoke.long_t_problem(Tl)
+        on = lambda x: x.float().to(device)
+        g, pots = tree_map(on, g), tree_map(on, pots)
+        out[f"moments_T{Tl}_C{C}"] = functools.partial(
+            lds.posterior_moments, g, pots, parallel=C)
+        out[f"moments_T{Tl}_sequential"] = functools.partial(
+            lds.posterior_moments, g, pots)
+    return out
 
 
 def slds_stage_fns(device, gen):

@@ -70,7 +70,27 @@ exits non-zero:
    versions at the slds_synth and measure_hmm shapes, of
    ``slds.run_inference`` at bench.py measure_slds's shape (B=16, T=50,
    K=4, d=3, 10 sweeps, S=2) on the kernels and on the twins, of one
-   slds_synth train step and of its epoch (host clock).
+   slds_synth train step and of its epoch (host clock); of the two
+   chain-element scan kernels and their plain versions, of one chunked
+   (``parallel=8``) config-2 train step against the sequential one, and of
+   ``posterior_moments(parallel=C)`` at bench_longT's shape against
+   ``parallel=False``;
+3c. the chain-element scan kernel of the chunked parallel-in-time E-step
+   (``ops/chunked.py``) in float32 against its plain version in float64
+   on the same leaves, and its adjoint against the float64 plain adjoint
+   under random cotangents, normwise per element field: at a small odd
+   shape (d=3, 5 lanes of 4 steps), at the config-2 fold (B=64, T=100,
+   C=8: 512 lanes of 13 steps) and at the long-T fold (B=8, T=2048, C=64:
+   512 lanes of 32 steps);
+4p. the chunked E-step in training: 8 config-2 steps through ``loop.run``
+   with ``run_inference(parallel=8)`` (pallas_chunked's default chunk
+   count), the launch counters showing 4 launches of the scan kernel and 4
+   of its adjoint a step and nothing else; one step against the float64
+   CPU path; then ``posterior_moments(parallel=C)`` at bench_longT's shape
+   (B=8, d=10, T=512 and 2048, C in {32, 64, 128} with 2C <= T) against
+   float64, with the float32 plain path's error beside the kernels' (no
+   float32 tier is stated past T=100: the kernels' error may be at most
+   twice the plain path's), and against ``parallel=False``.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on the path that runs it: the training paths, and phase 3h's
@@ -98,7 +118,7 @@ from svae_tpu_torch.data.synthetic import (make_dot_data,
 from svae_tpu_torch.expfam import mniw, niw
 from svae_tpu_torch.models import lds, slds
 from svae_tpu_torch.nets import decoders, recognition
-from svae_tpu_torch.ops import _build, bpairs, estep, hmm_fb
+from svae_tpu_torch.ops import _build, bpairs, chunked, estep, hmm_fb, kalman
 from svae_tpu_torch.train import elbo, loop
 from svae_tpu_torch.utils.pytree import tree_leaves, tree_map
 
@@ -125,6 +145,8 @@ KERNELS = {
     "hmm_fb_adj": "svae_tpu/ops/pallas_hmm.py:257",
     "hmm_fb_stat_fwd": "svae_tpu/ops/pallas_hmm.py:110",
     "hmm_fb_stat_adj": "svae_tpu/ops/pallas_hmm.py:173",
+    "elem_scan": "svae_tpu/ops/pallas_chunked.py:192",
+    "elem_scan_adj": "svae_tpu/ops/pallas_chunked.py:208",
 }
 SOURCES = {
     "filter_fwd": "svae_tpu_torch/csrc/estep.cu",
@@ -139,6 +161,8 @@ SOURCES = {
     "hmm_fb_adj": "svae_tpu_torch/csrc/hmm_fb_adj.cu",
     "hmm_fb_stat_fwd": "svae_tpu_torch/csrc/hmm_fb.cu",
     "hmm_fb_stat_adj": "svae_tpu_torch/csrc/hmm_fb_adj.cu",
+    "elem_scan": "svae_tpu_torch/csrc/elem_scan.cu",
+    "elem_scan_adj": "svae_tpu_torch/csrc/elem_scan_adj.cu",
 }
 # ragged batches of the bpairs kernels: lengths spread evenly over [2, T]
 RAGGED_SHAPES = {"small": dict(B=3, T=7, d=3, S=2),
@@ -169,6 +193,17 @@ MEASURE_SLDS = dict(B=16, T=50, K=4, d=3, sweeps=10, S=2)
 # batch against its sequences run alone (tests/test_masking.py's Pallas
 # tier)
 TOL_PAD_REL = 1e-4
+# the chain-element scan kernels: a small odd shape, the config-2 fold
+# (B=64, T=100 in C=8 chunks: 512 lanes of 13 steps) and the long-T fold
+# (bench_longT's B=8, T=2048 in C=64 chunks: 512 lanes of 32 steps)
+ELEM_SHAPES = {"small": dict(B=5, T=5, d=3, C=1),
+               "config2": dict(B=64, T=100, d=10, C=8),
+               "longT": dict(B=8, T=2048, d=10, C=64)}
+ELEM_FIELDS = ("J11", "J12", "J22", "h1", "h2", "c")
+# the chunk count of the chunked train path: pallas_chunked's default
+CHUNKS = 8
+# benchmarks/bench_longT.py's shape for posterior_moments(parallel=C)
+LONG_T = dict(B=8, d=10, Ts=(512, 2048), chunks=(32, 64, 128))
 # published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, and HBM bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -284,8 +319,8 @@ def bpairs_problem(shape, seed=0, device="cuda"):
     init, mats, nodes, eps = _problem(shape, seed, device)
     lengths = torch.linspace(2, shape["T"], shape["B"]).round().long().to(
         device)
-    jd, h, _ = lds._prepare(nodes, None, lengths, False)
-    pairs, bnodes = lds._ragged_chain(mats, (jd, h), lengths)
+    jd, h, _ = lds._prepare(nodes, None, lengths)
+    pairs, bnodes = lds._chain(mats, (jd, h), lengths)
     g = torch.Generator(device=device).manual_seed(seed + 1000)
     cot = lambda x: torch.randn(x.shape, generator=g, dtype=x.dtype,
                                 device=device)
@@ -591,13 +626,15 @@ HMM_WRAPPERS = (hmm_fb.hmm_fb_fwd, hmm_fb.hmm_fb_adj, hmm_fb.hmm_fb_stat_fwd,
                 hmm_fb.hmm_fb_stat_adj)
 HMM_PLAINS = (hmm_fb.hmm_fb_fwd_plain, hmm_fb.hmm_fb_adj_plain,
               hmm_fb.hmm_fb_stat_fwd_plain, hmm_fb.hmm_fb_stat_adj_plain)
+CHUNK_WRAPPERS = (chunked.elem_scan, chunked.elem_scan_adj)
+CHUNK_PLAINS = (chunked.elem_scan_plain, chunked.elem_scan_adj_plain)
 TRAIN_K = 8
 
 
 def _reset_counters():
-    for w in WRAPPERS + RAGGED_WRAPPERS + HMM_WRAPPERS:
+    for w in WRAPPERS + RAGGED_WRAPPERS + HMM_WRAPPERS + CHUNK_WRAPPERS:
         w.launches = 0
-    for p in PLAINS + RAGGED_PLAINS + HMM_PLAINS:
+    for p in PLAINS + RAGGED_PLAINS + HMM_PLAINS + CHUNK_PLAINS:
         p.calls = 0
 
 
@@ -967,6 +1004,151 @@ def slds_padded_theorem(device="cuda", lengths=(37, 80), seed=8,
     return stat_rel, kl_rel
 
 
+def elem_problem(shape, seed=0, device="cuda"):
+    """float64 packed leaves (L, R, B*C) of config-``shape`` chains (the
+    expected potentials of random globals and recognizer-like evidence)
+    cut into C chunks and folded onto the lanes, as the chunked E-step
+    folds them (pad leaves included)."""
+    init, mats, nodes, _ = _problem(dict(shape, S=1), seed, device)
+    pairs, nodes = lds._chain(mats, nodes)
+    fold, _, L = chunked._fold(kalman.build_leaves(init, pairs, nodes),
+                               shape["C"])
+    return chunked._pack(fold, L)
+
+
+def _field_rel(got, want, d):
+    """Normwise relative error of each element field of packed
+    (L, R, N) elements."""
+    return {f: float((a.double() - b).norm() / b.norm()) for f, a, b in
+            zip(ELEM_FIELDS, chunked._unpack(got, d), chunked._unpack(want, d))}
+
+
+def check_elem_scan(shape, seed=0, device="cuda"):
+    """Phase 3c: the scan kernel (float32) against its plain version
+    (float64) on the same leaves, and the adjoint kernel against the plain
+    adjoint on the same leaves, prefix and random cotangents, at
+    ``shape``; raises unless every element field is within TOL_LOGZ_REL
+    (the scan) and TOL_ADJ_REL (the adjoint), normwise. Returns ``{kernel:
+    (worst field's normwise rel, max abs)}`` and the fields' errors."""
+    d = shape["d"]
+    leaves = elem_problem(shape, seed, device)
+    got = chunked.elem_scan(leaves.float())
+    want = chunked.elem_scan_plain(leaves)
+    torch.cuda.synchronize()
+    g = torch.Generator(device=device).manual_seed(seed + 1000)
+    douts = torch.randn(want.shape, generator=g, dtype=want.dtype,
+                        device=device)
+    dgot = chunked.elem_scan_adj(*_f32((leaves, want, douts)))
+    dwant = chunked.elem_scan_adj_plain(leaves, want, douts)
+    torch.cuda.synchronize()
+    fwd, adj = _field_rel(got, want, d), _field_rel(dgot, dwant, d)
+    errs = {"elem_scan": (max(fwd.values()), _max_err((got,), (want,))),
+            "elem_scan_adj": (max(adj.values()),
+                              _max_err((dgot,), (dwant,))),
+            "fields": {k: (fwd[k], adj[k]) for k in ELEM_FIELDS}}
+    if (errs["elem_scan"][0] > TOL_LOGZ_REL
+            or errs["elem_scan_adj"][0] > TOL_ADJ_REL):
+        raise AssertionError(f"an element-scan kernel disagrees with its "
+                             f"plain version at {shape}: {errs}")
+    return errs
+
+
+def chunked_train_path(device="cuda", B=64, T=100, steps=TRAIN_K):
+    """Phase 4p: ``steps`` config-2 steps through ``loop.run`` with
+    ``run_inference(parallel=CHUNKS)``, the launch counters showing 4
+    launches of each element-scan kernel a step (the within-chunk prefix
+    and suffix, the chunk-boundary prefix and suffix) and nothing else;
+    one step against the float64 CPU path. Returns the launch counts."""
+    S, d_obs, d = 2, 20, 10
+    N = 50 * B
+    data = torch.from_numpy(make_dot_data(
+        seed=4, num_seqs=steps * B, T=T, image_width=d_obs)).to(device)
+    prior, glob, rec, dec = _config2_models(device)
+    run = functools.partial(lds.run_inference, parallel=CHUNKS)
+    opt_init, step = loop.make_train_step(
+        run, recognition.mlp_recognize, decoders.mlp_loglike, prior, N,
+        num_samples=S)
+    gen = torch.Generator(device=device).manual_seed(9)
+
+    _reset_counters()
+    pgm, nets, _, history, gen = loop.run(
+        step, glob, (rec, dec), opt_init(glob, (rec, dec)), data, gen,
+        num_epochs=1, batch_size=B)
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in CHUNK_WRAPPERS}
+    others = {w.__name__: w.launches
+              for w in WRAPPERS + RAGGED_WRAPPERS + HMM_WRAPPERS}
+    plain_calls = {p.__name__: p.calls for p in
+                   PLAINS + RAGGED_PLAINS + HMM_PLAINS + CHUNK_PLAINS}
+    print(f"chunked train path ({steps} steps, parallel={CHUNKS}): launches "
+          f"{launches}, other kernels {others}, plain calls {plain_calls}")
+    if launches != {"elem_scan": 4 * steps, "elem_scan_adj": 4 * steps}:
+        raise AssertionError(f"a chunked step missed a scan: {launches}")
+    if any(others.values()) or any(plain_calls.values()):
+        raise AssertionError("the chunked path launched another kernel or "
+                             "called a plain version")
+    if len(history) != steps or not np.isfinite(history).all():
+        raise AssertionError(f"chunked path: bad ELBO history {history}")
+    print(f"chunked train path: elbo/N "
+          f"{' '.join(f'{e:.4f}' for e in history)}")
+    _step_vs_f64(run, pgm, nets, data[:B], gen, prior, N, S, d,
+                 f"chunked train step (parallel={CHUNKS})")
+    return launches
+
+
+def long_t_problem(T, seed=11, cfg=LONG_T):
+    """float64 CPU globals and recognizer-like evidence (B, T, d) at
+    bench_longT's shape."""
+    B, d = cfg["B"], cfg["d"]
+    g = torch.Generator().manual_seed(seed + T)
+    glob = lds.init_pgm_param(d, g, dtype=torch.float64, device="cpu")
+    f64 = dict(dtype=torch.float64)
+    jd = torch.logaddexp(torch.randn((B, T, d), generator=g, **f64),
+                         torch.zeros(())) + 0.5
+    return glob, (jd, torch.randn((B, T, d), generator=g, **f64))
+
+
+def long_t_moments(device="cuda", cfg=LONG_T):
+    """Phase 4p: ``posterior_moments(parallel=C)`` at bench_longT's shape,
+    float32 on the card, against float64 on the CPU, beside the float32
+    plain path (the same call on CPU tensors) and ``parallel=False`` (the
+    stationary kernels) on the card. No float32 tier is stated past T=100,
+    so the kernels' error may be at most twice the plain path's. Returns
+    ``{(T, C): (kernel err, plain err, sequential err, kernel vs
+    sequential)}``, each the worst output's normwise relative error."""
+    rel = lambda got, want: max(
+        float((a.double().cpu() - b).norm() / b.norm())
+        for a, b in zip(got, want))
+    out = {}
+    for T in cfg["Ts"]:
+        glob, pots = long_t_problem(T, cfg=cfg)
+        f32 = lambda x: x.float()
+        glob32, pots32 = tree_map(f32, glob), tree_map(f32, pots)
+        on = lambda x: x.to(device)
+        globd, potsd = tree_map(on, glob32), tree_map(on, pots32)
+        with torch.no_grad():
+            seq = lds.posterior_moments(globd, potsd)
+            for C in cfg["chunks"]:
+                if 2 * C > T:
+                    continue
+                want = lds.posterior_moments(glob, pots, parallel=C)
+                got = lds.posterior_moments(globd, potsd, parallel=C)
+                plain = lds.posterior_moments(glob32, pots32, parallel=C)
+                errs = (rel(got, want), rel(plain, want), rel(seq, want),
+                        rel(got, tree_map(lambda x: x.double().cpu(), seq)))
+                out[(T, C)] = errs
+                print(f"posterior_moments(parallel={C}) at B={cfg['B']}, "
+                      f"T={T}, d={cfg['d']} vs float64: kernels "
+                      f"{errs[0]:.3e}, float32 plain path {errs[1]:.3e}, "
+                      f"parallel=False {errs[2]:.3e}; kernels vs "
+                      f"parallel=False {errs[3]:.3e}")
+                if not errs[0] <= 2.0 * errs[1]:
+                    raise AssertionError(
+                        f"the chunked kernels' moments at T={T}, C={C} err "
+                        f"more than twice the float32 plain path's")
+    return out
+
+
 @contextlib.contextmanager
 def _twins_on_card():
     """Route the SLDS path's forward kernels to their plain twins, on
@@ -1057,6 +1239,75 @@ def slds_timings(device="cuda", cfg=SLDS_CONFIG, epochs=2):
         print(f"time {k}: {v:.4f} ms"
               + (f" = {seqs[k] / v * 1e3:.1f} seqs/s" if k in seqs else ""))
     print(f"slds epoch walls (ms): {walls}")
+    return t
+
+
+def chunked_timings(device="cuda", cfg=LONG_T):
+    """Phase 5, chunked path: the element-scan kernels at the config-2 and
+    long-T folds and their plain versions at the config-2 fold; one
+    chunked (``parallel=CHUNKS``) config-2 train step against the
+    sequential one (A B B A, the median of each pair of runs); and
+    ``posterior_moments`` at bench_longT's shape for each C against
+    ``parallel=False`` (CUDA events)."""
+    t = {}
+    for tag, name in (("", "config2"), ("_longT", "longT")):
+        leaves = elem_problem(ELEM_SHAPES[name], 0, device)
+        pref = chunked.elem_scan_plain(leaves)
+        g = torch.Generator(device=device).manual_seed(3)
+        douts = torch.randn(pref.shape, generator=g, dtype=pref.dtype,
+                            device=device)
+        args = _f32((leaves, pref, douts))
+        t["elem_scan" + tag] = _time_ms(lambda: chunked.elem_scan(args[0]))
+        t["elem_scan_adj" + tag] = _time_ms(
+            lambda: chunked.elem_scan_adj(*args))
+        if not tag:
+            t["elem_scan_plain"] = _time_ms(
+                lambda: chunked.elem_scan_plain(args[0]), runs=10)
+            t["elem_scan_adj_plain"] = _time_ms(
+                lambda: chunked.elem_scan_adj_plain(*args), runs=10)
+
+    B = SHAPES["config2"]["B"]
+    data = torch.from_numpy(make_dot_data(
+        seed=2, num_seqs=B, T=SHAPES["config2"]["T"],
+        image_width=20)).to(device)
+    gen = torch.Generator(device=device).manual_seed(2)
+    walls = {}
+    for par in (False, CHUNKS):
+        prior, glob, rec, dec = _config2_models(device)
+        run = functools.partial(lds.run_inference, parallel=par)
+        opt_init, step = loop.make_train_step(
+            run, recognition.mlp_recognize, decoders.mlp_loglike, prior,
+            50 * B, num_samples=SHAPES["config2"]["S"])
+        st = [glob, (rec, dec), opt_init(glob, (rec, dec))]
+
+        def one_step(step=step, st=st):
+            st[0], st[1], st[2], _, _ = step(*st, data, gen)
+
+        walls[par] = one_step
+    runs = {False: [], CHUNKS: []}
+    for par in (False, CHUNKS, CHUNKS, False):
+        runs[par].append(_time_ms(walls[par], runs=10))
+    t["train_step_sequential"] = float(np.median(runs[False]))
+    t["train_step_chunked"] = float(np.median(runs[CHUNKS]))
+    print(f"train step medians (A B B A): sequential {runs[False]}, "
+          f"chunked {runs[CHUNKS]}")
+
+    for T in cfg["Ts"]:
+        glob, pots = long_t_problem(T, cfg=cfg)
+        on = lambda x: x.float().to(device)
+        glob, pots = tree_map(on, glob), tree_map(on, pots)
+        t[f"moments_T{T}_sequential"] = _time_ms(
+            lambda: lds.posterior_moments(glob, pots))
+        for C in cfg["chunks"]:
+            if 2 * C <= T:
+                t[f"moments_T{T}_C{C}"] = _time_ms(
+                    lambda: lds.posterior_moments(glob, pots, parallel=C),
+                    runs=10)
+    seqs = {"train_step_sequential": B, "train_step_chunked": B}
+    seqs.update({k: cfg["B"] for k in t if k.startswith("moments")})
+    for k, v in t.items():
+        print(f"time {k}: {v:.4f} ms"
+              + (f" = {seqs[k] / v * 1e3:.1f} seqs/s" if k in seqs else ""))
     return t
 
 
@@ -1282,6 +1533,26 @@ def bound(name, B, T, d, S):
         # samples), dxT
         floats = (T1 * (dd + 2 * tri + d) * B + T1 * (3 * dd + d) * B
                   + (2 * T1 - 1) * d * SB + 2 * d * SB)
+    elif name.startswith("elem_scan"):
+        # here B is the lane count N and T the scan length L; the algebra of
+        # pallas_chunked's _combine_rows (chol d^3/3, two triangular
+        # solves for each of X and Y 4 d^3, three d x d products 6 d^3,
+        # vectors 12 d^2) and _combine_vjp_rows (chol, X, Y 4 d^3, M^-1
+        # d^3, the three quadratic terms of dM 12 d^3, dJ12a and dJ12b
+        # 8 d^3, vectors and outer products 30 d^2) per step and lane. An
+        # element's J11 and J22 are symmetric in the leaves and the
+        # prefixes, so an input element counts Rs = 2 tri + d^2 + 2d + 1
+        # floats and an output or a cotangent all R = 3 d^2 + 2d + 1.
+        chains, R = NL // 2, 3 * dd + 2 * d + 1
+        Rs = 2 * tri + dd + 2 * d + 1
+        if name == "elem_scan":
+            step = 31 * d ** 3 / 3 + 12 * d * d + 5 * d
+            floats = T * (Rs + R) * chains  # in: leaves; out: the prefixes
+        else:
+            step = 76 * d ** 3 / 3 + 30 * d * d + 4 * d
+            # in: leaves 1..L-1, the prefixes 0..L-2 (step 0 passes its
+            # cotangent through), the cotangents; out: dleaves
+            floats = (2 * (T - 1) * Rs + 2 * T * R) * chains
     elif name.startswith("hmm_fb"):
         # here d is the number of states K; chains: one per sequence and
         # direction
@@ -1385,6 +1656,13 @@ def main():
                 if k in e:
                     errs[k] = max(errs.get(k, 0.0), e[k][1])
     stat_launches = hmm_stationary_path()
+    for name, shape in ELEM_SHAPES.items():
+        e = check_elem_scan(shape)
+        print(f"element-scan kernels vs plain versions [{name} {shape}] "
+              f"(worst field's normwise rel, max abs; per field scan, "
+              f"adjoint): {e}")
+        for k in ("elem_scan", "elem_scan_adj"):
+            errs[k] = max(errs.get(k, 0.0), e[k][1])
 
     main_path()
     launches = train_path()
@@ -1394,9 +1672,12 @@ def main():
     slds_padded_theorem()
     launches.update({k: slds_launches[k] for k in HMM_RUNS[0]})
     launches.update({k: stat_launches[k] for k in HMM_RUNS[1]})
+    launches.update(chunked_train_path())
+    long_t_moments()
     t = timings()
     t.update(ragged_timings())
     t.update(slds_timings())
+    t.update(chunked_timings())
     print(f"chip_smoke wall since the build began: "
           f"{time.perf_counter() - t0:.1f} s")
     kernels = []
@@ -1404,6 +1685,11 @@ def main():
         if k.startswith("hmm_fb"):
             shape = dict(HMM_SHAPES["slds"], S=1)
             shape["d"] = shape["K"]
+        elif k.startswith("elem_scan"):
+            # the config-2 fold: B*C lanes of ceil((T-1)/C) steps
+            c = ELEM_SHAPES["config2"]
+            shape = dict(B=c["B"] * c["C"], T=-(-(c["T"] - 1) // c["C"]),
+                         d=c["d"], S=1)
         elif k in [w.__name__ for w in WRAPPERS]:
             shape = SHAPES["config2"]
         else:

@@ -1,6 +1,7 @@
-// Shared pieces of the E-step kernels (estep.cu, filter_adj.cu,
-// sampler_adj.cu): the block width and the unrolled small-matrix Cholesky
-// factor and triangular solves every kernel runs on one thread's registers.
+// Shared pieces of the port's kernels (estep.cu, filter_adj.cu,
+// sampler_adj.cu, elem_scan.cu, elem_scan_adj.cu and the rest): the block
+// width and the unrolled small-matrix Cholesky factor and triangular solves
+// every kernel runs on one thread's registers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,6 +10,13 @@ namespace {
 
 constexpr int kThreads = 32;
 constexpr float kLog2Pi = 1.8378770664093453f;
+
+// How far the element-scan kernels' loops over rows unroll: fully up to
+// d=10, not at all beyond (which bounds their build time at d=16).
+template <int D>
+struct Rows {
+  static constexpr int value = D <= 10 ? D : 1;
+};
 
 // In-place lower Cholesky factor of the lower triangle of L (row by row);
 // rd gets the reciprocal diagonal. Returns sum_i log L_ii (half logdet).

@@ -8,7 +8,11 @@ sequences of one length runs the packed stationary E-step of
 :mod:`svae_tpu_torch.ops.estep`; a ragged batch (``lengths=``) gives every
 sequence its own pairs, with the normalized dummy transition at its pad
 frames, and runs the per-sequence E-step of :mod:`svae_tpu_torch.ops.bpairs`.
-Both run CUDA kernels on a card and plain twins on the CPU.
+``parallel=`` picks a parallel-in-time E-step instead, with or without
+``lengths=``: ``True`` the log-depth tree of :mod:`svae_tpu_torch.ops.kalman`
+(torch ops), an int C the chunked scan of :mod:`svae_tpu_torch.ops.chunked`.
+All run CUDA kernels on a card (the tree flavor has none, as the JAX package
+runs ``lax.associative_scan`` there) and plain twins on the CPU.
 
 Statistics are congruent with the global natparams and summed over the
 batch:
@@ -17,19 +21,16 @@ batch:
          sum_t E[x_t x_t^T], T-1) per sequence, over its real transitions
 """
 
+import functools
 import math
 
 import torch
 
 from svae_tpu_torch.expfam import mniw, niw
-from svae_tpu_torch.ops import bpairs, estep
+from svae_tpu_torch.ops import bpairs, chunked, estep, kalman
 from svae_tpu_torch.utils import smallchol
 from svae_tpu_torch.utils.psd import f32_linalg
 from svae_tpu_torch.utils.pytree import tree_dot, tree_map, tree_sub
-
-_PARALLEL = ("the parallel-in-time smoother (parallel=True) is not ported "
-             "yet: ROADMAP.md Queue 1, 'Measured questions'")
-
 
 def init_pgm_param(d, generator, niw_conc=10.0, mniw_conc=10.0, A_scale=0.9,
                    Q_scale=0.1, dtype=torch.float32, device=None):
@@ -133,12 +134,10 @@ def _expected_potentials(global_natparam, dtype):
     return tree_map(lambda a: a.to(dtype), ((I1, I2, Ic), pair_mats))
 
 
-def _prepare(nn_potentials, mask, lengths, parallel):
+def _prepare(nn_potentials, mask, lengths):
     """Validate the options, add a batch axis to an unbatched (T, d)
     input and zero the evidence that ``mask`` and ``lengths`` drop.
     Returns ``(J_diag, h, batched)``."""
-    if parallel:
-        raise NotImplementedError(_PARALLEL)
     J_diag, h = nn_potentials
     batched = J_diag.dim() == 3
     if lengths is not None and not batched:
@@ -152,25 +151,48 @@ def _prepare(nn_potentials, mask, lengths, parallel):
     return J_diag, h, batched
 
 
-def _ragged_chain(pair_mats, nn_potentials, lengths):
-    """The per-sequence pairs and the node potentials (N1 = -1/2 diag
-    J_diag, h) of a ragged batch."""
+def _chain(pair_mats, nn_potentials, lengths=None):
+    """The pairs and the node potentials (N1 = -1/2 diag J_diag, h) of a
+    batch: the shared pairs over its T-1 transitions or, for a ragged batch
+    (``lengths``), per sequence with the dummy at its pad transitions."""
     J_diag, h = nn_potentials
     T = h.shape[1]
     pairs = tuple(p.expand((T - 1,) + p.shape) for p in pair_mats)
-    return (_ragged_pairs(pairs, lengths, T, h.dtype),
-            (-0.5 * torch.diag_embed(J_diag), h))
+    if lengths is not None:
+        pairs = _ragged_pairs(pairs, lengths, T, h.dtype)
+    return pairs, (-0.5 * torch.diag_embed(J_diag), h)
 
 
-def _batched_inference_bpairs(init, pairs, nodes, generator, num_samples,
-                              valid, eps=None):
-    """Minibatch E-step on per-sequence pairs (port of
-    lds._batched_inference_pallas): the kernels are mask-free, and the
-    statistics weigh transition t -> t+1 by ``valid`` (B, T) at frame t+1,
-    so pad frames add nothing to the MNIW statistics or counts; their zero
-    evidence and dummy transitions make the local KL exact."""
+def _check_parallel(parallel):
+    if not (isinstance(parallel, bool)
+            or (isinstance(parallel, int) and parallel > 0)):
+        raise ValueError(f"parallel must be False, True or a positive chunk "
+                         f"count, got {parallel!r}")
+
+
+def _route(parallel):
+    """The ``(estep, smoother)`` pair of chain potentials (init, pairs,
+    nodes) that ``parallel`` names: the estep returns ``(samples, (Ex,
+    ExxT, Exnxt), logZ)``, the smoother ``(logZ, Ex, ExxT, Exnxt)``."""
+    if parallel is True:
+        return (functools.partial(kalman.lds_inference, parallel=True),
+                functools.partial(kalman.lds_smoother, parallel=True))
+    if parallel:
+        return (functools.partial(chunked.lds_estep, chunks=parallel),
+                functools.partial(chunked.lds_smoother, chunks=parallel))
+    return bpairs.lds_estep, bpairs.lds_smoother
+
+
+def _batched_inference(estep_fn, init, pairs, nodes, generator, num_samples,
+                       valid, eps=None):
+    """Minibatch E-step on streamed pairs through ``estep_fn`` (port of
+    lds._batched_inference_pallas and of the vmapped _sequence_inference):
+    the E-steps are mask-free, and the statistics weigh transition
+    t -> t+1 by ``valid`` (B, T) at frame t+1, so pad frames add nothing to
+    the MNIW statistics or counts; their zero evidence and dummy
+    transitions make the local KL exact."""
     N1, h = nodes
-    samples, (Ex, ExxT, Exnxt), logZ = bpairs.lds_estep(
+    samples, (Ex, ExxT, Exnxt), logZ = estep_fn(
         init, pairs, nodes, generator, num_samples, eps=eps)
     local_kl = (N1 * ExxT).sum() + (h * Ex).sum() - logZ.sum()
     cnt = torch.tensor(float(Ex.shape[0]), dtype=Ex.dtype, device=Ex.device)
@@ -198,19 +220,27 @@ def run_inference(prior_natparam, global_natparam, nn_potentials, generator,
     through the dynamics. ``lengths``: optional (B,) lengths of a batch
     padded to a common T (batched input only): pad frames carry no
     evidence and no statistics, so the result equals that of the unpadded
-    sequences. Both compose. ``parallel=True`` is not ported yet and
-    raises. Raises ``FloatingPointError`` if a Cholesky factor failed (one
-    host sync per call)."""
-    J_diag, h, batched = _prepare(nn_potentials, mask, lengths, parallel)
+    sequences. Both compose. ``parallel``: ``False`` runs the sequential
+    kernels (the packed stationary E-step, or the per-sequence one with
+    ``lengths``), ``True`` the log-depth tree of
+    :mod:`~svae_tpu_torch.ops.kalman`, an int C the chunked scan of
+    :mod:`~svae_tpu_torch.ops.chunked` with C chunks. Raises
+    ``FloatingPointError`` if a Cholesky factor failed (one host sync per
+    call)."""
+    _check_parallel(parallel)
+    J_diag, h, batched = _prepare(nn_potentials, mask, lengths)
     init, pair_mats = _expected_potentials(global_natparam, h.dtype)
-    if lengths is None:
+    if lengths is None and not parallel:
         samples, stats, local_kl = estep.lds_estep_stationary(
             init, pair_mats, (J_diag, h), generator, num_samples, eps=eps)
     else:
-        pairs, nodes = _ragged_chain(pair_mats, (J_diag, h), lengths)
-        valid = _length_mask(lengths, *h.shape[:2], h.dtype, h.device)
-        samples, stats, local_kl = _batched_inference_bpairs(
-            init, pairs, nodes, generator, num_samples, valid, eps=eps)
+        pairs, nodes = _chain(pair_mats, (J_diag, h), lengths)
+        B, T = h.shape[:2]
+        valid = (h.new_ones(B, T) if lengths is None else
+                 _length_mask(lengths, B, T, h.dtype, h.device))
+        samples, stats, local_kl = _batched_inference(
+            _route(parallel)[0], init, pairs, nodes, generator, num_samples,
+            valid, eps=eps)
     if not batched:
         samples = samples[:, 0]
     out = (samples, stats, prior_kl(global_natparam, prior_natparam),
@@ -223,17 +253,19 @@ def run_inference(prior_natparam, global_natparam, nn_potentials, generator,
 def posterior_moments(global_natparam, nn_potentials, parallel=False,
                       mask=None, lengths=None):
     """Smoothed posterior moments ``(Ex, ExxT, Exnxt, logZ)`` for one
-    sequence or a batch, with ``mask``, ``lengths`` and the failure check
-    as in :func:`run_inference`. With ``lengths`` the moments cover the
-    pad frames too (the dummy chain there), as the JAX package's do."""
-    J_diag, h, batched = _prepare(nn_potentials, mask, lengths, parallel)
+    sequence or a batch, with ``parallel``, ``mask``, ``lengths`` and the
+    failure check as in :func:`run_inference`. With ``lengths`` the
+    moments cover the pad frames too (the dummy chain there), as the JAX
+    package's do."""
+    _check_parallel(parallel)
+    J_diag, h, batched = _prepare(nn_potentials, mask, lengths)
     init, pair_mats = _expected_potentials(global_natparam, h.dtype)
-    if lengths is None:
+    if lengths is None and not parallel:
         logZ, Ex, ExxT, Exnxt = estep.lds_moments_stationary(
             init, pair_mats, (J_diag, h))
     else:
-        pairs, nodes = _ragged_chain(pair_mats, (J_diag, h), lengths)
-        logZ, Ex, ExxT, Exnxt = bpairs.lds_smoother(init, pairs, nodes)
+        pairs, nodes = _chain(pair_mats, (J_diag, h), lengths)
+        logZ, Ex, ExxT, Exnxt = _route(parallel)[1](init, pairs, nodes)
     smallchol.check_finite((logZ, Ex, ExxT, Exnxt), "posterior_moments")
     if not batched:
         return Ex[0], ExxT[0], Exnxt[0], logZ[0]

@@ -258,10 +258,15 @@ def run_inference(prior_natparam, global_natparam, nn_potentials, generator,
     lengths of a batch padded to a common T (batched input only): pad
     transitions become normalized dummies on both chains and leave every
     statistic, so the result equals that of the unpadded sequences. Both
-    compose. ``parallel=True`` is not ported yet and raises. Raises
-    ``FloatingPointError`` if a Cholesky factor failed (one host sync per
-    call)."""
-    J_diag, h, batched = lds._prepare(nn_potentials, mask, lengths, parallel)
+    compose. ``parallel=True`` (the JAX package's per-sequence scan path)
+    is not ported and raises. Raises ``FloatingPointError`` if a Cholesky
+    factor failed (one host sync per call)."""
+    if parallel:
+        raise NotImplementedError(
+            "slds.run_inference(parallel=...): the per-sequence scan path "
+            "is not ported; the batched structured mean-field serves every "
+            "batch (ROADMAP.md Queue 1)")
+    J_diag, h, batched = lds._prepare(nn_potentials, mask, lengths)
     pair_w = (None if lengths is None else
               lds._pair_weight(lengths, h.shape[1], h.dtype, h.device))
     samples, stats, local_kl = _batched_inference(
@@ -293,7 +298,7 @@ def most_likely_states(global_natparam, nn_potentials,
     (B, T, d); returns int32 paths (T,) or (B, T). ``mask`` marks missing
     frames (their evidence zeroed; the decode bridges them through the
     dynamics). No gradient is taken."""
-    J_diag, h, batched = lds._prepare(nn_potentials, mask, None, False)
+    J_diag, h, batched = lds._prepare(nn_potentials, mask, None)
     with torch.no_grad():
         _, lds_post, _ = _batched_meanfield(
             global_natparam, (J_diag, h), num_iters=num_meanfield_iters,

@@ -107,7 +107,9 @@ def load_library():
                                  ("svae_hmm_fb_fwd_f32", 3, 5),
                                  ("svae_hmm_fb_stat_fwd_f32", 3, 6),
                                  ("svae_hmm_fb_adj_f32", 3, 10),
-                                 ("svae_hmm_fb_stat_adj_f32", 3, 12)):
+                                 ("svae_hmm_fb_stat_adj_f32", 3, 12),
+                                 ("svae_elem_scan_f32", 3, 3),
+                                 ("svae_elem_scan_adj_f32", 3, 6)):
             fn = getattr(lib, name)
             fn.argtypes = [i] * ints + [p] * ptrs
             fn.restype = i

@@ -1,0 +1,292 @@
+"""Parity of the port's chunked parallel-in-time E-step
+(svae_tpu_torch/ops/chunked.py) and of the model's ``parallel=`` routes
+(svae_tpu_torch/models/lds.py) with the JAX package, in float64 on the
+CPU.
+
+* ``elem_scan_plain`` and ``elem_scan_adj_plain`` against the Pallas
+  kernels ``pallas_chunked._scan_fwd_kernel`` and ``_scan_adj_kernel``,
+  called directly in interpret mode at d=2 and d=3 on the same packed
+  leaves (128 lanes of chains built from tests/test_oracles.py's
+  potentials) and random cotangents.
+* ``chunked.lds_smoother`` and ``chunked.lds_estep`` (samples under the
+  JAX package's noise) for C in {1, 2, 4, 10} at
+  tests/test_pallas_chunked.py's shape (B=3, T=11, d=3; C=4 pads the 10
+  leaves to 12) against ``pallas_chunked.lds_estep`` at C=4 in interpret
+  mode, and the chunked smoother's gradient at each C against the
+  gradient through ``pallas_chunked.lds_smoother`` at C=4 (its adjoint
+  kernel in interpret mode): pallas_chunked's outputs do not depend on C
+  beyond rounding (tests/test_pallas_chunked.py holds every C to the
+  sequential scan at rtol 1e-9), so one compile of each serves the four.
+* ``lds.run_inference`` (samples under the JAX package's noise,
+  statistics, both KLs) and ``posterior_moments`` with ``parallel=True``
+  and ``parallel=4``, with and without ``mask=`` and ``lengths=``, and one
+  ``make_train_step(partial(run_inference, parallel=4))`` step (ELBO,
+  natural gradient, net gradients) against the JAX package's
+  ``backend="xla"`` path with its sequential scan, whose flavors differ
+  only by rounding (its own tests hold each to the sequential one); the
+  flavor-for-flavor parity of the scans is tests/test_torch_kalman.py's.
+* The kernel wrappers' argument checks, on meta tensors.
+
+Every JAX reference is compiled once, in a module fixture, one sequence
+at a time where a vmap would only add to the trace. Tolerance rtol 1e-8 /
+atol 1e-10 (both sides float64) unless a test says otherwise."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from svae_tpu.data import synthetic as jax_synthetic
+from svae_tpu.models import lds as jax_lds
+from svae_tpu.nets import decoders as jax_decoders
+from svae_tpu.nets import recognition as jax_recognition
+from svae_tpu.ops import pallas_chunked
+from svae_tpu.train import elbo as jax_elbo
+
+from svae_tpu_torch import convert
+from svae_tpu_torch.models import lds
+from svae_tpu_torch.nets import decoders, recognition
+from svae_tpu_torch.ops import chunked, kalman
+from svae_tpu_torch.train import elbo, loop
+from svae_tpu_torch.utils.pytree import tree_leaves
+from tests.test_oracles import make_lds_potentials
+from tests.test_pallas_chunked import batched_pots
+
+torch.set_num_threads(1)
+RTOL, ATOL = 1e-8, 1e-10
+F64 = dict(dtype=torch.float64, device="cpu")
+
+
+def _t(tree):
+    if isinstance(tree, (tuple, list)):
+        return tuple(_t(x) for x in tree)
+    return torch.from_numpy(np.array(tree, dtype=np.float64))
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _close(port, ref, rtol=RTOL, atol=ATOL):
+    port_leaves, ref_leaves = tree_leaves(port), jax.tree.leaves(ref)
+    assert len(port_leaves) == len(ref_leaves)
+    for p, r in zip(port_leaves, ref_leaves):
+        np.testing.assert_allclose(torch.as_tensor(p).detach().numpy(),
+                                   np.asarray(r), rtol=rtol, atol=atol)
+
+
+def jax_eps(key, B, S, T, d):
+    """The JAX package's per-sequence sampler noise, ``normal(key_b, (S, T,
+    d))`` under ``jax.random.split(key, B)``, as the port's (S, B, T, d)
+    ``eps``."""
+    keys = jax.random.split(key, B)
+    eps = np.stack([np.asarray(jax.random.normal(k, (S, T, d), jnp.float64))
+                    for k in keys])
+    return torch.from_numpy(eps).movedim(0, 1)
+
+
+# --------------------------------------------------------------------------
+# the element scan against the Pallas kernels
+# --------------------------------------------------------------------------
+
+LANES, STEPS = 128, 4
+
+
+def packed_leaves(d, seed=0):
+    """(STEPS, R, LANES) packed leaves: one chain of STEPS + 1 frames per
+    lane, shared time-varying pairs and per-lane node evidence."""
+    init, pairs, nodes = make_lds_potentials(T=STEPS + 1, d=d, seed=seed,
+                                             time_varying=True)
+    N1 = np.tile(nodes[0][None], (LANES, 1, 1, 1))
+    N2 = np.random.default_rng(seed).standard_normal((LANES, STEPS + 1, d))
+    leaves = kalman.build_leaves(_t(init), _t(pairs), _t((N1, N2)))
+    return chunked._pack(leaves, STEPS)
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_elem_scan_plain_matches_pallas_kernel(d):
+    leaves = packed_leaves(d, seed=d)
+    want = jax.jit(functools.partial(pallas_chunked._scan_fwd_call, d=d,
+                                     interpret=True))(leaves.numpy())
+    _close(chunked.elem_scan_plain(leaves), want)
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_elem_scan_adj_plain_matches_pallas_kernel(d):
+    leaves = packed_leaves(d, seed=d)
+    pref = chunked.elem_scan_plain(leaves)
+    douts = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        leaves.shape))
+    want = jax.jit(functools.partial(pallas_chunked._scan_adj_call, d=d,
+                                     interpret=True))(
+        leaves.numpy(), pref.numpy(), douts.numpy())
+    _close(chunked.elem_scan_adj_plain(leaves, pref, douts), want)
+
+
+def test_wrappers_check_their_arguments():
+    """Shapes, then type and layout, then the device: meta tensors reach
+    every check without a card."""
+    meta = dict(dtype=torch.float32, device="meta")
+    R = chunked._nrows(3)
+    with pytest.raises(ValueError, match="inconsistent"):
+        chunked.elem_scan(torch.empty((4, R - 1, 5), **meta))
+    with pytest.raises(ValueError, match="inconsistent"):
+        chunked.elem_scan_adj(torch.empty((4, R, 5), **meta),
+                              torch.empty((4, R, 6), **meta),
+                              torch.empty((4, R, 5), **meta))
+    with pytest.raises(ValueError, match="d=5"):
+        chunked.elem_scan(torch.empty((4, chunked._nrows(5), 5), **meta))
+    with pytest.raises(TypeError, match="float32"):
+        chunked.elem_scan(torch.empty((4, R, 5), dtype=torch.float64,
+                                      device="meta"))
+    with pytest.raises(ValueError, match="contiguous"):
+        chunked.elem_scan(torch.empty((5, R, 4), **meta).transpose(0, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        chunked.elem_scan(torch.empty((4, R, 5), **meta))
+    assert chunked.elem_scan.launches == 0
+    assert chunked.elem_scan_adj.launches == 0
+
+
+# --------------------------------------------------------------------------
+# the chunked E-step against pallas_chunked
+# --------------------------------------------------------------------------
+
+CB, CT, CD, CS = 3, 11, 3, 2
+
+
+def _smoother_loss(outputs):
+    """test_pallas_chunked.py's loss of the smoother's outputs."""
+    logZ, Ex, ExxT, Exnxt = outputs
+    return (logZ.sum() + (Ex * 0.3).sum() + (ExxT * 0.1).sum()
+            + (Exnxt * 0.2).sum())
+
+
+@pytest.fixture(scope="module")
+def pallas_refs():
+    """pallas_chunked.lds_estep at C=4 (interpret mode), the gradient of
+    ``_smoother_loss`` of ``pallas_chunked.lds_smoother`` at C=4 with
+    respect to the node evidence N2, the inputs and the noise."""
+    init, pairs, nodes = batched_pots(CB, CT, CD)
+    key = jax.random.key(5)
+    estep = jax.jit(lambda init, pairs, nodes: pallas_chunked.lds_estep(
+        init, pairs, nodes, key, CS, chunks=4, interpret=True))(
+            init, pairs, nodes)
+    grad = jax.jit(jax.grad(lambda n2: _smoother_loss(
+        pallas_chunked.lds_smoother(init, pairs, (nodes[0], n2), chunks=4,
+                                    interpret=True))))(nodes[1])
+    return (_np(estep), _np(grad), _t(_np((init, pairs, nodes))),
+            jax_eps(key, CB, CS, CT, CD))
+
+
+@pytest.mark.parametrize("C", [1, 2, 4, 10])
+def test_chunked_estep_matches_pallas_chunked(pallas_refs, C):
+    ((samples_r, moments_r, logZ_r), grad_r, (init, pairs, nodes),
+     eps) = pallas_refs
+    _close(chunked.lds_smoother(init, pairs, nodes, chunks=C),
+           (logZ_r,) + tuple(moments_r))
+    _close(chunked.lds_estep(init, pairs, nodes, None, CS, chunks=C,
+                             eps=eps), (samples_r, moments_r, logZ_r))
+    n2 = nodes[1].clone().requires_grad_()
+    loss = _smoother_loss(chunked.lds_smoother(init, pairs, (nodes[0], n2),
+                                               chunks=C))
+    _close(torch.autograd.grad(loss, n2), (grad_r,))
+
+
+# --------------------------------------------------------------------------
+# the model's parallel routes and a train step
+# --------------------------------------------------------------------------
+
+MB, MT, MD, MS = 3, 7, 2, 2
+D_OBS, N = 6, 40
+MODEL_CASES = ["plain", "mask", "lengths"]
+
+
+@pytest.fixture(scope="module")
+def model():
+    """JAX globals and nets, evidence, a mask, ragged lengths, data; the
+    JAX package's ``run_inference`` and ``posterior_moments``
+    (``backend="xla"``) for each case from one jit (the plain case passes
+    an all-ones mask and full lengths, which leave every potential and
+    weight as it is: multiplications by one, additions of zero), and its
+    ``make_gradfun`` outputs."""
+    k = jax.random.split(jax.random.key(0), 4)
+    prior = jax_lds.init_pgm_param(k[0], MD, dtype=jnp.float64)
+    glob = jax_lds.init_pgm_param(k[1], MD, dtype=jnp.float64)
+    rp = jax_recognition.init_mlp_recognize(k[2], D_OBS, (8,), MD,
+                                            dtype=jnp.float64)
+    dp = jax_decoders.init_mlp_decode(k[3], MD, (8,), D_OBS,
+                                      dtype=jnp.float64)
+    rng = np.random.default_rng(4)
+    jd = np.logaddexp(rng.standard_normal((MB, MT, MD)), 0.0) + 0.4
+    h = rng.standard_normal((MB, MT, MD))
+    mask = (rng.random((MB, MT)) > 0.3).astype(np.float64)
+    lengths = np.array([MT, 4, 2])
+    key = jax.random.key(1)
+
+    @jax.jit
+    def ref(glob, jd, h, mask, lengths):
+        kw = dict(backend="xla", mask=mask, lengths=lengths)
+        return (jax_lds.run_inference(prior, glob, (jd, h), key, MS, **kw),
+                jax_lds.posterior_moments(glob, (jd, h), **kw))
+
+    ones, full = np.ones((MB, MT)), np.full(MB, MT)
+    cases = {"plain": (ones, full), "mask": (mask, full),
+             "lengths": (ones, lengths)}
+    y = jax_synthetic.make_dot_data(seed=2, num_seqs=MB, T=MT,
+                                    image_width=D_OBS).astype(np.float64)
+    gradfun = jax_elbo.make_gradfun(
+        functools.partial(jax_lds.run_inference, backend="xla"),
+        jax_recognition.mlp_recognize, jax_decoders.mlp_loglike, prior, N,
+        num_samples=MS)
+    return dict(
+        prior=prior, glob=glob, nets=(rp, dp), jd=jd, h=h, mask=mask,
+        lengths=lengths, y=y, eps=jax_eps(key, MB, MS, MT, MD),
+        refs={c: ref(glob, jd, h, *cases[c]) for c in MODEL_CASES},
+        grad_out=jax.jit(gradfun)(glob, (rp, dp), jnp.asarray(y), key))
+
+
+@pytest.mark.parametrize("case", MODEL_CASES)
+@pytest.mark.parametrize("par", [True, 4])
+def test_model_parallel_routes_match_jax(model, par, case):
+    kw = dict(parallel=par)
+    if case == "mask":
+        kw["mask"] = torch.from_numpy(model["mask"])
+    if case == "lengths":
+        kw["lengths"] = torch.from_numpy(model["lengths"])
+    prior, glob = (convert.natparam(_np(model[k]), **F64)
+                   for k in ("prior", "glob"))
+    pots = (torch.from_numpy(model["jd"]), torch.from_numpy(model["h"]))
+    got = lds.run_inference(prior, glob, pots, None, MS, eps=model["eps"],
+                            **kw)
+    ri_r, pm_r = model["refs"][case]
+    _close(got, ri_r)
+    _close(lds.posterior_moments(glob, pots, **kw), pm_r)
+
+
+def test_train_step_matches_jax(model):
+    """One step of the chunked route: ELBO, natural gradient, net
+    gradients and terms of ``make_gradfun``, and the ELBO of the
+    ``make_train_step`` step."""
+    rp, dp = model["nets"]
+    nets = (convert.recognizer(_np(rp), **F64), convert.decoder(_np(dp),
+                                                                **F64))
+    parts = (functools.partial(lds.run_inference, parallel=4,
+                               eps=model["eps"]),
+             recognition.mlp_recognize, decoders.mlp_loglike,
+             convert.natparam(_np(model["prior"]), **F64), N)
+    glob = convert.natparam(_np(model["glob"]), **F64)
+    y = torch.from_numpy(model["y"])
+    value, natgrad, net_grads, terms = elbo.make_gradfun(
+        *parts, num_samples=MS)(glob, nets, y, None)
+    v_r, nat_r, grads_r, terms_r = model["grad_out"]
+    _close(value, v_r)
+    _close(natgrad, nat_r)
+    _close(net_grads, grads_r)
+    for k in terms_r:
+        _close(terms[k], terms_r[k])
+    init, step = loop.make_train_step(*parts, num_samples=MS)
+    _, _, _, step_value, _ = step(glob, nets, init(glob, nets), y, None)
+    _close(step_value, v_r)

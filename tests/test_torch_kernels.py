@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from svae_tpu_torch.models import lds
-from svae_tpu_torch.ops import bpairs, estep, hmm_fb
+from svae_tpu_torch.ops import bpairs, chunked, estep, hmm_fb
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 pytestmark = pytest.mark.gpu
@@ -153,8 +153,8 @@ def _ragged_grads(init, mats, nodes, eps, lengths):
     """Gradients of a fixed scalar of the per-sequence-pairs E-step's
     outputs with respect to the node potentials (N1, N2) of a ragged
     batch."""
-    jd, h, _ = lds._prepare(nodes, None, lengths, False)
-    pairs, (N1, N2) = lds._ragged_chain(mats, (jd, h), lengths)
+    jd, h, _ = lds._prepare(nodes, None, lengths)
+    pairs, (N1, N2) = lds._chain(mats, (jd, h), lengths)
     N1, N2 = (x.detach().clone().requires_grad_() for x in (N1, N2))
     s, moments, logZ = bpairs.lds_estep(init, pairs, (N1, N2), None,
                                         eps.shape[0], eps=eps)
@@ -276,3 +276,36 @@ def test_hmm_wrappers_reject_what_the_kernels_do_not_take(smoke):
     with pytest.raises(ValueError, match="K=5"):
         hmm_fb.hmm_fb_fwd(*smoke._f32(smoke.hmm_kernel_args(
             li, lt, lo)["hmm_fb_fwd"]))
+
+
+@pytest.mark.parametrize("shape", ["small", "config2"])
+def test_elem_scan_kernels_match_plain(smoke, shape):
+    smoke.check_elem_scan(smoke.ELEM_SHAPES[shape], seed=0)
+
+
+@pytest.mark.parametrize("d", estep.KERNEL_DIMS)
+def test_elem_scan_kernels_match_plain_at_every_built_d(smoke, d):
+    smoke.check_elem_scan(dict(B=7, T=20, d=d, C=3), seed=d)
+
+
+def test_chunked_training_on_card_matches_cpu(smoke):
+    """Two small chunked (parallel=8) train steps on the card: four
+    launches of each element-scan kernel a step, nothing else, and one
+    step against the float64 CPU path."""
+    smoke.chunked_train_path(B=6, T=30, steps=2)
+
+
+def test_elem_scan_wrappers_reject_what_the_kernels_do_not_take(smoke):
+    leaves = smoke.elem_problem(smoke.ELEM_SHAPES["small"], 0, "cuda")
+    with pytest.raises(TypeError, match="float32"):
+        chunked.elem_scan(leaves)
+    f32 = leaves.float()
+    with pytest.raises(ValueError, match="CUDA"):
+        chunked.elem_scan_adj(f32, f32.cpu(), f32)
+    with pytest.raises(ValueError, match="contiguous"):
+        chunked.elem_scan(f32.transpose(0, 2).contiguous().transpose(0, 2))
+    with pytest.raises(ValueError, match="inconsistent"):
+        chunked.elem_scan(f32[:, :-1].contiguous())
+    d5 = smoke.elem_problem(dict(B=3, T=7, d=5, C=2), 0, "cuda")
+    with pytest.raises(ValueError, match="d=5"):
+        chunked.elem_scan(d5.float())

@@ -107,15 +107,6 @@ def test_posterior_moments_match_jax_scan_path(model, case):
     _close(out, ref)
 
 
-@pytest.mark.parametrize("kw", [{"parallel": True}])
-def test_unported_options_raise(model, kw):
-    pots = (torch.from_numpy(model["jd"]), torch.from_numpy(model["h"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lds.run_inference(model["prior"], model["glob"], pots, None, S, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lds.posterior_moments(model["glob"], pots, **kw)
-
-
 @pytest.mark.parametrize("entry", ["run_inference", "posterior_moments"])
 def test_failed_factor_raises(model, entry):
     """Evidence of negative precision makes the filter's Cholesky factor

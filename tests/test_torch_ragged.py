@@ -174,8 +174,8 @@ def kernels():
     mats = tuple(_t(m) for m in jax_mniw.expected_pair_potential(glob[1]))
     jd = _t(np.logaddexp(rng.standard_normal((B, T, d)), 0.0) + 0.4)
     h = _t(rng.standard_normal((B, T, d)))
-    jd, h, _ = lds._prepare((jd, h), None, torch.from_numpy(LENGTHS), False)
-    pairs, nodes = lds._ragged_chain(mats, (jd, h), torch.from_numpy(LENGTHS))
+    jd, h, _ = lds._prepare((jd, h), None, torch.from_numpy(LENGTHS))
+    pairs, nodes = lds._chain(mats, (jd, h), torch.from_numpy(LENGTHS))
     init = tuple(_t(x) for x in (I1, I2, Ic))
 
     fin = bpairs.bidir_inputs(init, pairs, nodes)

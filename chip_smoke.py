@@ -90,12 +90,31 @@ exits non-zero:
    (B=8, d=10, T=512 and 2048, C in {32, 64, 128} with 2C <= T) against
    float64, with the float32 plain path's error beside the kernels' (no
    float32 tier is stated past T=100: the kernels' error may be at most
-   twice the plain path's), and against ``parallel=False``.
+   twice the plain path's), and against ``parallel=False``;
+3k. the three forward-only shared-pair kernels (``ops/kalman_fwd.py``:
+   the forward and backward information filters and the sampler, reading
+   each step's pair row once for the batch) in float32 against their plain
+   versions in float64 on the same inputs, at a small odd shape, at config-2
+   width (B=64, T=100, d=10, S=2) and at B=8, T=2048, the config-2
+   expected pairs varied in time by a seeded factor;
+4k. each entry point of ``ops/kalman_fwd.py`` at config-2 width, the
+   counters set to 0 before it and read after it: ``lds_estep`` launches
+   each of the three kernels once, ``lds_filter_bpairs`` the bpairs
+   filter once, and no plain version runs; ``lds_estep`` against
+   ``bpairs.lds_estep`` on the same chain and noise and against float64;
+   then ``bpairs.lds_filter`` and ``bpairs.lds_backward`` (the bpairs
+   filter and its adjoint over one direction's B lanes), values and
+   gradients against float64, on per-sequence and shared pairs, one launch
+   of each kernel a call; with the timings of phase 5 (the three kernels,
+   the one-direction launches and the routes that could have served the
+   shared-pair functions, both E-steps, at config-2 width and T=2048).
 
 The line before the last is a JSON object with one entry per kernel (its
-launches on the path that runs it: the training paths, and phase 3h's
-stationary ``hmm_posterior`` for the stationary HMM kernels; error, times
-and bound); the last line is ``{"ok": true, "device": {...}}``. There is
+launches on the path that runs it: the training paths, phase 3h's
+stationary ``hmm_posterior`` for the stationary HMM kernels and phase 4k's
+``kalman_fwd.lds_estep`` for the shared-pair kernels; error, times and
+bound; the Pallas kernels it replaces, and those whose function it also
+serves); the last line is ``{"ok": true, "device": {...}}``. There is
 no CPU path.
 """
 
@@ -118,7 +137,8 @@ from svae_tpu_torch.data.synthetic import (make_dot_data,
 from svae_tpu_torch.expfam import mniw, niw
 from svae_tpu_torch.models import lds, slds
 from svae_tpu_torch.nets import decoders, recognition
-from svae_tpu_torch.ops import _build, bpairs, chunked, estep, hmm_fb, kalman
+from svae_tpu_torch.ops import (_build, bpairs, chunked, estep, hmm_fb,
+                                kalman, kalman_fwd)
 from svae_tpu_torch.train import elbo, loop
 from svae_tpu_torch.utils.pytree import tree_leaves, tree_map
 
@@ -147,6 +167,20 @@ KERNELS = {
     "hmm_fb_stat_adj": "svae_tpu/ops/pallas_hmm.py:173",
     "elem_scan": "svae_tpu/ops/pallas_chunked.py:192",
     "elem_scan_adj": "svae_tpu/ops/pallas_chunked.py:208",
+    "filter_shared": "svae_tpu/ops/pallas_kalman.py:76",
+    "backward_shared": "svae_tpu/ops/pallas_kalman.py:242",
+    "sampler_shared": "svae_tpu/ops/pallas_kalman.py:415",
+}
+# the Pallas kernels that a ported kernel serves beside its own: their
+# functions, over one direction's lanes or both (ROADMAP Queue 2)
+SERVES = {
+    "bidir_fwd": ("svae_tpu/ops/pallas_vjp.py:77",
+                  "svae_tpu/ops/pallas_vjp.py:127",
+                  "svae_tpu/ops/pallas_vjp.py:221",
+                  "svae_tpu/ops/pallas_kalman.py:564"),
+    "bidir_adj": ("svae_tpu/ops/pallas_vjp.py:304",
+                  "svae_tpu/ops/pallas_vjp.py:365",
+                  "svae_tpu/ops/pallas_vjp.py:470"),
 }
 SOURCES = {
     "filter_fwd": "svae_tpu_torch/csrc/estep.cu",
@@ -163,6 +197,9 @@ SOURCES = {
     "hmm_fb_stat_adj": "svae_tpu_torch/csrc/hmm_fb_adj.cu",
     "elem_scan": "svae_tpu_torch/csrc/elem_scan.cu",
     "elem_scan_adj": "svae_tpu_torch/csrc/elem_scan_adj.cu",
+    "filter_shared": "svae_tpu_torch/csrc/kalman_fwd.cu",
+    "backward_shared": "svae_tpu_torch/csrc/kalman_fwd.cu",
+    "sampler_shared": "svae_tpu_torch/csrc/kalman_fwd.cu",
 }
 # ragged batches of the bpairs kernels: lengths spread evenly over [2, T]
 RAGGED_SHAPES = {"small": dict(B=3, T=7, d=3, S=2),
@@ -204,6 +241,13 @@ ELEM_FIELDS = ("J11", "J12", "J22", "h1", "h2", "c")
 CHUNKS = 8
 # benchmarks/bench_longT.py's shape for posterior_moments(parallel=C)
 LONG_T = dict(B=8, d=10, Ts=(512, 2048), chunks=(32, 64, 128))
+# the forward-only shared-pair kernels (ops/kalman_fwd.py): a small odd
+# shape, config-2 width and a long T; the config-2 expected pairs are varied
+# in time (a seeded factor in [0.9, 1.1] on the whole pair potential and
+# another on its transition matrix) so that every step reads its own row
+KFWD_SHAPES = {"small": dict(B=3, T=7, d=3, S=2),
+               "config2": dict(B=64, T=100, d=10, S=2),
+               "longT": dict(B=8, T=2048, d=10, S=2)}
 # published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, and HBM bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -628,13 +672,21 @@ HMM_PLAINS = (hmm_fb.hmm_fb_fwd_plain, hmm_fb.hmm_fb_adj_plain,
               hmm_fb.hmm_fb_stat_fwd_plain, hmm_fb.hmm_fb_stat_adj_plain)
 CHUNK_WRAPPERS = (chunked.elem_scan, chunked.elem_scan_adj)
 CHUNK_PLAINS = (chunked.elem_scan_plain, chunked.elem_scan_adj_plain)
+KFWD_WRAPPERS = (kalman_fwd.filter_shared, kalman_fwd.backward_shared,
+                 kalman_fwd.sampler_shared)
+KFWD_PLAINS = (kalman_fwd.filter_shared_plain,
+               kalman_fwd.backward_shared_plain,
+               kalman_fwd.sampler_shared_plain)
+ALL_WRAPPERS = (WRAPPERS + RAGGED_WRAPPERS + HMM_WRAPPERS + CHUNK_WRAPPERS
+                + KFWD_WRAPPERS)
+ALL_PLAINS = PLAINS + RAGGED_PLAINS + HMM_PLAINS + CHUNK_PLAINS + KFWD_PLAINS
 TRAIN_K = 8
 
 
 def _reset_counters():
-    for w in WRAPPERS + RAGGED_WRAPPERS + HMM_WRAPPERS + CHUNK_WRAPPERS:
+    for w in ALL_WRAPPERS:
         w.launches = 0
-    for p in PLAINS + RAGGED_PLAINS + HMM_PLAINS + CHUNK_PLAINS:
+    for p in ALL_PLAINS:
         p.calls = 0
 
 
@@ -1149,6 +1201,281 @@ def long_t_moments(device="cuda", cfg=LONG_T):
     return out
 
 
+def kfwd_problem(shape, seed=0, device="cuda"):
+    """float64 inputs of the shared-pair E-step at ``shape``: ``(init,
+    pairs, nodes, eps)``, the config-``shape`` expected pairs varied in
+    time (KFWD_SHAPES) and recognizer-like diagonal evidence."""
+    init, mats, (jd, h), eps = _problem(shape, seed, device)
+    g = torch.Generator().manual_seed(seed + 500)
+    T1 = shape["T"] - 1
+    r, s = (1.0 + 0.1 * (2.0 * torch.rand(T1, generator=g,
+                                          dtype=torch.float64) - 1.0)
+            for _ in range(2))
+    r, s = r.to(device)[:, None, None], s.to(device)[:, None, None]
+    P1, P2, P3, Pc = mats
+    # r scales the pair potential, s its transition matrix: every pair
+    # block stays positive semidefinite
+    pairs = (r * P1, r * s * P2, r * s * s * P3, Pc.expand(T1).clone())
+    return init, pairs, (-0.5 * torch.diag_embed(jd), h), eps
+
+
+def _cpu64(tree):
+    return tree_map(lambda x: torch.as_tensor(x).detach().double().cpu(),
+                    tree)
+
+
+def check_kalman_fwd(shape, seed=0, device="cuda"):
+    """Phase 3k: the three shared-pair kernels (float32) against their
+    plain versions (float64) on the same inputs at ``shape``; the sampler
+    reads the float64 forward messages. Raises past TOL_ABS (messages,
+    samples) and TOL_LOGZ_REL (the summed log-normalizer). Returns the
+    errors."""
+    init, pairs, nodes, eps = kfwd_problem(shape, seed, device)
+    fin = kalman_fwd.filter_inputs(init, pairs, nodes)
+    J, h, ln = kalman_fwd.filter_shared(*_f32(fin))
+    Jp, hp, lnp = kalman_fwd.filter_shared_plain(*fin)
+    bin_ = kalman_fwd.backward_inputs(pairs, nodes)
+    Jb, hb = kalman_fwd.backward_shared(*_f32(bin_))
+    Jbp, hbp = kalman_fwd.backward_shared_plain(*bin_)
+    _, Jf, hf = kalman_fwd.lds_filter(*_cpu64((init, pairs, nodes)))
+    on = lambda x: x.to(device)
+    sin, _ = kalman_fwd.sampler_inputs(pairs, on(Jf), on(hf), eps)
+    x = kalman_fwd.sampler_shared(*_f32(sin))
+    xp = kalman_fwd.sampler_shared_plain(*sin)
+    torch.cuda.synchronize()
+    errs = {"filter_shared": _max_err((J, h), (Jp, hp)),
+            "filter_ln_rel": abs(float(ln.double().sum() - lnp.sum()))
+            / abs(float(lnp.sum())),
+            "backward_shared": _max_err((Jb, hb), (Jbp, hbp)),
+            "sampler_shared": _max_err((x,), (xp,))}
+    if not (errs["filter_shared"] <= TOL_ABS
+            and errs["filter_ln_rel"] <= TOL_LOGZ_REL
+            and errs["backward_shared"] <= TOL_ABS
+            and errs["sampler_shared"] <= TOL_ABS):
+        raise AssertionError(f"a shared-pair kernel disagrees with its plain "
+                             f"version at {shape}: {errs}")
+    return errs
+
+
+# the kernels each entry point of ops/kalman_fwd.py launches, once each
+KFWD_ENTRIES = {
+    "lds_filter": {"filter_shared": 1},
+    "lds_backward": {"backward_shared": 1},
+    "lds_smoother": {"filter_shared": 1, "backward_shared": 1},
+    "lds_sample": {"filter_shared": 1, "sampler_shared": 1},
+    "lds_estep": {"filter_shared": 1, "backward_shared": 1,
+                  "sampler_shared": 1},
+    "lds_filter_bpairs": {"bidir_fwd": 1},
+}
+
+
+def _kfwd_call(entry, init, pairs, nodes, gen, S, eps):
+    fn = getattr(kalman_fwd, entry)
+    if entry == "lds_backward":
+        return fn(pairs, nodes)
+    if entry in ("lds_sample", "lds_estep"):
+        return fn(init, pairs, nodes, gen, S, eps=eps)
+    if entry == "lds_filter_bpairs":
+        B = nodes[1].shape[0]
+        return fn(init, bpairs._per_sequence(pairs, B), nodes)
+    return fn(init, pairs, nodes)
+
+
+def kalman_fwd_path(device="cuda", shape=KFWD_SHAPES["config2"]):
+    """Phase 4k: each entry point of ops/kalman_fwd.py at config-2 width in
+    float32 on the card, the counters set to 0 just before it and read just
+    after: it launches exactly the kernels KFWD_ENTRIES names and no plain
+    version. Then ``lds_estep`` against ``bpairs.lds_estep`` on the same
+    chain and noise (two kernel families) and against the float64 CPU
+    path. Returns the launch counts of ``lds_estep``."""
+    init, pairs, nodes, eps = kfwd_problem(shape, 3, device)
+    init, pairs, nodes, eps = (_f32(init), _f32(pairs), _f32(nodes),
+                               eps.float())
+    gen = torch.Generator(device=device).manual_seed(4)
+    S = shape["S"]
+    out = {}
+    for entry, want in KFWD_ENTRIES.items():
+        _reset_counters()
+        out[entry] = _kfwd_call(entry, init, pairs, nodes, gen, S, eps)
+        torch.cuda.synchronize()
+        got = {w.__name__: w.launches for w in ALL_WRAPPERS if w.launches}
+        plain_calls = sum(p.calls for p in ALL_PLAINS)
+        print(f"kalman_fwd.{entry}: launches {got}, plain calls "
+              f"{plain_calls}")
+        if got != want or plain_calls:
+            raise AssertionError(f"kalman_fwd.{entry} launched {got} (want "
+                                 f"{want}) and {plain_calls} plain calls")
+        _finite(out[entry], f"kalman_fwd.{entry}")
+        if entry == "lds_estep":
+            launches = got
+    samples, (Ex, ExxT, Exnxt), logZ = out["lds_estep"]
+    if (samples.shape != (S, shape["B"], shape["T"], shape["d"])
+            or Exnxt.shape[1] != shape["T"] - 1):
+        raise AssertionError("kalman_fwd.lds_estep: wrong shapes")
+
+    def compare(ref, label):
+        s_r, m_r, lz_r = ref
+        errs = (_max_err((samples,), (s_r.to(device).double(),)),
+                _max_err((Ex, ExxT, Exnxt),
+                         tuple(m.to(device).double() for m in m_r)),
+                float(((logZ.double() - lz_r.to(device).double()).abs()
+                       / lz_r.to(device).double().abs()).max()))
+        print(f"kalman_fwd.lds_estep vs {label}: samples max abs "
+              f"{errs[0]:.3e}, moments max abs {errs[1]:.3e}, logZ rel "
+              f"{errs[2]:.3e}")
+        if not (errs[0] <= TOL_ABS and errs[1] <= TOL_ABS
+                and errs[2] <= TOL_LOGZ_REL):
+            raise AssertionError(f"kalman_fwd.lds_estep disagrees with "
+                                 f"{label}")
+
+    compare(bpairs.lds_estep(init, pairs, nodes, gen, S, eps=eps),
+            "bpairs.lds_estep (same chain and noise)")
+    compare(kalman_fwd.lds_estep(*_cpu64((init, pairs, nodes)), None, S,
+                                 eps=_cpu64(eps)), "float64 on the CPU")
+    return launches
+
+
+def one_direction_filters(device="cuda", seed=5):
+    """Phase 4k: ``bpairs.lds_filter`` and ``bpairs.lds_backward`` (the
+    counterparts of pallas_vjp's, ``bidir_fwd`` over one direction's B
+    lanes and ``bidir_adj`` as its backward) in float32 on the card against
+    their plain versions in float64 on the CPU, values and the gradients
+    of a random-weighted sum of every output with respect to the initial,
+    pair and node potentials: on per-sequence pairs (a ragged batch of
+    RAGGED_SHAPES["ragged"]) and on shared ones (KFWD config 2). Each call
+    launches the forward kernel once and the adjoint once, and no plain
+    version. Raises past TOL_ABS / TOL_LOGZ_REL (values) and TOL_ADJ_REL
+    (gradients, normwise per input). Returns the worst errors."""
+    shape = RAGGED_SHAPES["ragged"]
+    init, mats, (jd, h), _ = _problem(shape, seed, device)
+    lengths = torch.linspace(2, shape["T"], shape["B"]).round().long().to(
+        device)
+    jd, h, _ = lds._prepare((jd, h), None, lengths)
+    cases = {"per-sequence": (init,) + lds._chain(mats, (jd, h), lengths),
+             "shared": kfwd_problem(KFWD_SHAPES["config2"], seed,
+                                    device)[:3]}
+    worst = {"value": 0.0, "logZ_rel": 0.0, "grad_rel": 0.0}
+    g = torch.Generator().manual_seed(seed)
+    for kind, (init, pairs, nodes) in cases.items():
+        leaves = [torch.as_tensor(x).detach()
+                  for x in tree_leaves((init, pairs, nodes))]
+        for fn in (bpairs.lds_filter, bpairs.lds_backward):
+            def run(xs):
+                i, p, n = xs[:3], xs[3:7], xs[7:]
+                return fn(i, p, n) if fn is bpairs.lds_filter else fn(p, n)
+
+            ins32 = [x.float().requires_grad_() for x in leaves]
+            ins64 = [x.double().cpu().requires_grad_() for x in leaves]
+            _reset_counters()
+            out32 = run(ins32)
+            weights = [torch.randn(o.shape, generator=g, dtype=torch.float64)
+                       for o in out32]
+            loss = sum((w.to(device).float() * o).sum()
+                       for w, o in zip(weights, out32))
+            grads32 = torch.autograd.grad(loss, ins32, allow_unused=True)
+            torch.cuda.synchronize()
+            got = {w.__name__: w.launches for w in ALL_WRAPPERS if w.launches}
+            plain_calls = sum(p.calls for p in ALL_PLAINS)
+            out64 = run(ins64)
+            grads64 = torch.autograd.grad(
+                sum((w * o).sum() for w, o in zip(weights, out64)), ins64,
+                allow_unused=True)
+            if got != {"bidir_fwd": 1, "bidir_adj": 1} or plain_calls:
+                raise AssertionError(f"bpairs.{fn.__name__}: launches {got}, "
+                                     f"plain calls {plain_calls}")
+            msgs = slice(1, None) if fn is bpairs.lds_filter else slice(None)
+            out32, out64 = _cpu64(out32), _cpu64(out64)
+            value = _max_err(out32[msgs], out64[msgs])
+            lz_rel = (float(((out32[0] - out64[0]).abs()
+                             / out64[0].abs()).max())
+                      if fn is bpairs.lds_filter else 0.0)
+            grad_rel = max(_normwise((a,), (b,))
+                           for a, b in zip(grads32, grads64)
+                           if b is not None and float(b.norm()) > 0)
+            print(f"bpairs.{fn.__name__} [{kind} pairs] vs float64 plain: "
+                  f"launches {got}; messages max abs {value:.3e}, logZ rel "
+                  f"{lz_rel:.3e}, gradients normwise {grad_rel:.3e}")
+            for k, v in zip(worst, (value, lz_rel, grad_rel)):
+                worst[k] = max(worst[k], v)
+    if not (worst["value"] <= TOL_ABS and worst["logZ_rel"] <= TOL_LOGZ_REL
+            and worst["grad_rel"] <= TOL_ADJ_REL):
+        raise AssertionError(f"a one-direction filter disagrees with its "
+                             f"plain version: {worst}")
+    return worst
+
+
+def kalman_fwd_timings(device="cuda"):
+    """Phase 5, shared-pair kernels: the three kernels and their plain
+    versions, and, on the same chains, the one-direction launches of the
+    bpairs kernels (``bidir_fwd`` over the B forward lanes, as
+    ``bpairs.lds_filter`` and ``kalman_fwd.lds_filter_bpairs`` launch it,
+    and over the B backward lanes, as ``bpairs.lds_backward`` does;
+    ``bidir_adj`` on each) and their plain versions, and
+    ``sampler_bp_fwd`` on the pairs expanded per sequence (the routes the
+    shared-pair kernels could have been served by), at config-2 width and
+    at the long T; both E-steps on the same chain (CUDA events; the plain
+    versions 10 runs at config 2, 3 at the long T)."""
+    t = {}
+    for tag, name in (("", "config2"), ("_longT", "longT")):
+        shape = KFWD_SHAPES[name]
+        runs = 10 if not tag else 3
+        init, pairs, nodes, eps = kfwd_problem(shape, 0, device)
+        fin = kalman_fwd.filter_inputs(init, pairs, nodes)
+        bin_ = kalman_fwd.backward_inputs(pairs, nodes)
+        _, Jf, hf = kalman_fwd.lds_filter(*_cpu64((init, pairs, nodes)))
+        sin, _ = kalman_fwd.sampler_inputs(pairs, Jf.to(device),
+                                           hf.to(device), eps)
+        one_dir = {
+            "fwd_lanes": bpairs._packed(*bpairs._initial(init, nodes),
+                                        bpairs._streams(pairs, nodes)),
+            "bwd_lanes": bpairs._packed(
+                *(torch.zeros_like(x) for x in bpairs._initial(init, nodes)),
+                bpairs._reversed(bpairs._streams(pairs, nodes)))}
+        g = torch.Generator(device=device).manual_seed(3)
+        for k, args in one_dir.items():
+            J, h, ln = bpairs.bidir_fwd_plain(*args)
+            cots = tuple(torch.randn(x.shape, generator=g, dtype=x.dtype,
+                                     device=device) for x in (J, h, ln))
+            one_dir[k] = (_f32(args), _f32((*args, J, h, *cots)))
+        kernels = {"filter_shared": (kalman_fwd.filter_shared,
+                                     kalman_fwd.filter_shared_plain, fin),
+                   "backward_shared": (kalman_fwd.backward_shared,
+                                       kalman_fwd.backward_shared_plain,
+                                       bin_),
+                   "sampler_shared": (kalman_fwd.sampler_shared,
+                                      kalman_fwd.sampler_shared_plain, sin)}
+        for k, (fn, plain, args) in kernels.items():
+            args = _f32(args)
+            t[k + tag] = _time_ms(lambda: fn(*args))
+            t[k + "_plain" + tag] = _time_ms(lambda: plain(*args), runs=runs,
+                                             warmup=1)
+        # the served route of the sampler: sampler_bp_fwd on the pairs
+        # expanded per sequence
+        bp_sin = _f32(bpairs.sampler_inputs(pairs, Jf.to(device),
+                                            hf.to(device), eps)[0])
+        t["sampler_bp_fwd_served" + tag] = _time_ms(
+            lambda: bpairs.sampler_bp_fwd(*bp_sin))
+        for k, (fwd, adj) in one_dir.items():
+            t[f"bidir_fwd_{k}{tag}"] = _time_ms(lambda: bpairs.bidir_fwd(
+                *fwd))
+            t[f"bidir_fwd_{k}_plain{tag}"] = _time_ms(
+                lambda: bpairs.bidir_fwd_plain(*fwd), runs=runs, warmup=1)
+            t[f"bidir_adj_{k}{tag}"] = _time_ms(lambda: bpairs.bidir_adj(
+                *adj))
+            t[f"bidir_adj_{k}_plain{tag}"] = _time_ms(
+                lambda: bpairs.bidir_adj_plain(*adj), runs=runs, warmup=1)
+        init32, pairs32, nodes32 = (_f32(init), _f32(pairs), _f32(nodes))
+        gen = torch.Generator(device=device).manual_seed(2)
+        S = shape["S"]
+        t["kalman_fwd_estep" + tag] = _time_ms(lambda: kalman_fwd.lds_estep(
+            init32, pairs32, nodes32, gen, S))
+        t["bpairs_estep" + tag] = _time_ms(lambda: bpairs.lds_estep(
+            init32, pairs32, nodes32, gen, S))
+    for k, v in t.items():
+        print(f"time {k}: {v:.4f} ms")
+    return t
+
+
 @contextlib.contextmanager
 def _twins_on_card():
     """Route the SLDS path's forward kernels to their plain twins, on
@@ -1447,7 +1774,7 @@ def ragged_timings(device="cuda", seqs=None, B=RAGGED_B, pad=RAGGED_PAD):
     return t
 
 
-def bound(name, B, T, d, S):
+def bound(name, B, T, d, S, NL=None):
     """The least time (ms) the card could take for one call of kernel
     ``name`` at this shape, and what sets it: the larger of its bytes
     (each input the function needs read once, each output it returns
@@ -1459,8 +1786,12 @@ def bound(name, B, T, d, S):
     Operations count 2 per multiply-add of the kernel's per-step algebra
     (csrc/*.cu), times the T-1 steps of every chain; the chains run no
     early exit. For the HMM kernels ``d`` is the number of states K and
-    ``S`` is not read; each add, max, exp and log counts one operation."""
-    dd, T1, NL, SB = d * d, T - 1, 2 * B, S * B
+    ``S`` is not read; each add, max, exp and log counts one operation.
+    ``NL`` is the lane count of the bidir kernels, 2B unless one
+    direction's B lanes run alone. The shared-pair kernels read each pair
+    row once, not once per lane."""
+    dd, T1, SB = d * d, T - 1, S * B
+    NL = 2 * B if NL is None else NL
     tri = d * (d + 1) // 2
     if name == "filter_fwd":
         chains = NL
@@ -1533,6 +1864,24 @@ def bound(name, B, T, d, S):
         # samples), dxT
         floats = (T1 * (dd + 2 * tri + d) * B + T1 * (3 * dd + d) * B
                   + (2 * T1 - 1) * d * SB + 2 * d * SB)
+    elif name in ("filter_shared", "backward_shared"):
+        chains = B
+        # chol d^3/3, z d^2, Y = L^-1 P2^T d^3, J' d^2 (d+1), h' 2 d^2
+        step = d ** 3 / 3 + d ** 3 + d * d * (d + 1) + 3 * d * d
+        # in: the shared rows P1, P3 (lower triangle), P2, and pc (the
+        # backward filter does not read pc), the node streams N1 (lower
+        # triangle) and N2, the filter's J0, h0; out: J, h, and ln
+        floats = (T1 * (2 * tri + dd) + T1 * (tri + d) * B
+                  + T1 * (dd + d) * B)
+        if name == "filter_shared":
+            floats += T1 + (tri + d) * B + B
+    elif name == "sampler_shared":
+        chains = SB
+        step = d ** 3 / 3 + 4 * d * d
+        # in: the shared rows P2, P3 (lower triangle), Jf (lower triangle)
+        # and hf per sequence, eps, xT; out: x
+        floats = (T1 * (dd + tri) + T1 * (tri + d) * B + 2 * T1 * d * SB
+                  + d * SB)
     elif name.startswith("elem_scan"):
         # here B is the lane count N and T the scan length L; the algebra of
         # pallas_chunked's _combine_rows (chol d^3/3, two triangular
@@ -1663,6 +2012,12 @@ def main():
               f"adjoint): {e}")
         for k in ("elem_scan", "elem_scan_adj"):
             errs[k] = max(errs.get(k, 0.0), e[k][1])
+    for name, shape in KFWD_SHAPES.items():
+        e = check_kalman_fwd(shape)
+        print(f"shared-pair kernels vs plain versions [{name} {shape}] (max "
+              f"abs; the filter's summed log-normalizer rel): {e}")
+        for k in ("filter_shared", "backward_shared", "sampler_shared"):
+            errs[k] = max(errs.get(k, 0.0), e[k])
 
     main_path()
     launches = train_path()
@@ -1674,10 +2029,13 @@ def main():
     launches.update({k: stat_launches[k] for k in HMM_RUNS[1]})
     launches.update(chunked_train_path())
     long_t_moments()
+    launches.update(kalman_fwd_path())
+    one_direction_filters()
     t = timings()
     t.update(ragged_timings())
     t.update(slds_timings())
     t.update(chunked_timings())
+    t.update(kalman_fwd_timings())
     print(f"chip_smoke wall since the build began: "
           f"{time.perf_counter() - t0:.1f} s")
     kernels = []
@@ -1692,15 +2050,27 @@ def main():
                          d=c["d"], S=1)
         elif k in [w.__name__ for w in WRAPPERS]:
             shape = SHAPES["config2"]
+        elif k in [w.__name__ for w in KFWD_WRAPPERS]:
+            shape = KFWD_SHAPES["config2"]
         else:
             shape = RAGGED_SHAPES["ragged"]
         bound_ms, bound_by = bound(k, shape["B"], shape["T"], shape["d"],
                                    shape["S"])
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
-            "replaces": KERNELS[k], "launches": launches[k],
+            "replaces": ", ".join((KERNELS[k],) + SERVES.get(k, ())),
+            "launches": launches[k],
             "max_abs_err": errs[k], "ms": t[k], "plain_ms": t[k + "_plain"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    for name in ("config2", "longT"):
+        shape = KFWD_SHAPES[name]
+        args = (shape["B"], shape["T"], shape["d"], shape["S"])
+        print(f"bounds at {name} {shape} (ms, by): "
+              + ", ".join(f"{k} {bound(k, *args)}" for k in
+                          [w.__name__ for w in KFWD_WRAPPERS])
+              + f", one direction's B lanes: bidir_fwd "
+              f"{bound('bidir_fwd', *args, NL=shape['B'])}, bidir_adj "
+              f"{bound('bidir_adj', *args, NL=shape['B'])}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

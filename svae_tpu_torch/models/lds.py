@@ -164,10 +164,10 @@ def _chain(pair_mats, nn_potentials, lengths=None):
 
 
 def _check_parallel(parallel):
-    if not (isinstance(parallel, bool)
-            or (isinstance(parallel, int) and parallel > 0)):
-        raise ValueError(f"parallel must be False, True or a positive chunk "
-                         f"count, got {parallel!r}")
+    """False, True or a chunk count; 0 is False, as in the JAX package."""
+    if not (isinstance(parallel, int) and parallel >= 0):
+        raise ValueError(f"parallel must be False, True or a chunk count "
+                         f"(0 for False), got {parallel!r}")
 
 
 def _route(parallel):
@@ -220,9 +220,9 @@ def run_inference(prior_natparam, global_natparam, nn_potentials, generator,
     through the dynamics. ``lengths``: optional (B,) lengths of a batch
     padded to a common T (batched input only): pad frames carry no
     evidence and no statistics, so the result equals that of the unpadded
-    sequences. Both compose. ``parallel``: ``False`` runs the sequential
-    kernels (the packed stationary E-step, or the per-sequence one with
-    ``lengths``), ``True`` the log-depth tree of
+    sequences. Both compose. ``parallel``: ``False`` (or 0) runs the
+    sequential kernels (the packed stationary E-step, or the per-sequence
+    one with ``lengths``), ``True`` the log-depth tree of
     :mod:`~svae_tpu_torch.ops.kalman`, an int C the chunked scan of
     :mod:`~svae_tpu_torch.ops.chunked` with C chunks. Raises
     ``FloatingPointError`` if a Cholesky factor failed (one host sync per

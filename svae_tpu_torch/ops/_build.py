@@ -109,7 +109,10 @@ def load_library():
                                  ("svae_hmm_fb_adj_f32", 3, 10),
                                  ("svae_hmm_fb_stat_adj_f32", 3, 12),
                                  ("svae_elem_scan_f32", 3, 3),
-                                 ("svae_elem_scan_adj_f32", 3, 6)):
+                                 ("svae_elem_scan_adj_f32", 3, 6),
+                                 ("svae_filter_shared_f32", 3, 12),
+                                 ("svae_backward_shared_f32", 3, 8),
+                                 ("svae_sampler_shared_f32", 4, 8)):
             fn = getattr(lib, name)
             fn.argtypes = [i] * ints + [p] * ptrs
             fn.restype = i

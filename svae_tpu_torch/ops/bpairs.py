@@ -22,8 +22,10 @@ pairs stream per step and per sequence instead of sitting still as in
   forward filter's messages, on lane ``s*B + b``.
 
 :func:`bidir_adj` and :func:`sampler_bp_adj` are their adjoints, the
-backward of :class:`BidirFwd` and :class:`SamplerBp`. Each of the four is a
-CUDA kernel (``csrc/bpairs.cu``, ``csrc/bidir_adj.cu``,
+backward of :class:`BidirFwd` and :class:`SamplerBp`. The lanes are
+independent chains, so :func:`lds_filter` and :func:`lds_backward` (the
+counterparts of pallas_vjp's) run one direction's B lanes alone. Each of
+the four is a CUDA kernel (``csrc/bpairs.cu``, ``csrc/bidir_adj.cu``,
 ``csrc/sampler_bp_adj.cu``) for tensors on a card and a plain PyTorch
 version (``*_plain``) for tensors on the CPU, with the launch counters and
 the no-fallback rule of :mod:`~svae_tpu_torch.ops.estep`: the forward
@@ -341,36 +343,76 @@ def _unpack(x, tail):
     return x.permute(2, 0, 1).reshape((x.shape[2], x.shape[0]) + tail)
 
 
+def _streams(pairs, nodes):
+    """The forward filter's streams ``(A, C, D, e, f, pc)``, lanes leading
+    ((B, T-1, ...)): A = -2 P3, C = -2 P1 - 2 N1', D = P2, e = N2', f and
+    pc as they come (f zero)."""
+    N1, N2 = nodes
+    P1, P2, P3, Pc = _per_sequence(pairs, N2.shape[0])
+    e = N2[:, 1:]
+    return (-2.0 * P3, -2.0 * P1 - 2.0 * N1[:, 1:], P2, e,
+            torch.zeros_like(e), Pc)
+
+
+def _reversed(streams):
+    """The backward filter's streams: the forward ones flipped in time with
+    (A, C) and (e, f) swapped, D transposed and pc zero (the forward f is
+    zero, and so is the backward e)."""
+    A, C, D, E, F, Pc = streams
+    flip = lambda x: x.flip(1)
+    return flip(C), flip(A), flip(D).mT, F, flip(E), torch.zeros_like(Pc)
+
+
+def _initial(init, nodes):
+    """The forward filter's initial message, the t=0 marginal:
+    ``(J0 (B, d, d), h0 (B, d))``."""
+    I1, I2 = init[:2]
+    N1, N2 = nodes
+    return -2.0 * (I1 + N1[:, 0]), I2 + N2[:, 0]
+
+
+def _packed(J0, h0, streams):
+    """Initial messages and streams, lanes leading -> the arguments of
+    :func:`bidir_fwd`."""
+    NL, d = h0.shape
+    A, C, D, E, F, Pc = streams
+    return (J0.reshape(NL, d * d).T.contiguous(), h0.T.contiguous(),
+            *(_pack(x) for x in (A, C, D, E, F)), Pc.T.contiguous())
+
+
 def bidir_inputs(init, pairs, nodes):
     """The packed arguments of :func:`bidir_fwd` for a batch (the glue of
     pallas_bidir.fb_pass): forward lanes [0, B) start from the t=0
     marginal, backward lanes [B, 2B) from 0 and read the forward streams
-    flipped in time with (A, C) and (e, f) swapped, D transposed and pc
-    zero.
+    reversed (:func:`_reversed`).
 
     ``init`` = (I1, I2, Ic); ``pairs`` = (P1, P2, P3, Pc), per sequence
     (B, T-1, ...) or shared (T-1, ...); ``nodes`` = (N1 (B, T, d, d),
     N2 (B, T, d))."""
-    I1, I2 = init[:2]
-    N1, N2 = nodes
-    B, T, d = N2.shape
-    P1, P2, P3, Pc = _per_sequence(pairs, B)
-    A_f = -2.0 * P3
-    C_f = -2.0 * P1 - 2.0 * N1[:, 1:]
-    e_f = N2[:, 1:]
-    flip = lambda x: x.flip(1)
-    zvec = torch.zeros_like(e_f)
-    J0_f = -2.0 * (I1 + N1[:, 0])
-    h0_f = I2 + N2[:, 0]
-    return (torch.cat([J0_f, torch.zeros_like(J0_f)]).reshape(2 * B, d * d)
-            .T.contiguous(),
-            torch.cat([h0_f, torch.zeros_like(h0_f)]).T.contiguous(),
-            _pack(torch.cat([A_f, flip(C_f)])),
-            _pack(torch.cat([C_f, flip(A_f)])),
-            _pack(torch.cat([P2, flip(P2).mT])),
-            _pack(torch.cat([e_f, zvec])),
-            _pack(torch.cat([zvec, flip(e_f)])),
-            torch.cat([Pc, torch.zeros_like(Pc)]).T.contiguous())
+    J0, h0 = _initial(init, nodes)
+    fwd = _streams(pairs, nodes)
+    both = lambda f, b: torch.cat([f, b])
+    return _packed(both(J0, torch.zeros_like(J0)),
+                   both(h0, torch.zeros_like(h0)),
+                   [both(f, b) for f, b in zip(fwd, _reversed(fwd))])
+
+
+def _alpha(J0, h0, J, h):
+    """Initial messages (m, lanes) and outputs (T-1, m, lanes) of forward
+    lanes -> the forward messages ``(Jf (B, T, d, d), hf (B, T, d))``."""
+    d = h0.shape[0]
+    return (_unpack(torch.cat([J0[None], J]), (d, d)),
+            _unpack(torch.cat([h0[None], h]), (d,)))
+
+
+def _beta(J, h):
+    """Outputs (T-1, m, lanes) of backward lanes -> the backward messages
+    in frame order, ``(Jb (B, T, d, d), hb (B, T, d))``, zero at
+    t = T-1."""
+    d, B = h.shape[1:]
+    Jb, hb = _unpack(J, (d, d)).flip(1), _unpack(h, (d,)).flip(1)
+    return (torch.cat([Jb, Jb.new_zeros(B, 1, d, d)], 1),
+            torch.cat([hb, hb.new_zeros(B, 1, d)], 1))
 
 
 def messages(args, J, h):
@@ -379,13 +421,9 @@ def messages(args, J, h):
     messages in frame order, ``(Jf, hf, Jb, hb)`` of (B, T, d, d) and
     (B, T, d), the backward ones zero at t = T-1."""
     J0, h0 = args[:2]
-    d, NL = h0.shape
-    B = NL // 2
-    Jall = _unpack(torch.cat([J0[None], J]), (d, d))    # (2B, T, d, d)
-    hall = _unpack(torch.cat([h0[None], h]), (d,))
-    Jb = torch.cat([Jall[B:, 1:].flip(1), Jall.new_zeros(B, 1, d, d)], 1)
-    hb = torch.cat([hall[B:, 1:].flip(1), hall.new_zeros(B, 1, d)], 1)
-    return Jall[:B], hall[:B], Jb, hb
+    B = h0.shape[1] // 2
+    return (_alpha(J0[:, :B], h0[:, :B], J[..., :B], h[..., :B])
+            + _beta(J[..., B:], h[..., B:]))
 
 
 def fb_pass(init, pairs, nodes):
@@ -399,6 +437,31 @@ def fb_pass(init, pairs, nodes):
     return logZ, Jf, hf, Jb, hb
 
 
+def lds_filter(init, pairs, nodes):
+    """The forward information filter alone (port of pallas_vjp.lds_filter,
+    whose kernel is ``_filter_fwd_kernel``): :func:`bidir_fwd` over the B
+    forward lanes only, differentiable through :class:`BidirFwd`.
+    Arguments as :func:`bidir_inputs`'; returns ``(logZ (B,), Jf, hf)``."""
+    args = _packed(*_initial(init, nodes), _streams(pairs, nodes))
+    J, h, ln = _forward(bidir_fwd, bidir_fwd_plain, BidirFwd, args)
+    Jf, hf = _alpha(args[0], args[1], J, h)
+    return ln + init[2] + mvn_logZ_info(Jf[:, -1], hf[:, -1]), Jf, hf
+
+
+def lds_backward(pairs, nodes):
+    """The backward information filter alone (port of
+    pallas_vjp.lds_backward, whose kernel is ``_backward_fwd_kernel``):
+    :func:`bidir_fwd` over the B backward lanes only, differentiable
+    through :class:`BidirFwd`. Returns ``(Jb (B, T, d, d), hb (B, T, d))``,
+    zero at t = T-1."""
+    N2 = nodes[1]
+    B, _, d = N2.shape
+    args = _packed(N2.new_zeros(B, d, d), N2.new_zeros(B, d),
+                   _reversed(_streams(pairs, nodes)))
+    J, h, _ = _forward(bidir_fwd, bidir_fwd_plain, BidirFwd, args)
+    return _beta(J, h)
+
+
 def lds_smoother(init, pairs, nodes):
     """Smoothed posterior moments, no sampling: ``(logZ (B,), Ex, ExxT,
     Exnxt)``, batch leading."""
@@ -406,14 +469,34 @@ def lds_smoother(init, pairs, nodes):
     return (logZ,) + smoother_assembly(pairs, nodes, Jf, hf, Jb, hb)
 
 
+def terminal_sample(Jf, hf, eps):
+    """The samples of the last frame, ``xT`` (S, B, d), from the forward
+    messages ``Jf`` (B, T, d, d), ``hf`` (B, T, d) and the noise ``eps``
+    (S, B, T, d): one batched solve."""
+    LT = smallchol.chol(symmetrize(Jf[:, -1]))
+    return (smallchol.cho_solve(LT, hf[:, -1])
+            + smallchol.solve_upper_from_lower(LT, eps[:, :, -1]))
+
+
+def sampler_noise(hf, generator, num_samples, eps=None):
+    """``eps`` if given, else (S, B, T, d) standard normal noise shaped and
+    typed as the forward messages ``hf`` (B, T, d), drawn by
+    ``generator``."""
+    if eps is not None:
+        return eps
+    if generator is None:
+        raise ValueError("lds_sample: pass a torch.Generator or eps; the "
+                         "global RNG is not used")
+    return torch.randn((int(num_samples),) + tuple(hf.shape),
+                       generator=generator, dtype=hf.dtype, device=hf.device)
+
+
 def sampler_inputs(pairs, Jf, hf, eps):
     """The arguments of :func:`sampler_bp_fwd` from the pairs, the forward
     messages ``Jf`` (B, T, d, d), ``hf`` (B, T, d) and the noise ``eps``
     (S, B, T, d), plus the terminal samples ``xT`` (S, B, d) drawn here."""
     S, B, T, d = eps.shape
-    LT = smallchol.chol(symmetrize(Jf[:, -1]))
-    xT = (smallchol.cho_solve(LT, hf[:, -1])
-          + smallchol.solve_upper_from_lower(LT, eps[:, :, -1]))
+    xT = terminal_sample(Jf, hf, eps)
     P2, P3 = _per_sequence(pairs, B)[1:3]
     args = (_pack(P2), _pack(P3), _pack(Jf[:, :-1]), _pack(hf[:, :-1]),
             _pack(eps[:, :, :-1].reshape(S * B, T - 1, d)),
@@ -427,14 +510,8 @@ def lds_sample(pairs, filtered, generator, num_samples, eps=None):
     = (Jf, hf), as :func:`fb_pass` returns them. ``generator`` draws the
     (S, B, T, d) noise unless ``eps`` gives it."""
     Jf, hf = filtered
-    B, T, d = hf.shape
-    S = int(num_samples)
-    if eps is None:
-        if generator is None:
-            raise ValueError("lds_sample: pass a torch.Generator or eps; the "
-                             "global RNG is not used")
-        eps = torch.randn((S, B, T, d), generator=generator, dtype=hf.dtype,
-                          device=hf.device)
+    eps = sampler_noise(hf, generator, num_samples, eps)
+    S, B, T, d = eps.shape
     args, xT = sampler_inputs(pairs, Jf, hf, eps)
     xb = _forward(sampler_bp_fwd, sampler_bp_fwd_plain, SamplerBp, args)
     x_body = _unpack(xb, (d,)).reshape(S, B, T - 1, d)

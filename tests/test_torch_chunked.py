@@ -18,8 +18,9 @@ CPU.
   beyond rounding (tests/test_pallas_chunked.py holds every C to the
   sequential scan at rtol 1e-9), so one compile of each serves the four.
 * ``lds.run_inference`` (samples under the JAX package's noise,
-  statistics, both KLs) and ``posterior_moments`` with ``parallel=True``
-  and ``parallel=4``, with and without ``mask=`` and ``lengths=``, and one
+  statistics, both KLs) and ``posterior_moments`` with ``parallel=True``,
+  ``parallel=4`` and ``parallel=0`` (the sequential route), with and
+  without ``mask=`` and ``lengths=``, and a bad ``parallel`` raising; one
   ``make_train_step(partial(run_inference, parallel=4))`` step (ELBO,
   natural gradient, net gradients) against the JAX package's
   ``backend="xla"`` path with its sequential scan, whose flavors differ
@@ -249,8 +250,11 @@ def model():
 
 
 @pytest.mark.parametrize("case", MODEL_CASES)
-@pytest.mark.parametrize("par", [True, 4])
+@pytest.mark.parametrize("par", [True, 4, 0])
 def test_model_parallel_routes_match_jax(model, par, case):
+    """``parallel=0`` is the sequential route, as in the JAX package, whose
+    ``kalman._total_element`` treats 0 as False: the reference's own
+    route."""
     kw = dict(parallel=par)
     if case == "mask":
         kw["mask"] = torch.from_numpy(model["mask"])
@@ -264,6 +268,16 @@ def test_model_parallel_routes_match_jax(model, par, case):
     ri_r, pm_r = model["refs"][case]
     _close(got, ri_r)
     _close(lds.posterior_moments(glob, pots, **kw), pm_r)
+
+
+@pytest.mark.parametrize("par", [-1, 2.5, None])
+def test_model_rejects_a_bad_parallel(model, par):
+    pots = (torch.from_numpy(model["jd"]), torch.from_numpy(model["h"]))
+    glob = convert.natparam(_np(model["glob"]), **F64)
+    with pytest.raises(ValueError, match="parallel must be"):
+        lds.posterior_moments(glob, pots, parallel=par)
+    with pytest.raises(ValueError, match="parallel must be"):
+        lds.run_inference(glob, glob, pots, None, MS, parallel=par)
 
 
 def test_train_step_matches_jax(model):

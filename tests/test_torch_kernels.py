@@ -309,3 +309,26 @@ def test_elem_scan_wrappers_reject_what_the_kernels_do_not_take(smoke):
     d5 = smoke.elem_problem(dict(B=3, T=7, d=5, C=2), 0, "cuda")
     with pytest.raises(ValueError, match="d=5"):
         chunked.elem_scan(d5.float())
+
+
+@pytest.mark.parametrize("shape", ["small", "config2", "longT"])
+def test_kalman_fwd_kernels_match_plain(smoke, shape):
+    smoke.check_kalman_fwd(smoke.KFWD_SHAPES[shape], seed=0)
+
+
+@pytest.mark.parametrize("d", estep.KERNEL_DIMS)
+def test_kalman_fwd_kernels_match_plain_at_every_built_d(smoke, d):
+    smoke.check_kalman_fwd(dict(B=5, T=9, d=d, S=3), seed=d)
+
+
+def test_kalman_fwd_entry_points_launch_their_kernels(smoke):
+    """Each entry point of ops/kalman_fwd.py launches its kernels once and
+    no plain version; lds_estep agrees with bpairs.lds_estep and with
+    float64."""
+    assert smoke.kalman_fwd_path() == {"filter_shared": 1,
+                                       "backward_shared": 1,
+                                       "sampler_shared": 1}
+
+
+def test_one_direction_filters_and_gradients_on_card(smoke):
+    smoke.one_direction_filters()

@@ -517,7 +517,7 @@ def test_run_loader_trains_on_ragged_batches():
 
 
 # --------------------------------------------------------------------------
-# (h) the JAX package's interleaved layout (kernels #10, #6, #8)
+# (h) the JAX package's interleaved layout (kernels #10, #6, #8, #11)
 # --------------------------------------------------------------------------
 
 
@@ -528,8 +528,10 @@ def test_fb_pass_matches_interleaved_layout():
     and the gradients of a random-weighted sum of every output with
     respect to the initial, pair and node potentials, which run that
     layout's adjoint kernels ``_filter_adj_kernel`` and
-    ``_backward_adj_kernel`` in interpret mode. On the card both layouts
-    are the bpairs kernels' lanes."""
+    ``_backward_adj_kernel`` in interpret mode, and, with
+    ``fused_adj=True``, its fused mixed-direction adjoint ``_fb_adj_kernel``
+    instead. On the card both layouts are the bpairs kernels' lanes, and
+    ``bidir_adj`` runs both directions' adjoints in one launch."""
     Bi, Ti, di = 5, 4, 2
     rng = np.random.default_rng(12)
     glob = jax_lds.init_pgm_param(jax.random.key(13), di, dtype=jnp.float64)
@@ -544,25 +546,29 @@ def test_fb_pass_matches_interleaved_layout():
     leaves = (I1, I2, Ic) + tuple(pairs) + (N1, jnp.asarray(h))
     assert not (-(-2 * Bi // 8) < 2 * (-(-Bi // 8)))  # the JAX default
 
-    def fb(lib, xs):
+    def fb(lib, xs, fused_adj=False):
         init, prs, nds = xs[:3], xs[3:7], xs[7:]
         if lib is jnp:
             return pallas_vjp.fb_pass(init, prs, nds, block_b=8,
-                                      interpret=True, bidir=False)
+                                      interpret=True, bidir=False,
+                                      fused_adj=fused_adj)
         return bpairs.fb_pass(init, prs, nds)
 
     weights = [rng.standard_normal(s) for s in
                [(Bi,), (Bi, Ti, di, di), (Bi, Ti, di), (Bi, Ti, di, di),
                 (Bi, Ti, di)]]
 
-    def loss(lib, xs):
+    def loss(lib, xs, fused_adj=False):
         to = jnp.asarray if lib is jnp else _t
-        return sum((to(w) * o).sum() for w, o in zip(weights, fb(lib, xs)))
+        return sum((to(w) * o).sum()
+                   for w, o in zip(weights, fb(lib, xs, fused_adj)))
 
-    ref_out, ref_grads = jax.jit(lambda xs: (
-        fb(jnp, xs), jax.grad(lambda ys: loss(jnp, ys))(xs)))(leaves)
+    ref_out, ref_grads, fused_grads = jax.jit(lambda xs: (
+        fb(jnp, xs), jax.grad(lambda ys: loss(jnp, ys))(xs),
+        jax.grad(lambda ys: loss(jnp, ys, fused_adj=True))(xs)))(leaves)
     ins = [_t(x).requires_grad_() for x in leaves]
     out = fb(torch, ins)
     grads = torch.autograd.grad(loss(torch, ins), ins)
     _close(out, ref_out)
     _close(grads, ref_grads)
+    _close(grads, fused_grads)

@@ -16,8 +16,11 @@ drift of the host during the run falls on each alike.
 Stages, at BASELINE config 2 (B=64, T=100, d_latent=10, d_obs=20, S=2, MLP
 recognizer and decoder of width 64, float32, random weights from a seed):
 the E-step (``lds_estep_stationary``), ``run_inference``,
-``posterior_moments``, one MC-ELBO batch under ``torch.no_grad`` and, where
-the checkout has the training loop, one train step (``make_train_step``).
+``posterior_moments``, one MC-ELBO batch under ``torch.no_grad``, the two
+stationary adjoint kernels alone (``estep.filter_adj`` and
+``estep.sampler_adj`` on the forward kernels' outputs and cotangents drawn
+from one seed) where the checkout has them and, where the checkout has
+the training loop, one train step (``make_train_step``).
 Prints one line per run, then for every stage and checkout the median
 and quartiles of the event times and, against the first checkout, how
 many of the A B / B A pairs each side was faster in, and last a JSON
@@ -54,6 +57,26 @@ def _median_ms(fn, calls):
     torch.cuda.synchronize()
     return (float(np.median([s.elapsed_time(e) for s, e in pairs])),
             float(np.median(issue)) * 1e3)
+
+
+def _adjoint_stages(torch, estep, init, mats, nodes):
+    """The two stationary adjoint kernels alone, on the forward kernels'
+    outputs at config 2 and cotangents drawn from one seed: the same
+    inputs in every checkout whose forward kernels agree."""
+    dev = nodes[0].device
+    fin = estep.filter_inputs(init, mats, nodes)
+    J, h, ln = estep.filter_fwd(*fin)
+    g = torch.Generator(device=dev).manual_seed(5)
+    cot = lambda x: torch.randn(x.shape, generator=g, device=dev)
+    filt = (*fin, J, h, cot(J), cot(h), cot(ln))
+    Jf = torch.cat([fin[0][None, :, :B], J[:, :, :B]])
+    hf = torch.cat([fin[1][None, :, :B], h[:, :, :B]])
+    eps = torch.randn((S, B, T, D), generator=g, device=dev)
+    samp, _ = estep.sampler_inputs(mats, Jf, hf, eps)
+    x = estep.sampler_fwd(*samp)
+    samp = (*samp, x, cot(x))
+    return {"filter_adj": lambda: estep.filter_adj(*filt),
+            "sampler_adj": lambda: estep.sampler_adj(*samp)}
 
 
 def worker(root, calls):
@@ -104,6 +127,8 @@ def worker(root, calls):
         "posterior_moments": lambda: lds.posterior_moments(glob, nodes),
         "objective_no_grad": value,
     }
+    if hasattr(estep, "filter_adj"):
+        stages.update(_adjoint_stages(torch, estep, init, mats, nodes))
     readings = {k: _median_ms(fn, calls) for k, fn in stages.items()}
     # the training loop is imported and built only now, so that every
     # checkout has done the same work when its inference stages are timed

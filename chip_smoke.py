@@ -12,7 +12,10 @@ exits non-zero:
 3. each forward kernel in float32 against its plain twin in float64 on the
    same inputs, and each adjoint kernel in float32 against its plain
    adjoint in float64 on the same inputs and random cotangents, on the
-   card, at the main-path shape and a small odd one;
+   card, at the main-path shape and a small odd one; the adjoints and each
+   of their passes (``estep.filter_adj_factor``, ``filter_adj_chain``,
+   ``sampler_adj_factor``, ``sampler_adj_chain``, ``sampler_adj_dJc``)
+   against its own plain version there and at every built latent size;
 4. the inference path at BASELINE config 2 (LDS-SVAE on 1-D dot videos,
    B=64, T=100, d_latent=10, d_obs=20, S=2, MLP recognizer and decoder of
    width 64, random weights from a seed): the MC-ELBO objective on 3
@@ -62,7 +65,9 @@ exits non-zero:
    ragged step against the float64 CPU path; the SLDS padded-batch theorem
    on the card;
 5. CUDA-event timings (median of 25 runs, 10 for the plain versions at
-   T=128) of each kernel and its plain version, of the E-step on the
+   T=128) of each kernel and its plain version (the adjoints' passes too,
+   and the adjoints' device time by kernel under torch.profiler), of the
+   E-step on the
    kernel path and on the twin path, of one train step and of the fused
    8-step call; of the bpairs kernels at B=64, T=128 and T=512, of one
    ragged train step per length bucket, and of the bucketed epoch against
@@ -336,10 +341,40 @@ def adjoint_problem(shape, seed=0, device="cuda"):
     return filt, (*sin, x, cot(x))
 
 
+def check_adjoint_passes(filt, samp):
+    """Each pass of the two adjoints (float32 kernel) against its own
+    plain version (float64) on the same float64 inputs, each pass fed the
+    plain output of the pass before it. Returns ``{pass: (normwise rel, max
+    abs)}`` over the pass's outputs."""
+    errs = {}
+
+    def held(name, kernel, plain, *args):
+        want = plain(*args)
+        got = kernel(*_f32(args))
+        torch.cuda.synchronize()
+        pair = (got, want) if isinstance(want, tuple) else ((got,), (want,))
+        errs[name] = _rel_err(*pair)
+        return want
+
+    fac = held("filter_adj_factor", estep.filter_adj_factor,
+               estep.filter_adj_factor_plain, *filt[:9])
+    held("filter_adj_chain", estep.filter_adj_chain,
+         estep.filter_adj_chain_plain, fac, *filt[9:])
+    P2, P3, Jf, hf, eps, xT, x, dx = samp
+    W = held("sampler_adj_factor", estep.sampler_adj_factor,
+             estep.sampler_adj_factor_plain, P3, Jf)
+    dhf = held("sampler_adj_chain", estep.sampler_adj_chain,
+               estep.sampler_adj_chain_plain, W, P2, xT, x, dx)[0]
+    held("sampler_adj_dJc", estep.sampler_adj_dJc,
+         estep.sampler_adj_dJc_plain, P2, P3, Jf, hf, eps, xT, x, dhf)
+    return errs
+
+
 def check_adjoints(shape, seed=0, device="cuda"):
     """Both adjoint kernels (float32) against their plain adjoints
-    (float64) on the same inputs and cotangents at ``shape``; raises past
-    TOL_ADJ_REL. Returns ``{name: (normwise rel, max abs)}``."""
+    (float64) on the same inputs and cotangents at ``shape``, then each of
+    their passes against its own plain version; raises past TOL_ADJ_REL.
+    Returns ``{name: (normwise rel, max abs)}``."""
     filt, samp = adjoint_problem(shape, seed, device)
     errs = {}
     got = estep.filter_adj(*_f32(filt))
@@ -348,6 +383,7 @@ def check_adjoints(shape, seed=0, device="cuda"):
     got = estep.sampler_adj(*_f32(samp))
     torch.cuda.synchronize()
     errs["sampler_adj"] = _rel_err(got, estep.sampler_adj_plain(*samp))
+    errs.update(check_adjoint_passes(filt, samp))
     if not all(rel <= TOL_ADJ_REL for rel, _ in errs.values()):
         raise AssertionError(f"an adjoint kernel disagrees with its plain "
                              f"version at {shape}: {errs}")
@@ -572,6 +608,32 @@ def _time_ms(fn, runs=TIMING_RUNS, warmup=3):
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
+def _device_ms(fn, calls=20, warmup=3):
+    """Device time per call of ``fn()`` by kernel, under torch.profiler:
+    ``{kernel name: ms}`` (a port kernel by its function name, a PyTorch
+    kernel by the first 40 characters of its name). Unlike _time_ms, it
+    does not count the host's time to launch the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        m = re.search(r"(\w+_kernel)<", e.name)
+        name = m.group(1) if m else e.name[:40]
+        ms[name] = ms.get(name, 0.0) + (
+            e.time_range.end - e.time_range.start) / calls / 1e3
+    return ms
+
+
 def _config2_models(device):
     g = torch.Generator().manual_seed(0)
     prior = lds.init_pgm_param(10, g, device=device)
@@ -677,9 +739,18 @@ KFWD_WRAPPERS = (kalman_fwd.filter_shared, kalman_fwd.backward_shared,
 KFWD_PLAINS = (kalman_fwd.filter_shared_plain,
                kalman_fwd.backward_shared_plain,
                kalman_fwd.sampler_shared_plain)
-ALL_WRAPPERS = (WRAPPERS + RAGGED_WRAPPERS + HMM_WRAPPERS + CHUNK_WRAPPERS
-                + KFWD_WRAPPERS)
-ALL_PLAINS = PLAINS + RAGGED_PLAINS + HMM_PLAINS + CHUNK_PLAINS + KFWD_PLAINS
+# the adjoints' passes one by one (check_adjoint_passes, phase 5); the
+# model path launches the same kernels through filter_adj and sampler_adj
+PASS_WRAPPERS = (estep.filter_adj_factor, estep.filter_adj_chain,
+                 estep.sampler_adj_factor, estep.sampler_adj_chain,
+                 estep.sampler_adj_dJc)
+PASS_PLAINS = (estep.filter_adj_factor_plain, estep.filter_adj_chain_plain,
+               estep.sampler_adj_factor_plain, estep.sampler_adj_chain_plain,
+               estep.sampler_adj_dJc_plain)
+ALL_WRAPPERS = (WRAPPERS + PASS_WRAPPERS + RAGGED_WRAPPERS + HMM_WRAPPERS
+                + CHUNK_WRAPPERS + KFWD_WRAPPERS)
+ALL_PLAINS = (PLAINS + PASS_PLAINS + RAGGED_PLAINS + HMM_PLAINS
+              + CHUNK_PLAINS + KFWD_PLAINS)
 TRAIN_K = 8
 
 
@@ -1673,6 +1744,32 @@ def timings(device="cuda"):
     t["sampler_adj"] = _time_ms(lambda: estep.sampler_adj(*samp))
     t["sampler_adj_plain"] = _time_ms(lambda: estep.sampler_adj_plain(
         *samp))
+    # their passes alone (the wrappers' scratch and outputs allocated
+    # inside each call, as in the adjoints)
+    fac = estep.filter_adj_factor(*filt[:9])
+    P2, P3, Jf, hf, eps_s, xT, x, dx = samp
+    W = estep.sampler_adj_factor(P3, Jf)
+    dhf = estep.sampler_adj_chain(W, P2, xT, x, dx)[0]
+    t["filter_adj_factor"] = _time_ms(
+        lambda: estep.filter_adj_factor(*filt[:9]))
+    t["filter_adj_chain"] = _time_ms(
+        lambda: estep.filter_adj_chain(fac, *filt[9:]))
+    t["sampler_adj_factor"] = _time_ms(
+        lambda: estep.sampler_adj_factor(P3, Jf))
+    t["sampler_adj_chain"] = _time_ms(
+        lambda: estep.sampler_adj_chain(W, P2, xT, x, dx))
+    t["sampler_adj_dJc"] = _time_ms(lambda: estep.sampler_adj_dJc(
+        P2, P3, Jf, hf, eps_s, xT, x, dhf))
+    # the adjoints' device time by kernel (their event times above count
+    # the host's launch time where it is the longer)
+    for k, fn in (("filter_adj", lambda: estep.filter_adj(*filt)),
+                  ("sampler_adj", lambda: estep.sampler_adj(*samp))):
+        dev = _device_ms(fn)
+        ours = sum(v for n, v in dev.items() if n.startswith(k))
+        t[k + "_device"] = ours
+        print(f"device {k}: {ours:.4f} ms in its kernels, "
+              f"{sum(dev.values()):.4f} ms in all: "
+              + ", ".join(f"{n} {v:.4f}" for n, v in dev.items()))
 
     # one train step, and the fused 8-step call on 8 minibatches
     prior, glob, rec, dec = _config2_models(device)
@@ -1944,7 +2041,7 @@ def report_build(so):
     for line in log.splitlines():
         m = re.search(r"entry function '(\w+)'", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel)ILi(\d+)E", m.group(1))
+            k = re.search(r"([A-Za-z_]+_kernel)ILi(\d+)E", m.group(1))
             name = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
             spill = "?"
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -1984,6 +2081,13 @@ def main():
               f"max abs): {a}")
         for k in ("filter_fwd", "sampler_fwd"):
             errs[k] = max(errs.get(k, 0.0), e[k])
+        for k in ("filter_adj", "sampler_adj"):
+            errs[k] = max(errs.get(k, 0.0), a[k][1])
+    # the adjoints and each of their passes at every built d
+    for d in estep.KERNEL_DIMS:
+        a = check_adjoints(dict(B=5, T=9, d=d, S=3), seed=d)
+        print(f"adjoints and their passes vs plain versions [d={d}, B=5, "
+              f"T=9, S=3] (normwise rel, max abs): {a}")
         for k in ("filter_adj", "sampler_adj"):
             errs[k] = max(errs.get(k, 0.0), a[k][1])
     for name, shape in {**RAGGED_SHAPES, "T512": RAGGED_LONG}.items():

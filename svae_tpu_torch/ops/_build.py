@@ -98,8 +98,13 @@ def load_library():
         p, i = ctypes.c_void_p, ctypes.c_int
         for name, ints, ptrs in (("svae_filter_fwd_f32", 3, 11),
                                  ("svae_sampler_fwd_f32", 4, 8),
-                                 ("svae_filter_adj_f32", 3, 16),
-                                 ("svae_sampler_adj_f32", 4, 13),
+                                 ("svae_filter_adj_f32", 3, 17),
+                                 ("svae_filter_adj_factor_f32", 3, 10),
+                                 ("svae_filter_adj_chain_f32", 3, 9),
+                                 ("svae_sampler_adj_f32", 4, 14),
+                                 ("svae_sampler_adj_factor_f32", 3, 4),
+                                 ("svae_sampler_adj_chain_f32", 4, 9),
+                                 ("svae_sampler_adj_dJc_f32", 4, 10),
                                  ("svae_bidir_fwd_f32", 3, 12),
                                  ("svae_sampler_bp_fwd_f32", 4, 8),
                                  ("svae_bidir_adj_f32", 3, 18),

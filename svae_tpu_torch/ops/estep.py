@@ -14,7 +14,12 @@ evidence:
 * :func:`filter_adj` and :func:`sampler_adj` are their adjoints, the
   backward of :class:`FilterFwd` and :class:`SamplerFwd`
   (``torch.autograd.Function``s, the counterparts of the JAX package's
-  ``custom_vjp`` primitives).
+  ``custom_vjp`` primitives). On a card each runs as passes, one kernel
+  each, from one C call: a parallel factor pass, the serial chain and,
+  for the sampler, a parallel pass for the cotangent of each step's
+  precision (:func:`filter_adj_factor`, :func:`filter_adj_chain`;
+  :func:`sampler_adj_factor`, :func:`sampler_adj_chain`,
+  :func:`sampler_adj_dJc`, each with a plain version of its own).
 
 Each is a CUDA kernel (``csrc/*.cu``) for tensors on a card and a plain
 PyTorch version (``*_plain``) for tensors on the CPU: the forward twins run
@@ -176,7 +181,9 @@ def _filter_adj_outputs(dnode, dJ0, dh0, dpar, d, B):
 def filter_adj(J0, h0, A, C, D, jd, n2, J, h, dJ, dh, dln):
     """Adjoint of :func:`filter_fwd`: its inputs, its outputs ``J``, ``h``
     and their cotangents ``dJ``, ``dh``, ``dln`` -> the cotangents of its
-    inputs ``(dJ0, dh0, dA, dC, dD, djd, dn2)``, shaped as the inputs."""
+    inputs ``(dJ0, dh0, dA, dC, dD, djd, dn2)``, shaped as the inputs. On
+    a card one C call runs the two passes of :func:`filter_adj_factor` and
+    :func:`filter_adj_chain`."""
     if J0.device.type == "cpu":
         return filter_adj_plain(J0, h0, A, C, D, jd, n2, J, h, dJ, dh, dln)
     T, d, B = jd.shape
@@ -184,13 +191,14 @@ def filter_adj(J0, h0, A, C, D, jd, n2, J, h, dJ, dh, dln):
     _check_filter_shapes("filter_adj", *args)
     _check_kernel_args("filter_adj", d, args)
     kw = dict(dtype=J0.dtype, device=J0.device)
+    fac = torch.empty((T - 1, 2 * d * d + d, 2 * B), **kw)
     dnode = torch.empty((2, 2, T, d, B), **kw)
     dJ0 = torch.empty((d * d, 2 * B), **kw)
     dh0 = torch.empty((d, 2 * B), **kw)
     dpar = torch.empty((3, d * d, 2 * B), **kw)
     lib = _build.load_library()
     _launch("filter_adj", lib.svae_filter_adj_f32, J0.device, d, B, T, J0,
-            h0, A, D, jd, n2, J, h, dJ, dh, dln, dnode, dJ0, dh0, dpar)
+            h0, A, D, jd, n2, J, h, dJ, dh, dln, fac, dnode, dJ0, dh0, dpar)
     filter_adj.launches += 1
     return _filter_adj_outputs(dnode, dJ0, dh0, dpar, d, B)
 
@@ -215,7 +223,9 @@ def sampler_adj(P2, P3, Jf, hf, eps, xT, x, dx):
     """Adjoint of :func:`sampler_fwd`: its inputs, its output ``x`` and
     the cotangent ``dx`` -> the cotangents ``(dP2, dP3, dJf, dhf, dxT)`` of
     its inputs other than the noise (which has none: it is i.i.d. and
-    nothing upstream depends on it)."""
+    nothing upstream depends on it). On a card one C call runs the three
+    passes of :func:`sampler_adj_factor`, :func:`sampler_adj_chain` and
+    :func:`sampler_adj_dJc`."""
     if P2.device.type == "cpu":
         return sampler_adj_plain(P2, P3, Jf, hf, eps, xT, x, dx)
     T1, dd, B = Jf.shape
@@ -224,18 +234,163 @@ def sampler_adj(P2, P3, Jf, hf, eps, xT, x, dx):
     _check_sampler_shapes("sampler_adj", *args)
     _check_kernel_args("sampler_adj", d, args)
     kw = dict(dtype=xT.dtype, device=xT.device)
+    W = torch.empty((T1, dd, B), **kw)
     dJc = torch.empty((T1, dd, SB), **kw)
     dhf = torch.empty((T1, d, SB), **kw)
     dxT = torch.empty((d, SB), **kw)
     dP2 = torch.empty((dd, SB), **kw)
     lib = _build.load_library()
     _launch("sampler_adj", lib.svae_sampler_adj_f32, xT.device, d, B,
-            SB // B, T1 + 1, *args, dJc, dhf, dxT, dP2)
+            SB // B, T1 + 1, *args, W, dJc, dhf, dxT, dP2)
     sampler_adj.launches += 1
     return _sampler_adj_outputs(dJc, dhf, dxT, dP2, B)
 
 
 sampler_adj.launches = 0
+
+
+# The adjoints' passes one by one, for holding each kernel against its own
+# plain version: filter_adj = _filter_adj_outputs(filter_adj_chain(
+# filter_adj_factor(...), ...)), sampler_adj = _sampler_adj_outputs of
+# sampler_adj_factor, sampler_adj_chain and sampler_adj_dJc. The model
+# path calls filter_adj and sampler_adj, which launch the same kernels from
+# one C call each.
+
+
+def filter_adj_factor(J0, h0, A, C, D, jd, n2, J, h):
+    """Pass 1 of :func:`filter_adj`, parallel over (lane, step): per step
+    t of lane r*B + b the inverse W of M = J_pre + A_r (+ diag jd on the
+    backward lanes), K = W D_r^T and w = W v, v = h_pre (+ n2 backward),
+    as ``fac`` (T-1, 2d^2 + d, 2B) = [W, K (row-major), w] in the layout
+    of the forward's messages. Arguments as :func:`filter_adj`'s first
+    nine (``C`` is not read)."""
+    if J0.device.type == "cpu":
+        return filter_adj_factor_plain(J0, h0, A, C, D, jd, n2, J, h)
+    T, d, B = jd.shape
+    args = (J0, h0, A, C, D, jd, n2, J, h)
+    _check_filter_shapes("filter_adj_factor", *args[:7])
+    if J.shape != (T - 1, d * d, 2 * B) or h.shape != (T - 1, d, 2 * B):
+        raise ValueError("filter_adj_factor: inconsistent shapes")
+    _check_kernel_args("filter_adj_factor", d, args)
+    fac = torch.empty((T - 1, 2 * d * d + d, 2 * B), dtype=J0.dtype,
+                      device=J0.device)
+    lib = _build.load_library()
+    _launch("filter_adj_factor", lib.svae_filter_adj_factor_f32, J0.device,
+            d, B, T, J0, h0, A, D, jd, n2, J, h, fac)
+    filter_adj_factor.launches += 1
+    return fac
+
+
+filter_adj_factor.launches = 0
+
+
+def _check_chain_shapes(name, fac, dJ, dh, dln):
+    T1, R, NL = fac.shape
+    d = dh.shape[1] if dh.dim() == 3 else 0
+    if (NL % 2 or R != 2 * d * d + d or dJ.shape != (T1, d * d, NL)
+            or dh.shape != (T1, d, NL) or dln.shape != (NL,)):
+        raise ValueError(f"{name}: inconsistent shapes")
+    return NL // 2, T1 + 1, d
+
+
+def filter_adj_chain(fac, dJ, dh, dln):
+    """Pass 2 of :func:`filter_adj`, serial in time: the carried
+    cotangents walked back through the steps from :func:`filter_adj_factor`'s
+    ``fac`` and the cotangents ``dJ``, ``dh``, ``dln``. Returns the
+    per-direction and per-lane outputs ``(dnode (2, 2, T, d, B), dJ0
+    (d*d, 2B), dh0 (d, 2B), dpar (3, d*d, 2B))`` that
+    :func:`_filter_adj_outputs` reduces."""
+    if fac.device.type == "cpu":
+        return filter_adj_chain_plain(fac, dJ, dh, dln)
+    B, T, d = _check_chain_shapes("filter_adj_chain", fac, dJ, dh, dln)
+    args = (fac, dJ, dh, dln)
+    _check_kernel_args("filter_adj_chain", d, args)
+    kw = dict(dtype=fac.dtype, device=fac.device)
+    dnode = torch.empty((2, 2, T, d, B), **kw)
+    dJ0 = torch.empty((d * d, 2 * B), **kw)
+    dh0 = torch.empty((d, 2 * B), **kw)
+    dpar = torch.empty((3, d * d, 2 * B), **kw)
+    lib = _build.load_library()
+    _launch("filter_adj_chain", lib.svae_filter_adj_chain_f32, fac.device,
+            d, B, T, *args, dnode, dJ0, dh0, dpar)
+    filter_adj_chain.launches += 1
+    return dnode, dJ0, dh0, dpar
+
+
+filter_adj_chain.launches = 0
+
+
+def sampler_adj_factor(P3, Jf):
+    """Pass 1 of :func:`sampler_adj`, parallel over (sequence, step): ``W``
+    (T-1, d*d, B), the inverse of Jf_t - 2 P3 per sequence (shared by its
+    S samples), in ``Jf``'s layout. ``P3`` (d, d), ``Jf`` (T-1, d*d, B)."""
+    if P3.device.type == "cpu":
+        return sampler_adj_factor_plain(P3, Jf)
+    T1, dd, B = Jf.shape
+    d = P3.shape[0]
+    if T1 < 1 or P3.shape != (d, d) or dd != d * d:
+        raise ValueError("sampler_adj_factor: inconsistent shapes")
+    _check_kernel_args("sampler_adj_factor", d, (P3, Jf))
+    W = torch.empty((T1, dd, B), dtype=Jf.dtype, device=Jf.device)
+    lib = _build.load_library()
+    _launch("sampler_adj_factor", lib.svae_sampler_adj_factor_f32,
+            Jf.device, d, B, T1 + 1, P3, Jf, W)
+    sampler_adj_factor.launches += 1
+    return W
+
+
+sampler_adj_factor.launches = 0
+
+
+def sampler_adj_chain(W, P2, xT, x, dx):
+    """Pass 2 of :func:`sampler_adj`, serial in time: per sample chain
+    b-bar_t = W_t (x-bar_t + dx_t), x-bar_{t+1} = P2 b-bar_t from
+    :func:`sampler_adj_factor`'s ``W``. Returns the per-lane ``(dhf
+    (T-1, d, S*B) = b-bar, dxT (d, S*B), dP2 (d*d, S*B))``."""
+    if W.device.type == "cpu":
+        return sampler_adj_chain_plain(W, P2, xT, x, dx)
+    T1, dd, B = W.shape
+    d, SB = xT.shape
+    if (dd != d * d or SB % B or P2.shape != (d, d)
+            or x.shape != (T1, d, SB) or dx.shape != x.shape):
+        raise ValueError("sampler_adj_chain: inconsistent shapes")
+    args = (W, P2, xT, x, dx)
+    _check_kernel_args("sampler_adj_chain", d, args)
+    kw = dict(dtype=W.dtype, device=W.device)
+    dhf = torch.empty((T1, d, SB), **kw)
+    dxT = torch.empty((d, SB), **kw)
+    dP2 = torch.empty((dd, SB), **kw)
+    lib = _build.load_library()
+    _launch("sampler_adj_chain", lib.svae_sampler_adj_chain_f32, W.device,
+            d, B, SB // B, T1 + 1, *args, dhf, dxT, dP2)
+    sampler_adj_chain.launches += 1
+    return dhf, dxT, dP2
+
+
+sampler_adj_chain.launches = 0
+
+
+def sampler_adj_dJc(P2, P3, Jf, hf, eps, xT, x, bbar):
+    """Pass 3 of :func:`sampler_adj`, parallel over (lane, step): the
+    per-lane cotangent ``dJc`` (T-1, d*d, S*B) of Jc_t = Jf_t - 2 P3 from
+    :func:`sampler_adj_chain`'s b-bar (its ``dhf``) and the sampler's
+    inputs and output (arguments as :func:`sampler_adj`'s first seven)."""
+    if P2.device.type == "cpu":
+        return sampler_adj_dJc_plain(P2, P3, Jf, hf, eps, xT, x, bbar)
+    T1, dd, B = Jf.shape
+    d, SB = xT.shape
+    args = (P2, P3, Jf, hf, eps, xT, x, bbar)
+    _check_sampler_shapes("sampler_adj_dJc", *args)
+    _check_kernel_args("sampler_adj_dJc", d, args)
+    dJc = torch.empty((T1, dd, SB), dtype=Jf.dtype, device=Jf.device)
+    lib = _build.load_library()
+    _launch("sampler_adj_dJc", lib.svae_sampler_adj_dJc_f32, Jf.device, d,
+            B, SB // B, T1 + 1, *args, dJc)
+    sampler_adj_dJc.launches += 1
+    return dJc
+
+
+sampler_adj_dJc.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -332,6 +487,141 @@ def sampler_adj_plain(P2, P3, Jf, hf, eps, xT, x, dx):
 
 
 sampler_adj_plain.calls = 0
+
+
+def filter_adj_factor_plain(J0, h0, A, C, D, jd, n2, J, h):
+    """Plain version of :func:`filter_adj_factor` (same arguments, same
+    output), batched over lanes and steps."""
+    filter_adj_factor_plain.calls += 1
+    T, d, B = jd.shape
+    NL, T1 = 2 * B, T - 1
+    lanes = lambda X: X.permute(2, 0, 1)                # (T1, k, NL) -> lanes
+    Jpre = lanes(torch.cat([J0[None], J[:-1]])).reshape(NL, T1, d, d)
+    hpre = lanes(torch.cat([h0[None], h[:-1]]))
+    wA = (torch.arange(NL, device=jd.device) >= B).to(jd.dtype)[:, None, None]
+    jds = lanes(torch.cat([jd[1:], jd.flip(0)[:T1]], dim=-1))
+    n2s = lanes(torch.cat([n2[1:], n2.flip(0)[:T1]], dim=-1))
+    rep = lambda X: X.repeat_interleave(B, dim=0)[:, None]
+    L = smallchol.chol(Jpre + rep(A) + torch.diag_embed(wA * jds))
+    W = torch.cholesky_inverse(L)
+    K = W @ rep(D).mT
+    w = (W @ (hpre + wA * n2s)[..., None])[..., 0]
+    fac = torch.cat([W.reshape(NL, T1, d * d), K.reshape(NL, T1, d * d), w],
+                    dim=-1)
+    return fac.permute(1, 2, 0).contiguous()
+
+
+filter_adj_factor_plain.calls = 0
+
+
+def filter_adj_chain_plain(fac, dJ, dh, dln):
+    """Plain version of :func:`filter_adj_chain` (same arguments, same
+    outputs): the same products, one step at a time over all lanes."""
+    filter_adj_chain_plain.calls += 1
+    T1, R, NL = fac.shape
+    d, B, T = dh.shape[1], NL // 2, T1 + 1
+    dd = d * d
+    fac = fac.permute(2, 0, 1)                            # (NL, T1, R)
+    W = fac[..., :dd].reshape(NL, T1, d, d)
+    K = fac[..., dd:2 * dd].reshape(NL, T1, d, d)
+    w = fac[..., 2 * dd:]
+    lam = dln[:, None, None]
+    Mc = fac.new_zeros((NL, d, d))
+    hc = fac.new_zeros((NL, d))
+    acc = fac.new_zeros((3, NL, d, d))
+    dnode = fac.new_zeros((2, 2, T, d, B))
+    outer = lambda a, b: a[..., :, None] * b[..., None, :]
+    for t in reversed(range(T1)):
+        Kt, wt = K[:, t], w[:, t]
+        G = Mc + dJ[t].T.reshape(NL, d, d)
+        g = hc + dh[t].T
+        P = Kt @ (G + G.mT)
+        a = (Kt @ g[..., None])[..., 0]
+        Mc = (0.5 * P @ Kt.mT - 0.5 * (outer(a, wt) + outer(wt, a))
+              - 0.5 * lam * (outer(wt, wt) + W[:, t]))
+        hc = dln[:, None] * wt + a
+        dnode[0, 0, t + 1] = torch.diagonal(G[:B], dim1=-2, dim2=-1).T
+        dnode[1, 0, t + 1] = g[:B].T
+        dnode[0, 1, T - 1 - t] = torch.diagonal(Mc[B:], dim1=-2, dim2=-1).T
+        dnode[1, 1, T - 1 - t] = hc[B:].T
+        acc = acc + torch.stack([Mc, G, outer(g, wt) - P.mT])
+    dpar = acc.reshape(3, NL, dd).transpose(1, 2).contiguous()
+    return dnode, Mc.reshape(NL, dd).T.contiguous(), hc.T.contiguous(), dpar
+
+
+filter_adj_chain_plain.calls = 0
+
+
+def sampler_adj_factor_plain(P3, Jf):
+    """Plain version of :func:`sampler_adj_factor` (same arguments, same
+    output)."""
+    sampler_adj_factor_plain.calls += 1
+    T1, dd, B = Jf.shape
+    d = P3.shape[0]
+    Jc = Jf.permute(0, 2, 1).reshape(T1, B, d, d) - 2.0 * P3
+    W = torch.cholesky_inverse(smallchol.chol(Jc))
+    return W.reshape(T1, B, dd).permute(0, 2, 1).contiguous()
+
+
+sampler_adj_factor_plain.calls = 0
+
+
+def _next_samples(xT, x):
+    """x_{t+1} of every step t, (T-1, d, S*B): the forward's frames
+    1..T-2, then the terminal sample."""
+    return torch.cat([x[1:], xT[None]])
+
+
+def sampler_adj_chain_plain(W, P2, xT, x, dx):
+    """Plain version of :func:`sampler_adj_chain` (same arguments, same
+    outputs), one step at a time over all lanes."""
+    sampler_adj_chain_plain.calls += 1
+    T1, dd, B = W.shape
+    d, SB = xT.shape
+    Wl = W.permute(2, 0, 1).repeat(SB // B, 1, 1).reshape(SB, T1, d, d)
+    xn = _next_samples(xT, x)
+    xc = xT.new_zeros((SB, d))
+    acc = xT.new_zeros((SB, d, d))
+    dhf = []
+    for t in range(T1):
+        bb = (Wl[:, t] @ (xc + dx[t].T)[..., None])[..., 0]
+        acc = acc + xn[t].T[:, :, None] * bb[:, None, :]
+        xc = bb @ P2.T
+        dhf.append(bb.T)
+    return (torch.stack(dhf), xc.T.contiguous(),
+            acc.reshape(SB, dd).T.contiguous())
+
+
+sampler_adj_chain_plain.calls = 0
+
+
+def sampler_adj_dJc_plain(P2, P3, Jf, hf, eps, xT, x, bbar):
+    """Plain version of :func:`sampler_adj_dJc` (same arguments, same
+    output), batched over lanes and steps: dJc = sym(-bbar mu^T + L^-T P
+    L^-1) with P = -phi(eps u^T), u = L^T bbar."""
+    sampler_adj_dJc_plain.calls += 1
+    T1, dd, B = Jf.shape
+    d, SB = xT.shape
+    Jc = Jf.permute(0, 2, 1).reshape(T1, B, d, d) - 2.0 * P3
+    L = smallchol.chol(Jc).repeat(1, SB // B, 1, 1)       # (T1, SB, d, d)
+    lanes = lambda X: X.permute(0, 2, 1)                  # (T1, SB, d)
+    xn = lanes(_next_samples(xT, x))
+    hfl = lanes(hf).repeat(1, SB // B, 1)
+    mu = smallchol.cho_solve(L, hfl + xn @ P2)
+    bb = lanes(bbar)
+    u = (L.mT @ bb[..., None])[..., 0]
+    P = -torch.tril(lanes(eps)[..., :, None] * u[..., None, :])
+    P = P - 0.5 * torch.diag_embed(torch.diagonal(P, dim1=-2, dim2=-1))
+    Linv = torch.linalg.solve_triangular(L, torch.eye(d, dtype=L.dtype,
+                                                      device=L.device),
+                                         upper=False)
+    S = Linv.mT @ P @ Linv
+    outer = bb[..., :, None] * mu[..., None, :]
+    dJc = 0.5 * (S + S.mT - outer - outer.mT)
+    return dJc.reshape(T1, SB, dd).permute(0, 2, 1).contiguous()
+
+
+sampler_adj_dJc_plain.calls = 0
 
 
 # --------------------------------------------------------------------------

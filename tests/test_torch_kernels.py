@@ -101,6 +101,25 @@ def test_adjoints_match_plain_at_every_built_d(smoke, d):
     smoke.check_adjoints(dict(B=5, T=9, d=d, S=3), seed=d)
 
 
+@pytest.mark.parametrize("d", estep.KERNEL_DIMS)
+def test_adjoint_passes_match_plain_at_every_built_d(smoke, d):
+    """Each pass of the two adjoints (estep.filter_adj_factor, ...) against
+    its own plain version."""
+    errs = smoke.check_adjoint_passes(
+        *smoke.adjoint_problem(dict(B=5, T=9, d=d, S=3), seed=d))
+    assert len(errs) == len(smoke.PASS_WRAPPERS)
+    assert all(rel <= smoke.TOL_ADJ_REL for rel, _ in errs.values()), errs
+
+
+def test_adjoint_pass_launch_counters_count_launches(smoke):
+    problem = smoke.adjoint_problem(smoke.SHAPES["small"], seed=0)
+    smoke._reset_counters()
+    smoke.check_adjoint_passes(*problem)
+    assert [w.launches for w in smoke.PASS_WRAPPERS] == [1] * 5
+    assert [p.calls for p in smoke.PASS_PLAINS] == [1] * 5
+    assert [w.launches for w in smoke.WRAPPERS] == [0] * 4
+
+
 def _estep_grads(init, mats, nodes, eps):
     """Gradients of a fixed scalar of the E-step's outputs with respect to
     its inputs (init, pair matrices, jd, h)."""

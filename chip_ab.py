@@ -17,14 +17,17 @@ Stages, at BASELINE config 2 (B=64, T=100, d_latent=10, d_obs=20, S=2, MLP
 recognizer and decoder of width 64, float32, random weights from a seed):
 the E-step (``lds_estep_stationary``), ``run_inference``,
 ``posterior_moments``, one MC-ELBO batch under ``torch.no_grad``, the two
-stationary adjoint kernels alone (``estep.filter_adj`` and
-``estep.sampler_adj`` on the forward kernels' outputs and cotangents drawn
-from one seed) where the checkout has them and, where the checkout has
-the training loop, one train step (``make_train_step``).
+stationary forward kernels alone (``estep.filter_fwd`` on the E-step's
+packed inputs, ``estep.sampler_fwd`` on its forward messages and noise
+drawn from one seed), the two stationary adjoint kernels alone
+(``estep.filter_adj`` and ``estep.sampler_adj`` on the forward kernels'
+outputs and cotangents drawn from one seed) where the checkout has them
+and, where the checkout has the training loop, one train step
+(``make_train_step``).
 Prints one line per run, then for every stage and checkout the median
-and quartiles of the event times and, against the first checkout, how
-many of the A B / B A pairs each side was faster in, and last a JSON
-object of every reading. There is no CPU path.
+and quartiles of the event times and of the issue times and, against the
+first checkout, how many of the A B / B A pairs each side was faster in
+(by event time), and last a JSON object of every reading. There is no CPU path.
 """
 
 import argparse
@@ -59,10 +62,11 @@ def _median_ms(fn, calls):
             float(np.median(issue)) * 1e3)
 
 
-def _adjoint_stages(torch, estep, init, mats, nodes):
-    """The two stationary adjoint kernels alone, on the forward kernels'
-    outputs at config 2 and cotangents drawn from one seed: the same
-    inputs in every checkout whose forward kernels agree."""
+def _kernel_stages(torch, estep, init, mats, nodes):
+    """The two stationary forward kernels alone and, where the checkout
+    has them, the two adjoint kernels alone, on the forward kernels'
+    outputs at config 2 and noise and cotangents drawn from one seed: the
+    same inputs in every checkout whose forward kernels agree."""
     dev = nodes[0].device
     fin = estep.filter_inputs(init, mats, nodes)
     J, h, ln = estep.filter_fwd(*fin)
@@ -74,9 +78,13 @@ def _adjoint_stages(torch, estep, init, mats, nodes):
     eps = torch.randn((S, B, T, D), generator=g, device=dev)
     samp, _ = estep.sampler_inputs(mats, Jf, hf, eps)
     x = estep.sampler_fwd(*samp)
-    samp = (*samp, x, cot(x))
-    return {"filter_adj": lambda: estep.filter_adj(*filt),
-            "sampler_adj": lambda: estep.sampler_adj(*samp)}
+    stages = {"filter_fwd": lambda: estep.filter_fwd(*fin),
+              "sampler_fwd": lambda: estep.sampler_fwd(*samp)}
+    if hasattr(estep, "filter_adj"):
+        adj = (*samp, x, cot(x))
+        stages.update({"filter_adj": lambda: estep.filter_adj(*filt),
+                       "sampler_adj": lambda: estep.sampler_adj(*adj)})
+    return stages
 
 
 def worker(root, calls):
@@ -127,8 +135,7 @@ def worker(root, calls):
         "posterior_moments": lambda: lds.posterior_moments(glob, nodes),
         "objective_no_grad": value,
     }
-    if hasattr(estep, "filter_adj"):
-        stages.update(_adjoint_stages(torch, estep, init, mats, nodes))
+    stages.update(_kernel_stages(torch, estep, init, mats, nodes))
     readings = {k: _median_ms(fn, calls) for k, fn in stages.items()}
     # the training loop is imported and built only now, so that every
     # checkout has done the same work when its inference stages are timed
@@ -155,17 +162,19 @@ def summarize(runs):
     roots = list(dict.fromkeys(r["root"] for r in runs))
     lines = []
     for stage in runs[-1]["stages"]:
-        by = {root: [r["stages"][stage][0] for r in runs
+        by = {root: [r["stages"][stage] for r in runs
                      if r["root"] == root and stage in r["stages"]]
               for root in roots}
         for root in roots:
-            ev = by[root]
-            if not ev:
+            if not by[root]:
                 continue
+            ev, issue = zip(*by[root])
             q1, med, q3 = np.percentile(ev, [25, 50, 75])
+            i1, imed, i3 = np.percentile(issue, [25, 50, 75])
             line = (f"{stage} {root}: median {med:.4f} ms, quartiles "
-                    f"{q1:.4f}-{q3:.4f} ms, {len(ev)} runs")
-            base = by[roots[0]]
+                    f"{q1:.4f}-{q3:.4f} ms, {len(ev)} runs; issue median "
+                    f"{imed:.4f} ms, quartiles {i1:.4f}-{i3:.4f} ms")
+            base = [e for e, _ in by[roots[0]]]
             if root != roots[0] and len(base) == len(ev):
                 faster = sum(b < a for a, b in zip(base, ev))
                 line += (f"; faster than {roots[0]} in {faster} of "

@@ -12,16 +12,24 @@ exits non-zero:
 3. each forward kernel in float32 against its plain twin in float64 on the
    same inputs, and each adjoint kernel in float32 against its plain
    adjoint in float64 on the same inputs and random cotangents, on the
-   card, at the main-path shape and a small odd one; the adjoints and each
-   of their passes (``estep.filter_adj_factor``, ``filter_adj_chain``,
+   card, at the main-path shape and a small odd one; the forward kernels,
+   the forward sampler's passes (``estep.sampler_fwd_factor``,
+   ``sampler_fwd_chain``), the adjoints and each of their passes
+   (``estep.filter_adj_factor``, ``filter_adj_chain``,
    ``sampler_adj_factor``, ``sampler_adj_chain``, ``sampler_adj_dJc``)
    against its own plain version there and at every built latent size;
+   the stiff case (node precisions over [1e-2, 1e3] at config-2 width: each
+   forward kernel within twice the float32 plain version's error against
+   float64, normwise per step and per lane) and a non-SPD step, whose
+   outputs must come back non-finite in the lanes it reaches and nowhere
+   else;
 4. the inference path at BASELINE config 2 (LDS-SVAE on 1-D dot videos,
    B=64, T=100, d_latent=10, d_obs=20, S=2, MLP recognizer and decoder of
    width 64, random weights from a seed): the MC-ELBO objective on 3
    batches and ``posterior_moments`` on one, with the launch counters
-   showing both forward kernels ran there; then one batch's ELBO against
-   the float64 twin path on the CPU under the same noise;
+   showing both forward kernels ran there (``sampler_fwd``'s one C call
+   launching its two passes) and no plain version; then one batch's ELBO
+   against the float64 twin path on the CPU under the same noise;
 4b. the training path at config 2: ``make_fused_train_step(k_steps=8,
    stacked_batch=True)`` over 8 distinct minibatches, then 4 steps of
    ``loop.run``, with the launch counters showing all four kernels ran
@@ -65,9 +73,9 @@ exits non-zero:
    ragged step against the float64 CPU path; the SLDS padded-batch theorem
    on the card;
 5. CUDA-event timings (median of 25 runs, 10 for the plain versions at
-   T=128) of each kernel and its plain version (the adjoints' passes too,
-   and the adjoints' device time by kernel under torch.profiler), of the
-   E-step on the
+   T=128) of each kernel and its plain version (the forward sampler's and
+   the adjoints' passes too, and the forward kernels' and the adjoints'
+   device time by kernel under torch.profiler), of the E-step on the
    kernel path and on the twin path, of one train step and of the fused
    8-step call; of the bpairs kernels at B=64, T=128 and T=512, of one
    ragged train step per length bucket, and of the bucketed epoch against
@@ -157,10 +165,18 @@ TOL_LOGZ_REL = 2e-4
 # cotangents run back through the same T=100 chained Schur complements and
 # pick up their rounding once more
 TOL_ADJ_REL = 1e-3
+# the stiff case of the forward kernels: node precisions spread over
+# [1e-2, 1e3] at config-2 width, where no float32 tier is stated; each
+# kernel's error against float64 may be at most STIFF_FACTOR times the
+# float32 plain version's on the same device
+STIFF_JD = (1e-2, 1e3)
+STIFF_FACTOR = 2.0
 KERNELS = {
     "filter_fwd": "svae_tpu/ops/pallas_estep.py:63",
     "filter_adj": "svae_tpu/ops/pallas_estep.py:121",
     "sampler_fwd": "svae_tpu/ops/pallas_estep.py:218",
+    "sampler_fwd_factor": "svae_tpu/ops/pallas_estep.py:218",
+    "sampler_fwd_chain": "svae_tpu/ops/pallas_estep.py:218",
     "sampler_adj": "svae_tpu/ops/pallas_estep.py:252",
     "bidir_fwd": "svae_tpu/ops/pallas_bidir.py:71",
     "bidir_adj": "svae_tpu/ops/pallas_bidir.py:121",
@@ -191,6 +207,8 @@ SOURCES = {
     "filter_fwd": "svae_tpu_torch/csrc/estep.cu",
     "filter_adj": "svae_tpu_torch/csrc/filter_adj.cu",
     "sampler_fwd": "svae_tpu_torch/csrc/estep.cu",
+    "sampler_fwd_factor": "svae_tpu_torch/csrc/estep.cu",
+    "sampler_fwd_chain": "svae_tpu_torch/csrc/estep.cu",
     "sampler_adj": "svae_tpu_torch/csrc/sampler_adj.cu",
     "bidir_fwd": "svae_tpu_torch/csrc/bpairs.cu",
     "bidir_adj": "svae_tpu_torch/csrc/bidir_adj.cu",
@@ -285,34 +303,179 @@ def _max_err(got, want):
     return max(float((a.double() - b).abs().max()) for a, b in zip(got, want))
 
 
+def _ln_rel(ln, lnp):
+    """Relative error of the summed log-normalizer increments."""
+    return abs(float(ln.double().sum() - lnp.sum())) / abs(float(lnp.sum()))
+
+
+def _sampler_problem(fin, filtered, mats, eps, B):
+    """The sampler's inputs on the forward lanes of a filter's output."""
+    Jf = torch.cat([fin[0][None, :, :B], filtered[0][:, :, :B]])
+    hf = torch.cat([fin[1][None, :, :B], filtered[1][:, :, :B]])
+    return estep.sampler_inputs(mats, Jf, hf, eps)[0]
+
+
+def sampler_problem(shape, seed=0, device="cuda"):
+    """float64 inputs of the sampler at ``shape``, on the forward messages
+    of the float64 filter twin."""
+    init, mats, nodes, eps = _problem(shape, seed, device)
+    fin = estep.filter_inputs(init, mats, nodes)
+    return _sampler_problem(fin, estep.filter_fwd_plain(*fin), mats, eps,
+                            shape["B"])
+
+
+def check_sampler_fwd_passes(sin):
+    """Each pass of the forward sampler (float32 kernel) against its own
+    plain version (float64) on the same float64 sampler inputs ``sin``, the
+    chain fed the plain factor pass's output; raises past TOL_ABS. Returns
+    ``{pass: max abs error}`` over the pass's outputs."""
+    P2, P3, Jf, hf, eps, xT = sin
+    Wc = estep.sampler_fwd_factor(*_f32((P3, Jf, hf, eps)))
+    Wcp = estep.sampler_fwd_factor_plain(P3, Jf, hf, eps)
+    x = estep.sampler_fwd_chain(*_f32((*Wcp, P2, xT)))
+    xp = estep.sampler_fwd_chain_plain(*Wcp, P2, xT)
+    torch.cuda.synchronize()
+    errs = {"sampler_fwd_factor": _max_err(Wc, Wcp),
+            "sampler_fwd_chain": _max_err((x,), (xp,))}
+    if not all(v <= TOL_ABS for v in errs.values()):
+        raise AssertionError(f"a sampler pass disagrees with its plain "
+                             f"version: {errs}")
+    return errs
+
+
 def check_kernels(shape, seed=0, device="cuda"):
-    """Both kernels (float32) against their twins (float64) on the same
-    inputs at ``shape``; raises past the tolerances. Returns the errors."""
+    """The forward kernels (float32) against their twins (float64) on the
+    same inputs at ``shape``: the filter, the sampler and each of its two
+    passes, each pass fed the plain output of the pass before it; raises
+    past the tolerances. Returns the max abs errors and the filter's summed
+    log-normalizer rel (``filter_fwd_ln_rel``)."""
     init, mats, nodes, eps = _problem(shape, seed, device)
     B = shape["B"]
     fin = estep.filter_inputs(init, mats, nodes)
-    J, h, ln = estep.filter_fwd(*_f32(fin))
     Jp, hp, lnp = estep.filter_fwd_plain(*fin)
+    J, h, ln = estep.filter_fwd(*_f32(fin))
     torch.cuda.synchronize()
-    filt_err = _max_err((J, h), (Jp, hp))
-    ln_rel = abs(float(ln.double().sum() - lnp.sum())) / abs(float(lnp.sum()))
+    errs = {"filter_fwd": _max_err((J, h), (Jp, hp)),
+            "filter_fwd_ln_rel": _ln_rel(ln, lnp)}
 
     # the sampler reads the (float64) forward messages of that filter
-    Jf = torch.cat([fin[0][None, :, :B], Jp[:, :, :B]])
-    hf = torch.cat([fin[1][None, :, :B], hp[:, :, :B]])
-    sin, _ = estep.sampler_inputs(mats, Jf, hf, eps)
+    sin = _sampler_problem(fin, (Jp, hp), mats, eps, B)
     x = estep.sampler_fwd(*_f32(sin))
     xp = estep.sampler_fwd_plain(*sin)
     torch.cuda.synchronize()
-    samp_err = _max_err((x,), (xp,))
-
-    errs = {"filter_fwd": filt_err, "filter_ln_rel": ln_rel,
-            "sampler_fwd": samp_err}
-    if not (filt_err <= TOL_ABS and ln_rel <= TOL_LOGZ_REL
-            and samp_err <= TOL_ABS):
+    errs["sampler_fwd"] = _max_err((x,), (xp,))
+    errs.update(check_sampler_fwd_passes(sin))
+    if not all(v <= (TOL_LOGZ_REL if k.endswith("_ln_rel") else TOL_ABS)
+               for k, v in errs.items()):
         raise AssertionError(f"kernel disagrees with its twin at {shape}: "
                              f"{errs}")
     return errs
+
+
+# the forward kernels' entries in the errors of check_kernels
+FWD_ERRS = ("filter_fwd", "sampler_fwd", "sampler_fwd_factor",
+            "sampler_fwd_chain")
+
+
+def stiff_problem(shape=SHAPES["config2"], seed=12, device="cuda"):
+    """``_problem`` with the node precisions spread log-uniformly over
+    [1e-2, 1e3] (STIFF_JD): float64 filter inputs, the mats and the noise."""
+    init, mats, (jd, h), eps = _problem(shape, seed, device)
+    g = torch.Generator().manual_seed(seed + 1)
+    lo, hi = (math.log10(v) for v in STIFF_JD)
+    jd = 10.0 ** (lo + (hi - lo) * torch.rand(jd.shape, generator=g,
+                                              dtype=torch.float64))
+    return estep.filter_inputs(init, mats, (jd.to(device), h)), mats, eps
+
+
+def _step_rel(got, want):
+    """Worst relative error of one step's block over the steps and lanes:
+    ``got`` and ``want`` are (T-1, k, lanes), the norm taken over k. (A
+    step's J can hold a node precision of 1e3 on its diagonal, so a max abs
+    error over all entries reads that entry's float32 rounding and nothing
+    of the steps whose precisions are small.)"""
+    err = (got.double() - want).norm(dim=1) / want.norm(dim=1)
+    return float(err.max())
+
+
+def _lane_rel(ln, lnp):
+    """Worst relative error of a chain's log-normalizer over the lanes.
+    (The summed increments' error is a signed sum over the lanes, which
+    can cancel to far below any one lane's error.)"""
+    return float(((ln.double() - lnp).abs() / lnp.abs()).max())
+
+
+def check_stiff(shape=SHAPES["config2"], seed=12, device="cuda"):
+    """The stiff case: node precisions over [1e-2, 1e3] at ``shape``. The
+    forward kernels' explicit eliminations and inverses against float64,
+    beside the float32 plain versions' error on the same device: each
+    kernel's error may be at most STIFF_FACTOR times the float32 plain
+    version's. The errors are normwise per step (``_step_rel``) for the
+    filter's J and h and for the samples, and per lane (``_lane_rel``) for
+    the filter's ln. Returns
+    ``{name: (kernel error, float32 plain error)}``."""
+    fin, mats, eps = stiff_problem(shape, seed, device)
+    B = shape["B"]
+    want = estep.filter_fwd_plain(*fin)
+    plain32 = estep.filter_fwd_plain(*_f32(fin))
+    got = estep.filter_fwd(*_f32(fin))
+    errs = {}
+    for i, name in enumerate(("filter_fwd_J", "filter_fwd_h")):
+        errs[name] = (_step_rel(got[i], want[i]),
+                      _step_rel(plain32[i], want[i]))
+    errs["filter_fwd_ln"] = (_lane_rel(got[2], want[2]),
+                             _lane_rel(plain32[2], want[2]))
+    sin = _sampler_problem(fin, want, mats, eps, B)
+    xp = estep.sampler_fwd_plain(*sin)
+    x = estep.sampler_fwd(*_f32(sin))
+    torch.cuda.synchronize()
+    errs["sampler_fwd"] = (_step_rel(x, xp), _step_rel(
+        estep.sampler_fwd_plain(*_f32(sin)), xp))
+    if not all(k <= STIFF_FACTOR * p for k, p in errs.values()):
+        raise AssertionError(f"a forward kernel's error in the stiff case "
+                             f"passes {STIFF_FACTOR}x the float32 plain "
+                             f"version's: {errs}")
+    return errs
+
+
+def check_non_spd(device="cuda", seed=13):
+    """A step whose precision is not positive definite must come back
+    non-finite, in the lanes it reaches and no others: the filter with a
+    large negative node precision at one frame of one sequence, the sampler
+    with one step's Jf of one sequence made indefinite. Returns the count
+    of non-finite outputs of each."""
+    shape = dict(B=4, T=9, d=3, S=2)
+    B, d = shape["B"], shape["d"]
+    b0, f0, t0 = 1, 4, 3  # the sequence, its filter frame, its sampler step
+    init, mats, (jd, h), eps = _problem(shape, seed, device)
+    fin_spd = estep.filter_inputs(init, mats, (jd, h))
+    jd = jd.clone()
+    jd[b0, f0] = -1e4
+    fin = estep.filter_inputs(init, mats, (jd, h))
+    bad = torch.zeros(2 * B, dtype=torch.bool)
+    bad[[b0, B + b0]] = True
+    counts = {}
+    lanes_bad = lambda X: ~torch.isfinite(X).reshape(-1, X.shape[-1]).all(0)
+    J, hh, ln = estep.filter_fwd(*_f32(fin))
+    got = [lanes_bad(X).cpu() for X in (J, hh, ln[None])]
+    if not all(bool((g == bad).all()) for g in got):
+        raise AssertionError(f"filter_fwd: a non-SPD step did not poison "
+                             f"exactly its lanes: {got}")
+    counts["filter_fwd"] = int(sum((~torch.isfinite(X)).sum()
+                                   for X in (J, hh, ln)))
+    P2, P3, Jf, hf, eps_s, xT = _f32(_sampler_problem(
+        fin_spd, estep.filter_fwd_plain(*fin_spd), mats, eps, B))
+    Jf = Jf.clone()
+    Jf[t0, ::d + 1, b0] = -1e4
+    x = estep.sampler_fwd(P2, P3, Jf, hf, eps_s, xT)
+    torch.cuda.synchronize()
+    want = torch.zeros(x.shape, dtype=torch.bool)
+    want[:t0 + 1, :, b0::B] = True
+    if not bool((~torch.isfinite(x).cpu() == want).all()):
+        raise AssertionError("sampler_fwd: a non-SPD step did not poison "
+                             "exactly the samples it reaches")
+    counts["sampler_fwd"] = int((~torch.isfinite(x)).sum())
+    return counts
 
 
 def _rel_err(got, want):
@@ -661,18 +824,20 @@ def main_path(device="cuda"):
         prior, N, num_samples=S)
     gen = torch.Generator(device=device).manual_seed(1)
 
-    for counter in (estep.filter_fwd, estep.sampler_fwd):
+    counters = (estep.filter_fwd, estep.sampler_fwd)
+    twins = (estep.filter_fwd_plain, estep.sampler_fwd_plain) + \
+        FWD_PASS_PLAINS
+    for counter in counters:
         counter.launches = 0
-    for twin in (estep.filter_fwd_plain, estep.sampler_fwd_plain):
+    for twin in twins:
         twin.calls = 0
     with torch.no_grad():
         values = [objective(glob, (rec, dec), batch, gen)
                   for batch in batches]
         moments = lds.posterior_moments(glob, rec(batches[0]))
     torch.cuda.synchronize()
-    launches = {"filter_fwd": estep.filter_fwd.launches,
-                "sampler_fwd": estep.sampler_fwd.launches}
-    twin_calls = estep.filter_fwd_plain.calls + estep.sampler_fwd_plain.calls
+    launches = {c.__name__: c.launches for c in counters}
+    twin_calls = sum(t.calls for t in twins)
 
     print(f"main path: launches {launches}, twin calls {twin_calls}")
     if launches["filter_fwd"] < 4 or launches["sampler_fwd"] < 3:
@@ -747,10 +912,19 @@ PASS_WRAPPERS = (estep.filter_adj_factor, estep.filter_adj_chain,
 PASS_PLAINS = (estep.filter_adj_factor_plain, estep.filter_adj_chain_plain,
                estep.sampler_adj_factor_plain, estep.sampler_adj_chain_plain,
                estep.sampler_adj_dJc_plain)
-ALL_WRAPPERS = (WRAPPERS + PASS_WRAPPERS + RAGGED_WRAPPERS + HMM_WRAPPERS
-                + CHUNK_WRAPPERS + KFWD_WRAPPERS)
-ALL_PLAINS = (PLAINS + PASS_PLAINS + RAGGED_PLAINS + HMM_PLAINS
-              + CHUNK_PLAINS + KFWD_PLAINS)
+# the forward sampler's two passes one by one (check_sampler_fwd_passes,
+# phase 5); the model path launches both kernels through sampler_fwd's one
+# C call, one launch of each a call (LAUNCHED_BY)
+FWD_PASS_WRAPPERS = (estep.sampler_fwd_factor, estep.sampler_fwd_chain)
+FWD_PASS_PLAINS = (estep.sampler_fwd_factor_plain,
+                   estep.sampler_fwd_chain_plain)
+LAUNCHED_BY = {w.__name__: estep.sampler_fwd.__name__
+               for w in FWD_PASS_WRAPPERS}
+ALL_WRAPPERS = (WRAPPERS + PASS_WRAPPERS + FWD_PASS_WRAPPERS
+                + RAGGED_WRAPPERS
+                + HMM_WRAPPERS + CHUNK_WRAPPERS + KFWD_WRAPPERS)
+ALL_PLAINS = (PLAINS + PASS_PLAINS + FWD_PASS_PLAINS + RAGGED_PLAINS
+              + HMM_PLAINS + CHUNK_PLAINS + KFWD_PLAINS)
 TRAIN_K = 8
 
 
@@ -801,7 +975,8 @@ def train_path(device="cuda", B=64, T=100):
     torch.cuda.synchronize()
     steps = TRAIN_K + 4
     launches = {w.__name__: w.launches for w in WRAPPERS}
-    plain_calls = {p.__name__: p.calls for p in PLAINS + RAGGED_PLAINS}
+    plain_calls = {p.__name__: p.calls
+                   for p in PLAINS + FWD_PASS_PLAINS + RAGGED_PLAINS}
 
     print(f"train path ({steps} steps): launches {launches}, plain calls "
           f"{plain_calls}")
@@ -1737,6 +1912,29 @@ def timings(device="cuda"):
     t["run_inference"] = _time_ms(lambda: lds.run_inference(
         glob, glob, nodes, gen, S))
 
+    # the sampler's passes alone
+    P2, P3, Jfs, hfs, eps_f, xT = sin
+    Wc = estep.sampler_fwd_factor(P3, Jfs, hfs, eps_f)
+    passes = {
+        "sampler_fwd_factor": lambda: estep.sampler_fwd_factor(
+            P3, Jfs, hfs, eps_f),
+        "sampler_fwd_chain": lambda: estep.sampler_fwd_chain(*Wc, P2, xT)}
+    t["sampler_fwd_factor_plain"] = _time_ms(
+        lambda: estep.sampler_fwd_factor_plain(P3, Jfs, hfs, eps_f))
+    t["sampler_fwd_chain_plain"] = _time_ms(
+        lambda: estep.sampler_fwd_chain_plain(*Wc, P2, xT))
+    # the forward kernels' device time by kernel, beside their event times
+    for k, fn in (("filter_fwd", lambda: estep.filter_fwd(*fin)),
+                  ("sampler_fwd", lambda: estep.sampler_fwd(*sin)),
+                  *passes.items()):
+        if k in passes:
+            t[k] = _time_ms(fn)
+        dev = _device_ms(fn)
+        t[k + "_device"] = sum(v for n, v in dev.items() if n.startswith(k))
+        print(f"device {k}: {t[k + '_device']:.4f} ms in its kernels, "
+              f"{sum(dev.values()):.4f} ms in all: "
+              + ", ".join(f"{n} {v:.4f}" for n, v in dev.items()))
+
     # the adjoints, on float32 copies of the float64 check inputs
     filt, samp = (_f32(a) for a in adjoint_problem(shape, 0, device))
     t["filter_adj"] = _time_ms(lambda: estep.filter_adj(*filt))
@@ -1918,6 +2116,20 @@ def bound(name, B, T, d, S, NL=None):
         # in: P2, P3, Jf, hf, eps, xT; out: x
         floats = dd + tri + T1 * (tri + d) * B + T1 * d * SB + d * SB + \
             T1 * d * SB
+    elif name == "sampler_fwd_factor":
+        # one (step, sequence) a thread: chol d^3/3, L^-1 hf d^2, S solves
+        # S d^2, the inverse d^3/3 + d^3/3
+        chains = B
+        step = d ** 3 + (1 + S) * d * d
+        # in: P3, Jf, hf, eps; out: W, c
+        floats = tri + T1 * (tri + d) * B + T1 * d * SB + T1 * dd * B + \
+            T1 * d * SB
+    elif name == "sampler_fwd_chain":
+        chains = SB
+        # P2^T x and W times it, 2 d^2 each
+        step = 4 * d * d
+        # in: W (symmetric), c, P2, xT; out: x
+        floats = T1 * tri * B + T1 * d * SB + dd + d * SB + T1 * d * SB
     elif name == "sampler_adj":
         chains = SB
         # chol; b 2 d^2; four solves 4 d^2; R = L^-T P d^3; S = R L^-1 d^3;
@@ -2079,17 +2291,28 @@ def main():
         a = check_adjoints(shape)
         print(f"adjoints vs plain adjoints [{name} {shape}] (normwise rel, "
               f"max abs): {a}")
-        for k in ("filter_fwd", "sampler_fwd"):
+        for k in FWD_ERRS:
             errs[k] = max(errs.get(k, 0.0), e[k])
         for k in ("filter_adj", "sampler_adj"):
             errs[k] = max(errs.get(k, 0.0), a[k][1])
-    # the adjoints and each of their passes at every built d
+    # the forward kernels and the sampler's passes, the adjoints and each
+    # of their passes at every built d
     for d in estep.KERNEL_DIMS:
+        e = check_kernels(dict(B=5, T=9, d=d, S=3), seed=d)
+        print(f"kernels and the sampler's passes vs twins [d={d}, B=5, T=9, "
+              f"S=3] (max abs; the filter's summed ln rel): {e}")
         a = check_adjoints(dict(B=5, T=9, d=d, S=3), seed=d)
         print(f"adjoints and their passes vs plain versions [d={d}, B=5, "
               f"T=9, S=3] (normwise rel, max abs): {a}")
+        for k in FWD_ERRS:
+            errs[k] = max(errs.get(k, 0.0), e[k])
         for k in ("filter_adj", "sampler_adj"):
             errs[k] = max(errs.get(k, 0.0), a[k][1])
+    print(f"stiff case, node precisions over {list(STIFF_JD)} "
+          f"[{SHAPES['config2']}] (kernel error, float32 plain error): "
+          f"{check_stiff()}")
+    print(f"non-SPD step: non-finite outputs where it reaches and nowhere "
+          f"else: {check_non_spd()}")
     for name, shape in {**RAGGED_SHAPES, "T512": RAGGED_LONG}.items():
         e = check_bpairs(shape)
         print(f"bpairs kernels vs plain versions [{name} {shape}, lengths "
@@ -2152,7 +2375,7 @@ def main():
             c = ELEM_SHAPES["config2"]
             shape = dict(B=c["B"] * c["C"], T=-(-(c["T"] - 1) // c["C"]),
                          d=c["d"], S=1)
-        elif k in [w.__name__ for w in WRAPPERS]:
+        elif k in [w.__name__ for w in WRAPPERS + FWD_PASS_WRAPPERS]:
             shape = SHAPES["config2"]
         elif k in [w.__name__ for w in KFWD_WRAPPERS]:
             shape = KFWD_SHAPES["config2"]
@@ -2163,7 +2386,7 @@ def main():
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
             "replaces": ", ".join((KERNELS[k],) + SERVES.get(k, ())),
-            "launches": launches[k],
+            "launches": launches[LAUNCHED_BY.get(k, k)],
             "max_abs_err": errs[k], "ms": t[k], "plain_ms": t[k + "_plain"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     for name in ("config2", "longT"):

@@ -1,8 +1,10 @@
-// Pieces shared by the two redesigned adjoint kernels (filter_adj.cu,
-// sampler_adj.cu): the in-place inverse of a Cholesky factor, which their
-// parallel factor passes run on one thread's registers, and the geometry
-// of their passes. estep_common.cuh, which every other kernel includes, is
-// left as it was.
+// Pieces shared by the kernels that run as passes (filter_adj.cu,
+// sampler_adj.cu, and the sampler's in estep.cu): the in-place inverse of
+// a Cholesky factor, which their parallel factor passes run on one
+// thread's registers; the sampler's step precision Jc = Jf_t - 2 P3, its
+// factor and its inverse W, which the forward sampler's factor pass and
+// the adjoint's compute alike; and the geometry of the passes.
+// estep_common.cuh, which every other kernel includes, is left as it was.
 #pragma once
 
 #include "estep_common.cuh"
@@ -62,6 +64,39 @@ __device__ __forceinline__ void inverse_from_chol(float (&L)[D][D],
 #pragma unroll
     for (int k = i; k < D; ++k) s += L[k][i] * L[k][i];
     L[i][i] = s;
+  }
+}
+
+// The lower Cholesky factor L (rd: its reciprocal diagonal) of one
+// sequence's Jc = Jf_t - 2 P3: Jt points at Jf_t's entry of the sequence
+// ((d*d, B) from there, lane-minor; its lower triangle read), s2P3 holds
+// 2 P3.
+template <int D>
+__device__ __forceinline__ void factor_jc(const float* __restrict__ Jt,
+                                          const float* s2P3, int B,
+                                          float (&L)[D][D], float (&rd)[D]) {
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j)
+      L[i][j] = Jt[(i * D + j) * B] - s2P3[i * D + j];
+  }
+  chol_inplace<D>(L, rd);
+}
+
+// Overwrite the factor L of factor_jc with the lower triangle of W = Jc^-1
+// and write W, full, at out (the sequence's entry of (d*d, B), lane-minor).
+template <int D>
+__device__ __forceinline__ void store_inverse(float (&L)[D][D],
+                                              const float (&rd)[D],
+                                              float* __restrict__ out,
+                                              int B) {
+  inverse_from_chol<D>(L, rd);
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      out[(i * D + j) * B] = j <= i ? L[i][j] : L[j][i];
   }
 }
 

@@ -62,23 +62,9 @@ sampler_adj_factor_kernel(int B, int T1, const float* __restrict__ P3,
   if (idx >= T1 * B) return;
   const int t = idx / B;
   const int b = idx - t * B;
-  const float* Jt = Jf + (size_t)t * DD * B;
   float L[D][D], rd[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-#pragma unroll
-    for (int j = 0; j <= i; ++j)
-      L[i][j] = Jt[(i * D + j) * B + b] - s2P3[i * D + j];
-  }
-  chol_inplace<D>(L, rd);
-  inverse_from_chol<D>(L, rd);
-  float* out = W + (size_t)t * DD * B + b;
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-#pragma unroll
-    for (int j = 0; j < D; ++j)
-      out[(i * D + j) * B] = j <= i ? L[i][j] : L[j][i];
-  }
+  factor_jc<D>(Jf + (size_t)t * DD * B + b, s2P3, B, L, rd);
+  store_inverse<D>(L, rd, W + (size_t)t * DD * B + b, B);
 }
 
 // How many steps ahead the chain pass loads.

@@ -97,7 +97,9 @@ def load_library():
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
         for name, ints, ptrs in (("svae_filter_fwd_f32", 3, 11),
-                                 ("svae_sampler_fwd_f32", 4, 8),
+                                 ("svae_sampler_fwd_f32", 4, 10),
+                                 ("svae_sampler_fwd_factor_f32", 4, 7),
+                                 ("svae_sampler_fwd_chain_f32", 4, 6),
                                  ("svae_filter_adj_f32", 3, 17),
                                  ("svae_filter_adj_factor_f32", 3, 10),
                                  ("svae_filter_adj_chain_f32", 3, 9),

@@ -10,7 +10,10 @@ evidence:
   time-reversed backward filter side by side (lanes ``[0, B)`` and
   ``[B, 2B)``);
 * :func:`sampler_fwd` draws the S posterior samples backward in time from
-  the forward filter's messages;
+  the forward filter's messages; on a card it runs as two passes, one
+  kernel each: a parallel factor pass (:func:`sampler_fwd_factor`) and the
+  serial chain (:func:`sampler_fwd_chain`), each with a plain version of
+  its own;
 * :func:`filter_adj` and :func:`sampler_adj` are their adjoints, the
   backward of :class:`FilterFwd` and :class:`SamplerFwd`
   (``torch.autograd.Function``s, the counterparts of the JAX package's
@@ -148,23 +151,83 @@ def sampler_fwd(P2, P3, Jf, hf, eps, xT):
     and ``hf`` (T-1, d, B): forward-filter messages of frames 0..T-2,
     shared by the S samples of a sequence. ``eps`` (T-1, d, S*B): standard
     normal noise. ``xT`` (d, S*B): the terminal samples. Returns ``x``
-    (T-1, d, S*B), frames 0..T-2."""
+    (T-1, d, S*B), frames 0..T-2. On a card one C call runs the two passes
+    of :func:`sampler_fwd_factor` and :func:`sampler_fwd_chain`."""
     if P2.device.type == "cpu":
         return sampler_fwd_plain(P2, P3, Jf, hf, eps, xT)
-    T1, _, B = Jf.shape
+    T1, dd, B = Jf.shape
     d, SB = xT.shape
     args = (P2, P3, Jf, hf, eps, xT)
     _check_sampler_shapes("sampler_fwd", *args)
     _check_kernel_args("sampler_fwd", d, args)
+    W = torch.empty((T1, dd, B), dtype=xT.dtype, device=xT.device)
+    c = torch.empty((T1, d, SB), dtype=xT.dtype, device=xT.device)
     x = torch.empty((T1, d, SB), dtype=xT.dtype, device=xT.device)
     lib = _build.load_library()
     _launch("sampler_fwd", lib.svae_sampler_fwd_f32, xT.device, d, B,
-            SB // B, T1 + 1, *args, x)
+            SB // B, T1 + 1, *args, W, c, x)
     sampler_fwd.launches += 1
     return x
 
 
 sampler_fwd.launches = 0
+
+
+# The forward sampler's passes: x_t = c_t + W_t P2^T x_{t+1}, with W_t =
+# Jc_t^-1 and c_t = W_t hf_t + L_t^-T eps_t (L_t = chol(Jc_t), Jc_t = Jf_t -
+# 2 P3), the first carry-free, the second the serial chain.
+
+
+def sampler_fwd_factor(P3, Jf, hf, eps):
+    """Pass 1 of :func:`sampler_fwd`, parallel over (sequence, step):
+    ``W`` (T-1, d*d, B), the inverse of Jc_t = Jf_t - 2 P3 per sequence, in
+    ``Jf``'s layout (as :func:`sampler_adj_factor`'s), and ``c`` (T-1, d,
+    S*B) = W_t hf_t + L_t^-T eps_t per lane. Arguments as
+    :func:`sampler_fwd`'s ``P3``, ``Jf``, ``hf``, ``eps``."""
+    if P3.device.type == "cpu":
+        return sampler_fwd_factor_plain(P3, Jf, hf, eps)
+    T1, dd, B = Jf.shape
+    d, SB = P3.shape[0], eps.shape[-1]
+    if (T1 < 1 or P3.shape != (d, d) or dd != d * d or SB % B
+            or hf.shape != (T1, d, B) or eps.shape != (T1, d, SB)):
+        raise ValueError("sampler_fwd_factor: inconsistent shapes")
+    args = (P3, Jf, hf, eps)
+    _check_kernel_args("sampler_fwd_factor", d, args)
+    W = torch.empty((T1, dd, B), dtype=Jf.dtype, device=Jf.device)
+    c = torch.empty((T1, d, SB), dtype=Jf.dtype, device=Jf.device)
+    lib = _build.load_library()
+    _launch("sampler_fwd_factor", lib.svae_sampler_fwd_factor_f32,
+            Jf.device, d, B, SB // B, T1 + 1, *args, W, c)
+    sampler_fwd_factor.launches += 1
+    return W, c
+
+
+sampler_fwd_factor.launches = 0
+
+
+def sampler_fwd_chain(W, c, P2, xT):
+    """Pass 2 of :func:`sampler_fwd`, serial in time: per sample chain
+    x_t = c_t + W_t P2^T x_{t+1} from the terminal ``xT`` (d, S*B) and
+    :func:`sampler_fwd_factor`'s ``W``, ``c``. Returns ``x`` (T-1, d,
+    S*B)."""
+    if W.device.type == "cpu":
+        return sampler_fwd_chain_plain(W, c, P2, xT)
+    T1, dd, B = W.shape
+    d, SB = xT.shape
+    if (T1 < 1 or dd != d * d or SB % B or P2.shape != (d, d)
+            or c.shape != (T1, d, SB)):
+        raise ValueError("sampler_fwd_chain: inconsistent shapes")
+    args = (W, c, P2, xT)
+    _check_kernel_args("sampler_fwd_chain", d, args)
+    x = torch.empty((T1, d, SB), dtype=xT.dtype, device=xT.device)
+    lib = _build.load_library()
+    _launch("sampler_fwd_chain", lib.svae_sampler_fwd_chain_f32, W.device,
+            d, B, SB // B, T1 + 1, *args, x)
+    sampler_fwd_chain.launches += 1
+    return x
+
+
+sampler_fwd_chain.launches = 0
 
 
 def _filter_adj_outputs(dnode, dJ0, dh0, dpar, d, B):
@@ -453,6 +516,52 @@ def sampler_fwd_plain(P2, P3, Jf, hf, eps, xT):
 sampler_fwd_plain.calls = 0
 
 
+def _jc_chol(P3, Jf):
+    """The Cholesky factors (T-1, B, d, d) of Jc_t = Jf_t - 2 P3."""
+    T1, dd, B = Jf.shape
+    d = P3.shape[0]
+    return smallchol.chol(Jf.permute(0, 2, 1).reshape(T1, B, d, d)
+                          - 2.0 * P3)
+
+
+def _lane_minor(X):
+    """(T-1, lanes, k...) -> (T-1, prod(k), lanes), contiguous."""
+    return X.reshape(*X.shape[:2], -1).permute(0, 2, 1).contiguous()
+
+
+def sampler_fwd_factor_plain(P3, Jf, hf, eps):
+    """Plain version of :func:`sampler_fwd_factor` (same arguments, same
+    outputs), batched over sequences and steps."""
+    sampler_fwd_factor_plain.calls += 1
+    S = eps.shape[-1] // Jf.shape[-1]
+    L = _jc_chol(P3, Jf)
+    y = smallchol.solve_lower(L, hf.permute(0, 2, 1)).repeat(1, S, 1)
+    c = smallchol.solve_upper_from_lower(L.repeat(1, S, 1, 1),
+                                         y + eps.permute(0, 2, 1))
+    return _lane_minor(torch.cholesky_inverse(L)), _lane_minor(c)
+
+
+sampler_fwd_factor_plain.calls = 0
+
+
+def sampler_fwd_chain_plain(W, c, P2, xT):
+    """Plain version of :func:`sampler_fwd_chain` (same arguments, same
+    output), one step at a time over all lanes."""
+    sampler_fwd_chain_plain.calls += 1
+    T1, dd, B = W.shape
+    d, SB = xT.shape
+    Wl = W.permute(0, 2, 1).reshape(T1, B, d, d).repeat(1, SB // B, 1, 1)
+    x = xT.T
+    xs = [None] * T1
+    for t in reversed(range(T1)):
+        x = c[t].T + (Wl[t] @ (x @ P2)[..., None])[..., 0]
+        xs[t] = x.T
+    return torch.stack(xs)
+
+
+sampler_fwd_chain_plain.calls = 0
+
+
 def _vjp(fn, inputs, cotangents):
     """Gradients of ``fn(*inputs)`` against ``cotangents`` with respect to
     every input (zeros where an input is unused)."""
@@ -556,11 +665,7 @@ def sampler_adj_factor_plain(P3, Jf):
     """Plain version of :func:`sampler_adj_factor` (same arguments, same
     output)."""
     sampler_adj_factor_plain.calls += 1
-    T1, dd, B = Jf.shape
-    d = P3.shape[0]
-    Jc = Jf.permute(0, 2, 1).reshape(T1, B, d, d) - 2.0 * P3
-    W = torch.cholesky_inverse(smallchol.chol(Jc))
-    return W.reshape(T1, B, dd).permute(0, 2, 1).contiguous()
+    return _lane_minor(torch.cholesky_inverse(_jc_chol(P3, Jf)))
 
 
 sampler_adj_factor_plain.calls = 0

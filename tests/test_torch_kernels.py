@@ -91,6 +91,47 @@ def test_launch_counters_count_launches(smoke):
     assert [a - b for a, b in zip(after, before)] == [1, 1, 0, 0]
 
 
+@pytest.mark.parametrize("d", estep.KERNEL_DIMS)
+def test_sampler_fwd_passes_match_plain_at_every_built_d(smoke, d):
+    """Each pass of the forward sampler (estep.sampler_fwd_factor,
+    sampler_fwd_chain) against its own plain version."""
+    sin = smoke.sampler_problem(dict(B=5, T=9, d=d, S=3), seed=d)
+    errs = smoke.check_sampler_fwd_passes(sin)
+    assert len(errs) == len(smoke.FWD_PASS_WRAPPERS)
+    assert all(e <= smoke.TOL_ABS for e in errs.values()), errs
+
+
+def test_sampler_fwd_pass_launch_counters_count_launches(smoke):
+    sin = smoke.sampler_problem(smoke.SHAPES["small"], seed=0)
+    smoke._reset_counters()
+    smoke.check_sampler_fwd_passes(sin)
+    assert [w.launches for w in smoke.FWD_PASS_WRAPPERS] == [1, 1]
+    assert [p.calls for p in smoke.FWD_PASS_PLAINS] == [1, 1]
+    assert estep.sampler_fwd.launches == 0
+    # sampler_fwd launches both passes' kernels in one C call of its own,
+    # and counts that call alone
+    estep.sampler_fwd(*smoke._f32(sin))
+    torch.cuda.synchronize()
+    assert [w.launches for w in smoke.FWD_PASS_WRAPPERS] == [1, 1]
+    assert estep.sampler_fwd.launches == 1
+    assert estep.sampler_fwd_plain.calls == 0
+
+
+def test_forward_kernels_in_the_stiff_case(smoke):
+    """Node precisions over [1e-2, 1e3] at config-2 width: each forward
+    kernel's error against float64 at most twice the float32 plain
+    version's on the card."""
+    errs = smoke.check_stiff()
+    assert all(k <= smoke.STIFF_FACTOR * p for k, p in errs.values()), errs
+
+
+def test_non_spd_step_gives_non_finite_outputs(smoke):
+    """A non-positive pivot poisons the filter's step, its lane's ln and
+    the sampler's samples that it reaches, and nothing else."""
+    counts = smoke.check_non_spd()
+    assert all(n > 0 for n in counts.values()), counts
+
+
 @pytest.mark.parametrize("shape", ["small", "config2"])
 def test_adjoints_match_plain(smoke, shape):
     smoke.check_adjoints(smoke.SHAPES[shape], seed=0)

@@ -21,9 +21,17 @@ stationary forward kernels alone (``estep.filter_fwd`` on the E-step's
 packed inputs, ``estep.sampler_fwd`` on its forward messages and noise
 drawn from one seed), the two stationary adjoint kernels alone
 (``estep.filter_adj`` and ``estep.sampler_adj`` on the forward kernels'
-outputs and cotangents drawn from one seed) where the checkout has them
-and, where the checkout has the training loop, one train step
-(``make_train_step``).
+outputs and cotangents drawn from one seed) where the checkout has them;
+the element scan's adjoint alone (``chunked.elem_scan_adj`` at the config-2
+fold: B=64, T=100 in C=8 chunks, 512 lanes of 13 steps) and the
+bidirectional filter's (``bpairs.bidir_adj`` at a ragged B=64, T=512
+batch, at the slds_synth x-step's 32 lanes of T=80, d=4, and over one
+direction's 8 lanes of T=2048), on float32 copies of chip_smoke.py's
+float64 problems, where the checkout has them; and, where the checkout has
+the training loop, one train step (``make_train_step``), one chunked
+config-2 train step (``run_inference(parallel=8)``) and one ragged train
+step at the T=512 bucket of ``benchmarks/ragged_throughput.py``'s corpus
+(S=1).
 Prints one line per run, then for every stage and checkout the median
 and quartiles of the event times and of the issue times and, against the
 first checkout, how many of the A B / B A pairs each side was faster in
@@ -31,7 +39,10 @@ first checkout, how many of the A B / B A pairs each side was faster in
 """
 
 import argparse
+import copy
+import functools
 import importlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -87,6 +98,70 @@ def _kernel_stages(torch, estep, init, mats, nodes):
     return stages
 
 
+def _scan_bidir_adj_stages(torch, dev):
+    """The element scan's and the bidirectional filter's adjoints alone, on
+    float32 copies of the checkout's chip_smoke.py problems (seeded, the
+    same in every checkout whose problem functions agree)."""
+    import chip_smoke
+    from svae_tpu_torch.models import lds
+    from svae_tpu_torch.ops import bpairs, chunked
+    f32 = lambda xs: tuple(x.float().contiguous() for x in xs)
+    leaves = chip_smoke.elem_problem(dict(B=B, T=T, d=D, C=8), 0, dev)
+    pref = chunked.elem_scan_plain(leaves)
+    g = torch.Generator(device=dev).manual_seed(3)
+    douts = torch.randn(pref.shape, generator=g, dtype=pref.dtype,
+                        device=dev)
+    stages = {"elem_scan_adj": functools.partial(
+        chunked.elem_scan_adj, *f32((leaves, pref, douts)))}
+    for name, shape in (("T512", dict(B=B, T=512, d=D, S=1)),
+                        ("slds", dict(B=16, T=80, d=4, S=2))):
+        filt = chip_smoke.bpairs_problem(shape, 0, dev)[0]
+        stages[f"bidir_adj_{name}"] = functools.partial(bpairs.bidir_adj,
+                                                        *f32(filt))
+    # one direction's B lanes: the forward filter's, as bpairs.lds_filter
+    # runs them
+    init, mats, nodes, _ = chip_smoke._problem(dict(B=8, T=2048, d=D, S=1),
+                                               0, dev)
+    pairs, bnodes = lds._chain(mats, nodes)
+    fin = bpairs._packed(*bpairs._initial(init, bnodes),
+                         bpairs._streams(pairs, bnodes))
+    J, h, ln = bpairs.bidir_fwd_plain(*fin)
+    cot = lambda x: torch.randn(x.shape, generator=g, dtype=x.dtype,
+                                device=dev)
+    stages["bidir_adj_one_direction"] = functools.partial(
+        bpairs.bidir_adj, *f32((*fin, J, h, cot(J), cot(h), cot(ln))))
+    return stages
+
+
+def _train_stages(torch, loop, lds, parts, glob, rec, dec, batch, gen):
+    """One chunked config-2 train step and one ragged train step at the
+    T=512 bucket, each on its own copy of the models."""
+    import chip_smoke
+    prior = parts[3]
+    copies = lambda: copy.deepcopy((glob, rec, dec))
+    g1, r1, d1 = copies()
+    run = functools.partial(lds.run_inference, parallel=8)
+    opt_init, step = loop.make_train_step(run, *parts[1:], num_samples=S)
+    chunked_state = [g1, (r1, d1), opt_init(g1, (r1, d1))]
+
+    def chunked_step():
+        chunked_state[:3] = step(*chunked_state, batch, gen)[:3]
+
+    seqs = chip_smoke.ragged_corpus()
+    bucket = next(b for b in chip_smoke._ragged_epoch(
+        seqs, B, chip_smoke.RAGGED_PAD, batch.device) if b[0].shape[1] == 512)
+    g2, r2, d2 = copies()
+    ropt_init, rstep = loop.make_train_step(*parts[:3], prior, len(seqs),
+                                            num_samples=1, ragged=True)
+    ragged_state = [g2, (r2, d2), ropt_init(g2, (r2, d2))]
+
+    def ragged_step():
+        ragged_state[:3] = rstep(*ragged_state, bucket, gen)[:3]
+
+    return {"train_step_chunked": chunked_step,
+            "ragged_train_step_T512": ragged_step}
+
+
 def worker(root, calls):
     """Time every stage of the checkout at ``root``; returns the readings."""
     root = os.path.abspath(root)
@@ -136,6 +211,9 @@ def worker(root, calls):
         "objective_no_grad": value,
     }
     stages.update(_kernel_stages(torch, estep, init, mats, nodes))
+    if all(importlib.util.find_spec(f"svae_tpu_torch.ops.{m}")
+           for m in ("bpairs", "chunked")):
+        stages.update(_scan_bidir_adj_stages(torch, dev))
     readings = {k: _median_ms(fn, calls) for k, fn in stages.items()}
     # the training loop is imported and built only now, so that every
     # checkout has done the same work when its inference stages are timed
@@ -151,6 +229,9 @@ def worker(root, calls):
             state[0], state[1], state[2], _, _ = step(*state, batch, gen)
 
         readings["train_step"] = _median_ms(train_step, calls)
+        for k, fn in _train_stages(torch, loop, lds, parts, glob, rec, dec,
+                                   batch, gen).items():
+            readings[k] = _median_ms(fn, calls)
     return {"root": root, "build_s": build_s, "stages": readings}
 
 

@@ -38,9 +38,13 @@ exits non-zero:
    under the same noise;
 3r. each per-sequence-pairs ("bpairs") kernel of the ragged path, forward
    and adjoint, in float32 against its plain version in float64 on the
-   same inputs (and random cotangents), at a small odd shape and at a
-   ragged one (B=64, T=128, lengths spread over [2, 128]), and at T=512
-   (lengths over [2, 512]), all under the same tiers;
+   same inputs (and random cotangents), and each pass of ``bidir_adj``
+   (``bpairs.bidir_adj_factor``, ``bidir_adj_chain``) against its own,
+   at a small odd shape and at a ragged one (B=64, T=128, lengths spread
+   over [2, 128]), and at T=512 (lengths over [2, 512]), all under the
+   same tiers; ``bidir_adj`` and its passes also at the slds_synth
+   x-step's lanes (B=16, T=80, d=4) and over one direction's lanes of
+   B=8, T=2048;
 4c. ragged training at ``benchmarks/ragged_throughput.py``'s shape: its
    corpus of 512 sequences (lengths uniform in [64, 512], d_obs=20) made
    from a seed, d=10, S=1, MLP recognizer and decoder of width 64, one
@@ -87,14 +91,18 @@ exits non-zero:
    chain-element scan kernels and their plain versions, of one chunked
    (``parallel=8``) config-2 train step against the sequential one, and of
    ``posterior_moments(parallel=C)`` at bench_longT's shape against
-   ``parallel=False``;
+   ``parallel=False``; the passes of ``elem_scan_adj`` and ``bidir_adj``
+   alone, and each one's device time within its adjoint;
 3c. the chain-element scan kernel of the chunked parallel-in-time E-step
    (``ops/chunked.py``) in float32 against its plain version in float64
-   on the same leaves, and its adjoint against the float64 plain adjoint
-   under random cotangents, normwise per element field: at a small odd
+   on the same leaves, its adjoint against the float64 plain adjoint
+   under random cotangents and each pass of the adjoint
+   (``chunked.elem_scan_adj_factor``, ``elem_scan_adj_chain``) against
+   its own plain version, normwise per element field: at a small odd
    shape (d=3, 5 lanes of 4 steps), at the config-2 fold (B=64, T=100,
-   C=8: 512 lanes of 13 steps) and at the long-T fold (B=8, T=2048, C=64:
-   512 lanes of 32 steps);
+   C=8: 512 lanes of 13 steps), at the long-T fold (B=8, T=2048, C=64:
+   512 lanes of 32 steps) and at the config-2 chunk totals' shape (64
+   lanes of 8 steps);
 4p. the chunked E-step in training: 8 config-2 steps through ``loop.run``
    with ``run_inference(parallel=8)`` (pallas_chunked's default chunk
    count), the launch counters showing 4 launches of the scan kernel and 4
@@ -122,8 +130,10 @@ exits non-zero:
    the one-direction launches and the routes that could have served the
    shared-pair functions, both E-steps, at config-2 width and T=2048).
 
-The line before the last is a JSON object with one entry per kernel (its
-launches on the path that runs it: the training paths, phase 3h's
+The line before the last is a JSON object with one entry per kernel (the
+passes of ``sampler_fwd``, ``elem_scan_adj`` and ``bidir_adj`` too, each
+with its adjoint's launches, since one C call launches each pass once;
+its launches on the path that runs it: the training paths, phase 3h's
 stationary ``hmm_posterior`` for the stationary HMM kernels and phase 4k's
 ``kalman_fwd.lds_estep`` for the shared-pair kernels; error, times and
 bound; the Pallas kernels it replaces, and those whose function it also
@@ -180,6 +190,8 @@ KERNELS = {
     "sampler_adj": "svae_tpu/ops/pallas_estep.py:252",
     "bidir_fwd": "svae_tpu/ops/pallas_bidir.py:71",
     "bidir_adj": "svae_tpu/ops/pallas_bidir.py:121",
+    "bidir_adj_factor": "svae_tpu/ops/pallas_bidir.py:121",
+    "bidir_adj_chain": "svae_tpu/ops/pallas_bidir.py:121",
     "sampler_bp_fwd": "svae_tpu/ops/pallas_vjp.py:169",
     "sampler_bp_adj": "svae_tpu/ops/pallas_vjp.py:417",
     "hmm_fb_fwd": "svae_tpu/ops/pallas_hmm.py:51",
@@ -188,6 +200,8 @@ KERNELS = {
     "hmm_fb_stat_adj": "svae_tpu/ops/pallas_hmm.py:173",
     "elem_scan": "svae_tpu/ops/pallas_chunked.py:192",
     "elem_scan_adj": "svae_tpu/ops/pallas_chunked.py:208",
+    "elem_scan_adj_factor": "svae_tpu/ops/pallas_chunked.py:208",
+    "elem_scan_adj_chain": "svae_tpu/ops/pallas_chunked.py:208",
     "filter_shared": "svae_tpu/ops/pallas_kalman.py:76",
     "backward_shared": "svae_tpu/ops/pallas_kalman.py:242",
     "sampler_shared": "svae_tpu/ops/pallas_kalman.py:415",
@@ -203,6 +217,7 @@ SERVES = {
                   "svae_tpu/ops/pallas_vjp.py:365",
                   "svae_tpu/ops/pallas_vjp.py:470"),
 }
+SERVES["bidir_adj_factor"] = SERVES["bidir_adj_chain"] = SERVES["bidir_adj"]
 SOURCES = {
     "filter_fwd": "svae_tpu_torch/csrc/estep.cu",
     "filter_adj": "svae_tpu_torch/csrc/filter_adj.cu",
@@ -212,6 +227,8 @@ SOURCES = {
     "sampler_adj": "svae_tpu_torch/csrc/sampler_adj.cu",
     "bidir_fwd": "svae_tpu_torch/csrc/bpairs.cu",
     "bidir_adj": "svae_tpu_torch/csrc/bidir_adj.cu",
+    "bidir_adj_factor": "svae_tpu_torch/csrc/bidir_adj.cu",
+    "bidir_adj_chain": "svae_tpu_torch/csrc/bidir_adj.cu",
     "sampler_bp_fwd": "svae_tpu_torch/csrc/bpairs.cu",
     "sampler_bp_adj": "svae_tpu_torch/csrc/sampler_bp_adj.cu",
     "hmm_fb_fwd": "svae_tpu_torch/csrc/hmm_fb.cu",
@@ -220,6 +237,8 @@ SOURCES = {
     "hmm_fb_stat_adj": "svae_tpu_torch/csrc/hmm_fb_adj.cu",
     "elem_scan": "svae_tpu_torch/csrc/elem_scan.cu",
     "elem_scan_adj": "svae_tpu_torch/csrc/elem_scan_adj.cu",
+    "elem_scan_adj_factor": "svae_tpu_torch/csrc/elem_scan_adj.cu",
+    "elem_scan_adj_chain": "svae_tpu_torch/csrc/elem_scan_adj.cu",
     "filter_shared": "svae_tpu_torch/csrc/kalman_fwd.cu",
     "backward_shared": "svae_tpu_torch/csrc/kalman_fwd.cu",
     "sampler_shared": "svae_tpu_torch/csrc/kalman_fwd.cu",
@@ -228,6 +247,12 @@ SOURCES = {
 RAGGED_SHAPES = {"small": dict(B=3, T=7, d=3, S=2),
                  "ragged": dict(B=64, T=128, d=10, S=1)}
 RAGGED_LONG = dict(B=64, T=512, d=10, S=1)
+# the other shapes bidir_adj runs at: the slds_synth x-step (2B = 32 lanes,
+# T=80, d=4; svae_tpu/config.py SLDSConfig) and one direction's B lanes of
+# bench_longT's B=8, T=2048 (the backward of bpairs.lds_filter and
+# lds_backward, rows 6 and 8 of PERF.md's table)
+BIDIR_ADJ_SHAPES = {"slds": dict(B=16, T=80, d=4, S=2),
+                    "one_direction": dict(B=8, T=2048, d=10, S=1)}
 # benchmarks/ragged_throughput.py
 RAGGED_CORPUS = dict(N=512, T_min=64, T_max=512, d_obs=20)
 RAGGED_B, RAGGED_PAD = 64, 64
@@ -254,11 +279,14 @@ MEASURE_SLDS = dict(B=16, T=50, K=4, d=3, sweeps=10, S=2)
 # tier)
 TOL_PAD_REL = 1e-4
 # the chain-element scan kernels: a small odd shape, the config-2 fold
-# (B=64, T=100 in C=8 chunks: 512 lanes of 13 steps) and the long-T fold
-# (bench_longT's B=8, T=2048 in C=64 chunks: 512 lanes of 32 steps)
+# (B=64, T=100 in C=8 chunks: 512 lanes of 13 steps), the long-T fold
+# (bench_longT's B=8, T=2048 in C=64 chunks: 512 lanes of 32 steps) and
+# the config-2 chunk totals' shape (the scans of ops/chunked.py's pass 2:
+# B=64 lanes of C=8 steps)
 ELEM_SHAPES = {"small": dict(B=5, T=5, d=3, C=1),
                "config2": dict(B=64, T=100, d=10, C=8),
-               "longT": dict(B=8, T=2048, d=10, C=64)}
+               "longT": dict(B=8, T=2048, d=10, C=64),
+               "totals": dict(B=64, T=9, d=10, C=1)}
 ELEM_FIELDS = ("J11", "J12", "J22", "h1", "h2", "c")
 # the chunk count of the chunked train path: pallas_chunked's default
 CHUNKS = 8
@@ -590,20 +618,71 @@ def check_bpairs(shape, seed=0, device="cuda"):
             "bidir_ln_rel": abs(float(ln.double().sum() - lnp.sum()))
             / abs(float(lnp.sum())),
             "sampler_bp_fwd": _max_err((x,), samp[6:7])}
-    got = bpairs.bidir_adj(*_f32(filt))
-    torch.cuda.synchronize()
-    errs["bidir_adj"] = _rel_err(got, bpairs.bidir_adj_plain(*filt))
+    errs.update(check_bidir_adj(filt))
     got = bpairs.sampler_bp_adj(*_f32(samp))
     torch.cuda.synchronize()
     errs["sampler_bp_adj"] = _rel_err(got, bpairs.sampler_bp_adj_plain(*samp))
     ok = (errs["bidir_fwd"] <= TOL_ABS and errs["bidir_ln_rel"] <= TOL_LOGZ_REL
           and errs["sampler_bp_fwd"] <= TOL_ABS
-          and errs["bidir_adj"][0] <= TOL_ADJ_REL
           and errs["sampler_bp_adj"][0] <= TOL_ADJ_REL)
     if not ok:
         raise AssertionError(f"a bpairs kernel disagrees with its plain "
                              f"version at {shape}: {errs}")
     return errs
+
+
+def check_bidir_adj(filt):
+    """``bidir_adj`` (float32 kernels) against its plain adjoint (float64)
+    on ``filt`` (``bidir_adj``'s float64 arguments), then each of its
+    passes against its own plain version, each pass fed the plain output
+    of the pass before it; raises past TOL_ADJ_REL. Returns ``{name:
+    (normwise rel, max abs)}``."""
+    errs = {}
+    got = bpairs.bidir_adj(*_f32(filt))
+    torch.cuda.synchronize()
+    errs["bidir_adj"] = _rel_err(got, bpairs.bidir_adj_plain(*filt))
+    fac = bpairs.bidir_adj_factor_plain(*filt[:10])
+    got = bpairs.bidir_adj_factor(*_f32(filt[:10]))
+    torch.cuda.synchronize()
+    errs["bidir_adj_factor"] = _rel_err((got,), (fac,))
+    got = bpairs.bidir_adj_chain(*_f32((fac, *filt[10:])))
+    torch.cuda.synchronize()
+    errs["bidir_adj_chain"] = _rel_err(
+        got, bpairs.bidir_adj_chain_plain(fac, *filt[10:]))
+    if not all(rel <= TOL_ADJ_REL for rel, _ in errs.values()):
+        raise AssertionError(f"bidir_adj or a pass of it disagrees with its "
+                             f"plain version: {errs}")
+    return errs
+
+
+def one_direction_problem(shape, seed=0, device="cuda"):
+    """float64 arguments of ``bidir_adj`` over one direction's B lanes (the
+    forward filter's, as ``bpairs.lds_filter`` runs it) of a batch of
+    full-length chains at ``shape``: the packed inputs, the twin's outputs
+    J, h and random cotangents of J, h, ln."""
+    init, mats, nodes, _ = _problem(shape, seed, device)
+    pairs, bnodes = lds._chain(mats, nodes)
+    fin = bpairs._packed(*bpairs._initial(init, bnodes),
+                         bpairs._streams(pairs, bnodes))
+    J, h, ln = bpairs.bidir_fwd_plain(*fin)
+    g = torch.Generator(device=device).manual_seed(seed + 1000)
+    cot = lambda x: torch.randn(x.shape, generator=g, dtype=x.dtype,
+                                device=device)
+    return (*fin, J, h, cot(J), cot(h), cot(ln))
+
+
+def check_bidir_adj_shapes(seed=0, device="cuda"):
+    """``bidir_adj`` and its passes (check_bidir_adj) at BIDIR_ADJ_SHAPES:
+    both directions' lanes of a ragged slds_synth-shaped batch and one
+    direction's lanes at bench_longT's length. Returns ``{shape: errs}``."""
+    out = {}
+    for name, shape in BIDIR_ADJ_SHAPES.items():
+        if name == "one_direction":
+            filt = one_direction_problem(shape, seed, device)
+        else:
+            filt = bpairs_problem(shape, seed, device)[0]
+        out[name] = check_bidir_adj(filt)
+    return out
 
 
 def hmm_problem(shape, seed=0, device="cuda", case="stationary"):
@@ -918,13 +997,29 @@ PASS_PLAINS = (estep.filter_adj_factor_plain, estep.filter_adj_chain_plain,
 FWD_PASS_WRAPPERS = (estep.sampler_fwd_factor, estep.sampler_fwd_chain)
 FWD_PASS_PLAINS = (estep.sampler_fwd_factor_plain,
                    estep.sampler_fwd_chain_plain)
-LAUNCHED_BY = {w.__name__: estep.sampler_fwd.__name__
-               for w in FWD_PASS_WRAPPERS}
+# the passes of the element scan's and the bidirectional filter's
+# adjoints one by one (check_elem_scan, check_bidir_adj, phase 5); the model
+# paths launch both kernels of each through its adjoint's one C call
+CHUNK_PASS_WRAPPERS = (chunked.elem_scan_adj_factor,
+                       chunked.elem_scan_adj_chain)
+CHUNK_PASS_PLAINS = (chunked.elem_scan_adj_factor_plain,
+                     chunked.elem_scan_adj_chain_plain)
+RAGGED_PASS_WRAPPERS = (bpairs.bidir_adj_factor, bpairs.bidir_adj_chain)
+RAGGED_PASS_PLAINS = (bpairs.bidir_adj_factor_plain,
+                      bpairs.bidir_adj_chain_plain)
+LAUNCHED_BY = {**{w.__name__: estep.sampler_fwd.__name__
+                  for w in FWD_PASS_WRAPPERS},
+               **{w.__name__: chunked.elem_scan_adj.__name__
+                  for w in CHUNK_PASS_WRAPPERS},
+               **{w.__name__: bpairs.bidir_adj.__name__
+                  for w in RAGGED_PASS_WRAPPERS}}
 ALL_WRAPPERS = (WRAPPERS + PASS_WRAPPERS + FWD_PASS_WRAPPERS
-                + RAGGED_WRAPPERS
-                + HMM_WRAPPERS + CHUNK_WRAPPERS + KFWD_WRAPPERS)
+                + RAGGED_WRAPPERS + RAGGED_PASS_WRAPPERS
+                + HMM_WRAPPERS + CHUNK_WRAPPERS + CHUNK_PASS_WRAPPERS
+                + KFWD_WRAPPERS)
 ALL_PLAINS = (PLAINS + PASS_PLAINS + FWD_PASS_PLAINS + RAGGED_PLAINS
-              + HMM_PLAINS + CHUNK_PLAINS + KFWD_PLAINS)
+              + RAGGED_PASS_PLAINS + HMM_PLAINS + CHUNK_PLAINS
+              + CHUNK_PASS_PLAINS + KFWD_PLAINS)
 TRAIN_K = 8
 
 
@@ -1323,11 +1418,14 @@ def _field_rel(got, want, d):
 
 def check_elem_scan(shape, seed=0, device="cuda"):
     """Phase 3c: the scan kernel (float32) against its plain version
-    (float64) on the same leaves, and the adjoint kernel against the plain
-    adjoint on the same leaves, prefix and random cotangents, at
-    ``shape``; raises unless every element field is within TOL_LOGZ_REL
-    (the scan) and TOL_ADJ_REL (the adjoint), normwise. Returns ``{kernel:
-    (worst field's normwise rel, max abs)}`` and the fields' errors."""
+    (float64) on the same leaves, the adjoint kernels against the plain
+    adjoint on the same leaves, prefix and random cotangents, and each
+    pass of the adjoint against its own plain version (fed the plain
+    output of the pass before it), at ``shape``; raises unless every
+    element field is within TOL_LOGZ_REL (the scan) and TOL_ADJ_REL (the
+    adjoint and its passes), normwise. Returns ``{kernel: (worst field's
+    normwise rel, max abs)}`` (the factor pass: over all of its output)
+    and the fields' errors."""
     d = shape["d"]
     leaves = elem_problem(shape, seed, device)
     got = chunked.elem_scan(leaves.float())
@@ -1338,17 +1436,31 @@ def check_elem_scan(shape, seed=0, device="cuda"):
                         device=device)
     dgot = chunked.elem_scan_adj(*_f32((leaves, want, douts)))
     dwant = chunked.elem_scan_adj_plain(leaves, want, douts)
+    # the adjoint's passes, each fed the plain output of the one before
+    fac = chunked.elem_scan_adj_factor_plain(leaves, want)
+    fgot = chunked.elem_scan_adj_factor(*_f32((leaves, want)))
+    cwant = chunked.elem_scan_adj_chain_plain(fac, douts)
+    cgot = chunked.elem_scan_adj_chain(*_f32((fac, douts)))
     torch.cuda.synchronize()
     fwd, adj = _field_rel(got, want, d), _field_rel(dgot, dwant, d)
+    chain = _field_rel(cgot, cwant, d)
     errs = {"elem_scan": (max(fwd.values()), _max_err((got,), (want,))),
             "elem_scan_adj": (max(adj.values()),
                               _max_err((dgot,), (dwant,))),
+            "elem_scan_adj_factor": _rel_err((fgot,), (fac,)),
+            "elem_scan_adj_chain": (max(chain.values()),
+                                    _max_err((cgot,), (cwant,))),
             "fields": {k: (fwd[k], adj[k]) for k in ELEM_FIELDS}}
     if (errs["elem_scan"][0] > TOL_LOGZ_REL
-            or errs["elem_scan_adj"][0] > TOL_ADJ_REL):
+            or any(errs[k][0] > TOL_ADJ_REL for k in ELEM_ADJ_ERRS)):
         raise AssertionError(f"an element-scan kernel disagrees with its "
                              f"plain version at {shape}: {errs}")
     return errs
+
+
+# the adjoint's entries in the errors of check_elem_scan
+ELEM_ADJ_ERRS = ("elem_scan_adj", "elem_scan_adj_factor",
+                 "elem_scan_adj_chain")
 
 
 def chunked_train_path(device="cuda", B=64, T=100, steps=TRAIN_K):
@@ -1815,29 +1927,65 @@ def slds_timings(device="cuda", cfg=SLDS_CONFIG, epochs=2):
     return t
 
 
+def _adjoint_pass_times(t, tag, name, adjoint, passes, plains=None):
+    """Into ``t``: the event time of the adjoint ``name`` (a no-argument
+    call) and its device time in its kernels (under torch.profiler); for
+    each of its ``passes`` ({pass name: call}) the event time of the pass
+    alone and its kernel's device time within the adjoint; for each of
+    ``plains`` ({pass name: call of its plain version}) the plain
+    version's event time. Keys end in ``tag``."""
+    t[name + tag] = _time_ms(adjoint)
+    dev = _device_ms(adjoint)
+    t[name + "_device" + tag] = sum(v for n, v in dev.items()
+                                    if n.startswith(name))
+    for k, fn in passes.items():
+        t[k + tag] = _time_ms(fn)
+        t[k + "_device" + tag] = dev.get(k + "_kernel", 0.0)
+    for k, fn in (plains or {}).items():
+        t[k + "_plain" + tag] = _time_ms(fn, runs=10)
+    print(f"device {name}{tag}: {t[name + '_device' + tag]:.4f} ms in its "
+          f"kernels, {sum(dev.values()):.4f} ms in all: "
+          + ", ".join(f"{n} {v:.4f}" for n, v in dev.items()))
+
+
 def chunked_timings(device="cuda", cfg=LONG_T):
     """Phase 5, chunked path: the element-scan kernels at the config-2 and
-    long-T folds and their plain versions at the config-2 fold; one
-    chunked (``parallel=CHUNKS``) config-2 train step against the
-    sequential one (A B B A, the median of each pair of runs); and
-    ``posterior_moments`` at bench_longT's shape for each C against
-    ``parallel=False`` (CUDA events)."""
+    long-T folds and at the config-2 chunk totals' shape, the adjoint's
+    passes alone and the device time of each within the adjoint, and the
+    plain versions at the config-2 fold; one chunked
+    (``parallel=CHUNKS``) config-2 train step against the sequential one
+    (A B B A, the median of each pair of runs); and ``posterior_moments``
+    at bench_longT's shape for each C against ``parallel=False`` (CUDA
+    events)."""
     t = {}
-    for tag, name in (("", "config2"), ("_longT", "longT")):
+    for tag, name in (("", "config2"), ("_longT", "longT"),
+                      ("_totals", "totals")):
         leaves = elem_problem(ELEM_SHAPES[name], 0, device)
         pref = chunked.elem_scan_plain(leaves)
         g = torch.Generator(device=device).manual_seed(3)
         douts = torch.randn(pref.shape, generator=g, dtype=pref.dtype,
                             device=device)
         args = _f32((leaves, pref, douts))
+        fac = chunked.elem_scan_adj_factor(*args[:2])
         t["elem_scan" + tag] = _time_ms(lambda: chunked.elem_scan(args[0]))
-        t["elem_scan_adj" + tag] = _time_ms(
-            lambda: chunked.elem_scan_adj(*args))
+        passes = {"elem_scan_adj_factor": lambda: chunked.elem_scan_adj_factor(
+                      *args[:2]),
+                  "elem_scan_adj_chain": lambda: chunked.elem_scan_adj_chain(
+                      fac, args[2])}
+        plains = None
         if not tag:
             t["elem_scan_plain"] = _time_ms(
                 lambda: chunked.elem_scan_plain(args[0]), runs=10)
             t["elem_scan_adj_plain"] = _time_ms(
                 lambda: chunked.elem_scan_adj_plain(*args), runs=10)
+            plains = {
+                "elem_scan_adj_factor":
+                    lambda: chunked.elem_scan_adj_factor_plain(*args[:2]),
+                "elem_scan_adj_chain":
+                    lambda: chunked.elem_scan_adj_chain_plain(fac, args[2])}
+        _adjoint_pass_times(t, tag, "elem_scan_adj",
+                            lambda: chunked.elem_scan_adj(*args), passes,
+                            plains)
 
     B = SHAPES["config2"]["B"]
     data = torch.from_numpy(make_dot_data(
@@ -1999,7 +2147,9 @@ def timings(device="cuda"):
 
 def ragged_timings(device="cuda", seqs=None, B=RAGGED_B, pad=RAGGED_PAD):
     """Phase 5, ragged path: the bpairs kernels at B=64, T=128 and at
-    T=512, their plain versions at T=128, one ragged train step per length
+    T=512, their plain versions at T=128, ``bidir_adj``'s passes alone and
+    the device time of each within the adjoint (also at
+    BIDIR_ADJ_SHAPES), one ragged train step per length
     bucket (CUDA events), and the wall time of a bucketed epoch against
     the same corpus padded to T_max (host clock around each epoch, which
     ends in a sync; one untimed epoch of each, then three of each in
@@ -2009,7 +2159,18 @@ def ragged_timings(device="cuda", seqs=None, B=RAGGED_B, pad=RAGGED_PAD):
         filt, samp, _ = bpairs_problem(shape, 0, device)
         filt, samp = _f32(filt), _f32(samp)
         t["bidir_fwd" + tag] = _time_ms(lambda: bpairs.bidir_fwd(*filt[:8]))
-        t["bidir_adj" + tag] = _time_ms(lambda: bpairs.bidir_adj(*filt))
+        fac = bpairs.bidir_adj_factor(*filt[:10])
+        passes = {"bidir_adj_factor": lambda: bpairs.bidir_adj_factor(
+                      *filt[:10]),
+                  "bidir_adj_chain": lambda: bpairs.bidir_adj_chain(
+                      fac, *filt[10:])}
+        plains = None if tag else {
+            "bidir_adj_factor": lambda: bpairs.bidir_adj_factor_plain(
+                *filt[:10]),
+            "bidir_adj_chain": lambda: bpairs.bidir_adj_chain_plain(
+                fac, *filt[10:])}
+        _adjoint_pass_times(t, tag, "bidir_adj",
+                            lambda: bpairs.bidir_adj(*filt), passes, plains)
         t["sampler_bp_fwd" + tag] = _time_ms(
             lambda: bpairs.sampler_bp_fwd(*samp[:6]))
         t["sampler_bp_adj" + tag] = _time_ms(
@@ -2023,6 +2184,17 @@ def ragged_timings(device="cuda", seqs=None, B=RAGGED_B, pad=RAGGED_PAD):
                 lambda: bpairs.sampler_bp_fwd_plain(*samp[:6]), runs=10)
             t["sampler_bp_adj_plain"] = _time_ms(
                 lambda: bpairs.sampler_bp_adj_plain(*samp), runs=10)
+    # bidir_adj at its other shapes
+    for name, shape in BIDIR_ADJ_SHAPES.items():
+        filt = _f32(one_direction_problem(shape, 0, device)
+                    if name == "one_direction" else
+                    bpairs_problem(shape, 0, device)[0])
+        fac = bpairs.bidir_adj_factor(*filt[:10])
+        _adjoint_pass_times(
+            t, "_" + name, "bidir_adj", lambda: bpairs.bidir_adj(*filt),
+            {"bidir_adj_factor": lambda: bpairs.bidir_adj_factor(*filt[:10]),
+             "bidir_adj_chain": lambda: bpairs.bidir_adj_chain(
+                 fac, *filt[10:])})
 
     seqs = ragged_corpus() if seqs is None else seqs
     prior, glob, rec, dec = _config2_models(device)
@@ -2140,6 +2312,23 @@ def bound(name, B, T, d, S, NL=None):
         # samples), dxT
         floats = (dd + tri + 2 * dd + T1 * (tri + d) * B
                   + T1 * (dd + d) * B + (2 * T1 - 1) * d * SB + 2 * d * SB)
+    elif name == "bidir_adj_factor":
+        # one (step, lane) a thread: chol d^3/3, W = M^-1 2 d^3/3,
+        # K = W D^T 2 d^3, w 2 d^2
+        chains = NL
+        step = 3 * d ** 3 + 2 * d * d
+        # in: J0, h0, A, D, f, the forward's J, h as the pre-step messages
+        # of steps 1..T-2; out: fac = [W, K, w]
+        floats = ((tri + d) * NL + T1 * (tri + dd + d) * NL
+                  + (T1 - 1) * (tri + d) * NL + T1 * (2 * dd + d) * NL)
+    elif name == "bidir_adj_chain":
+        # P = K Gs 2 d^3, a = K g 2 d^2, P K^T 2 d^3, the outer products
+        # and sums of M-bar and h-bar 8 d^2, dD 2 d^2
+        chains = NL
+        step = 4 * d ** 3 + 12 * d * d
+        # in: fac, dJ, dh, dln; out: dA, dC, dD, dE, dF, dJ0, dh0
+        floats = (T1 * (2 * dd + d) * NL + T1 * (dd + d) * NL + NL
+                  + T1 * (3 * dd + 2 * d) * NL + (dd + d) * NL)
     elif name == "bidir_fwd":
         chains = NL
         step = d ** 3 / 3 + d ** 3 + d * d * (d + 1) + 3 * d * d
@@ -2203,9 +2392,23 @@ def bound(name, B, T, d, S, NL=None):
         # floats and an output or a cotangent all R = 3 d^2 + 2d + 1.
         chains, R = NL // 2, 3 * dd + 2 * d + 1
         Rs = 2 * tri + dd + 2 * d + 1
+        F = 3 * dd + d
         if name == "elem_scan":
             step = 31 * d ** 3 / 3 + 12 * d * d + 5 * d
             floats = T * (Rs + R) * chains  # in: leaves; out: the prefixes
+        elif name == "elem_scan_adj_factor":
+            # one (combine, lane) a thread: chol d^3/3, W = M^-1 2 d^3/3,
+            # X and Y 4 d^3, v 2 d^2
+            step = 5 * d ** 3 + 2 * d * d
+            # in: J11 (lower), J12, h1 of leaves 1..L-1 and J22 (lower),
+            # J12, h2 of the prefixes 0..L-2; out: fac = [X, Y, W, v]
+            floats = (T - 1) * (2 * (tri + dd + d) + F) * chains
+        elif name == "elem_scan_adj_chain":
+            # G11 X^T, G12 Y^T, G22 Y^T, X G12, Y G22, X Q1 and Y Q2 14 d^3;
+            # X g1 + Y g2 4 d^2; the outer products and sums ~20 d^2
+            step = 14 * d ** 3 + 24 * d * d
+            # in: fac, the cotangents; out: dleaves
+            floats = ((T - 1) * F + 2 * T * R) * chains
         else:
             step = 76 * d ** 3 / 3 + 30 * d * d + 4 * d
             # in: leaves 1..L-1, the prefixes 0..L-2 (step 0 passes its
@@ -2320,8 +2523,14 @@ def main():
               f"rel, max abs): {e}")
         for k in ("bidir_fwd", "sampler_bp_fwd"):
             errs[k] = max(errs.get(k, 0.0), e[k])
-        for k in ("bidir_adj", "sampler_bp_adj"):
+        for k in ("bidir_adj", "bidir_adj_factor", "bidir_adj_chain",
+                  "sampler_bp_adj"):
             errs[k] = max(errs.get(k, 0.0), e[k][1])
+    for name, e in check_bidir_adj_shapes().items():
+        print(f"bidir_adj and its passes vs plain versions [{name} "
+              f"{BIDIR_ADJ_SHAPES[name]}] (normwise rel, max abs): {e}")
+        for k, (_, err) in e.items():
+            errs[k] = max(errs.get(k, 0.0), err)
     for name, shape in HMM_SHAPES.items():
         for case in (("stationary", "ragged", "forced") if name == "slds"
                      else ("stationary",)):
@@ -2337,7 +2546,7 @@ def main():
         print(f"element-scan kernels vs plain versions [{name} {shape}] "
               f"(worst field's normwise rel, max abs; per field scan, "
               f"adjoint): {e}")
-        for k in ("elem_scan", "elem_scan_adj"):
+        for k in ("elem_scan",) + ELEM_ADJ_ERRS:
             errs[k] = max(errs.get(k, 0.0), e[k][1])
     for name, shape in KFWD_SHAPES.items():
         e = check_kalman_fwd(shape)

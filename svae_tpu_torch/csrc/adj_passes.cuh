@@ -1,9 +1,12 @@
 // Pieces shared by the kernels that run as passes (filter_adj.cu,
-// sampler_adj.cu, and the sampler's in estep.cu): the in-place inverse of
-// a Cholesky factor, which their parallel factor passes run on one
-// thread's registers; the sampler's step precision Jc = Jf_t - 2 P3, its
-// factor and its inverse W, which the forward sampler's factor pass and
-// the adjoint's compute alike; and the geometry of the passes.
+// bidir_adj.cu, sampler_adj.cu, elem_scan_adj.cu, and the sampler's in
+// estep.cu): the in-place inverse of a Cholesky factor, which their
+// parallel factor passes run on one thread's registers; the sampler's step
+// precision Jc = Jf_t - 2 P3, its factor and its inverse W, which the
+// forward sampler's factor pass and the adjoint's compute alike; the
+// information filter adjoint's factor row [W | K | w] and its chain step,
+// which the stationary (filter_adj.cu) and the per-sequence-pairs
+// (bidir_adj.cu) adjoints share; and the geometry of the passes.
 // estep_common.cuh, which every other kernel includes, is left as it was.
 #pragma once
 
@@ -98,6 +101,98 @@ __device__ __forceinline__ void store_inverse(float (&L)[D][D],
     for (int j = 0; j < D; ++j)
       out[(i * D + j) * B] = j <= i ? L[i][j] : L[j][i];
   }
+}
+
+// The information filter adjoint's factor row of one (step, lane) at out
+// ([W | K | w], 2 d^2 + d floats NL apart): from the lower triangle of
+// W = M^-1 in L (inverse_from_chol's), the step's vector v (w = W v) and
+// its coupling block, Dat(j, k) = D[j][k] (K = W D^T).
+template <int D, class DAt>
+__device__ __forceinline__ void store_filter_factor(const float (&L)[D][D],
+                                                    const float (&v)[D],
+                                                    DAt Dat,
+                                                    float* __restrict__ out,
+                                                    int NL) {
+  constexpr int DD = D * D;
+  auto W = [&](int i, int j) { return j <= i ? L[i][j] : L[j][i]; };
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      out[(i * D + j) * NL] = W(i, j);
+      s += W(i, j) * v[j];
+    }
+    out[(2 * DD + i) * NL] = s;
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < D; ++k) s += W(i, k) * Dat(j, k);
+      out[(DD + i * D + j) * NL] = s;
+    }
+  }
+}
+
+// The shared memory of the information filter adjoint's chain pass (one
+// chain per block of d*d threads, thread (i, j) owning entry (i, j)): K,
+// G, Gs = G + G^T and P = K Gs with rows padded to d+1 floats, so that a
+// thread's row or column read is free of bank conflicts and the rest are
+// broadcasts; g and a = K g.
+template <int D>
+struct FilterChainShared {
+  static constexpr int SP = D + 1;
+  float K[D * SP], G[D * SP], Gs[D * SP], P[D * SP], g[D], a[D];
+};
+
+// A chain step's first stage, thread (i, j): K_ij, G_ij and g_i into
+// shared memory. The caller then issues its loads and a block barrier.
+template <int D>
+__device__ __forceinline__ void filter_chain_stage(FilterChainShared<D>& s,
+                                                   int i, int j, float K,
+                                                   float G, float g) {
+  constexpr int SP = FilterChainShared<D>::SP;
+  s.K[i * SP + j] = K;
+  s.G[i * SP + j] = G;
+  if (j == 0) s.g[i] = g;
+}
+
+// The rest of the step after the caller's barrier, products only, with
+// two block barriers: Gs = G + G^T, P = K Gs, a = K g, then entry (i, j)
+// of M-bar = 1/2 P K^T - 1/2 (a w^T + w a^T) - 1/2 lam (w w^T + W) into
+// Mc and h-bar_i = lam w_i + a_i into hc. s.P stays readable until the
+// caller's closing barrier (the cotangent of D is g w^T - P^T).
+template <int D>
+__device__ __forceinline__ void filter_chain_products(
+    FilterChainShared<D>& s, int i, int j, float G, float Wij, float wi,
+    float wj, float lam, float& Mc, float& hc) {
+  constexpr int SP = FilterChainShared<D>::SP;
+  s.Gs[i * SP + j] = G + s.G[j * SP + i];
+  __syncthreads();
+
+  // P = K Gs; a = K g (one thread a row)
+  float P = 0.f;
+#pragma unroll
+  for (int k = 0; k < D; ++k) P += s.K[i * SP + k] * s.Gs[k * SP + j];
+  s.P[i * SP + j] = P;
+  if (j == 0) {
+    float a = 0.f;
+#pragma unroll
+    for (int k = 0; k < D; ++k) a += s.K[i * SP + k] * s.g[k];
+    s.a[i] = a;
+  }
+  __syncthreads();
+
+  float m = 0.f;
+#pragma unroll
+  for (int k = 0; k < D; ++k) m += s.P[i * SP + k] * s.K[j * SP + k];
+  const float ai = s.a[i];
+  Mc = 0.5f * m - 0.5f * (ai * wj + wi * s.a[j]) -
+       0.5f * lam * (wi * wj + Wij);
+  hc = lam * wi + ai;
 }
 
 }  // namespace

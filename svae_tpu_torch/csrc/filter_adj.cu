@@ -41,6 +41,10 @@
 //    products per thread were not what set the step's time: the same
 //    design at d threads a chain took longer a step.)
 //
+// The factor row and the chain step live in adj_passes.cuh
+// (store_filter_factor, filter_chain_stage, filter_chain_products), shared
+// with bidir_adj.cu, whose adjoint has the same algebra on per-lane streams.
+//
 // Node cotangents are written per direction in frame order, (2, 2, T, d,
 // B) (kind, direction), each entry by one lane once, and the wrapper adds
 // the two directions; dA, dC, dD are written per lane as (3, d*d, 2B), and
@@ -107,30 +111,10 @@ filter_adj_factor_kernel(int B, int T, const float* __restrict__ J0,
   }
   chol_inplace<D>(L, rd);
   inverse_from_chol<D>(L, rd);  // L now holds the lower triangle of W
-  auto W = [&](int i, int j) { return j <= i ? L[i][j] : L[j][i]; };
-
   // fac (T-1, R, 2B): lane-minor, so that the warp's stores coalesce
-  float* out = fac + (size_t)t * R * NL + lane;
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      out[(i * D + j) * NL] = W(i, j);
-      s += W(i, j) * v[j];
-    }
-    out[(2 * DD + i) * NL] = s;
-  }
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k < D; ++k) s += W(i, k) * dm[j * D + k];
-      out[(DD + i * D + j) * NL] = s;
-    }
-  }
+  store_filter_factor<D>(
+      L, v, [&](int j, int k) { return dm[j * D + k]; },
+      fac + (size_t)t * R * NL + lane, NL);
 }
 
 // How many steps ahead the chain pass loads.
@@ -153,10 +137,9 @@ filter_adj_chain_kernel(int B, int T, const float* __restrict__ fac,
                         float* __restrict__ dh0, float* __restrict__ dpar) {
   constexpr int DD = D * D;
   constexpr int R = FacRow<D>::value;
-  constexpr int SP = D + 1;  // padded row stride of the shared matrices
+  constexpr int SP = FilterChainShared<D>::SP;
   constexpr int Q = kFilterRing;
-  __shared__ float sK[D * SP], sG[D * SP], sGs[D * SP], sP[D * SP], sg[D],
-      sa[D];
+  __shared__ FilterChainShared<D> sm;
   const int lane = blockIdx.x;
   const int i = threadIdx.x / D;
   const int j = threadIdx.x - i * D;
@@ -200,36 +183,10 @@ filter_adj_chain_kernel(int B, int T, const float* __restrict__ fac,
       const float Wij = nW[u], wi = nwi[u], wj = nwj[u];
       const float G = Mc + ndJ[u];
       const float g = hc + ndh[u];
-      sK[i * SP + j] = nK[u];
-      sG[i * SP + j] = G;
-      if (j == 0) sg[i] = g;
+      filter_chain_stage<D>(sm, i, j, nK[u], G, g);
       load(t - Q, u);
       __syncthreads();
-
-      sGs[i * SP + j] = G + sG[j * SP + i];  // Gs = G + G^T
-      __syncthreads();
-
-      // P = K Gs; a = K g (one thread a row)
-      float P = 0.f;
-#pragma unroll
-      for (int k = 0; k < D; ++k) P += sK[i * SP + k] * sGs[k * SP + j];
-      sP[i * SP + j] = P;
-      if (j == 0) {
-        float a = 0.f;
-#pragma unroll
-        for (int k = 0; k < D; ++k) a += sK[i * SP + k] * sg[k];
-        sa[i] = a;
-      }
-      __syncthreads();
-
-      // M-bar = 1/2 P K^T - 1/2 (a w^T + w a^T) - 1/2 lam (w w^T + W)
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k < D; ++k) s += sP[i * SP + k] * sK[j * SP + k];
-      const float ai = sa[i];
-      Mc = 0.5f * s - 0.5f * (ai * wj + wi * sa[j]) -
-           0.5f * lam * (wi * wj + Wij);
-      hc = lam * wi + ai;
+      filter_chain_products<D>(sm, i, j, G, Wij, wi, wj, lam, Mc, hc);
       // node cotangents: evidence enters C forward and A backward
       if (i == j) {
         const int frame = r == 0 ? t + 1 : T - 1 - t;
@@ -239,7 +196,7 @@ filter_adj_chain_kernel(int B, int T, const float* __restrict__ fac,
       // the parameter sums: dA += M-bar, dC += G, dD += g w^T - P^T
       aA += Mc;
       aC += G;
-      aD += g * wj - sP[j * SP + i];
+      aD += g * wj - sm.P[j * SP + i];
       __syncthreads();
     }
   }

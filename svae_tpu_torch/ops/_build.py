@@ -109,7 +109,9 @@ def load_library():
                                  ("svae_sampler_adj_dJc_f32", 4, 10),
                                  ("svae_bidir_fwd_f32", 3, 12),
                                  ("svae_sampler_bp_fwd_f32", 4, 8),
-                                 ("svae_bidir_adj_f32", 3, 18),
+                                 ("svae_bidir_adj_f32", 3, 19),
+                                 ("svae_bidir_adj_factor_f32", 3, 9),
+                                 ("svae_bidir_adj_chain_f32", 3, 12),
                                  ("svae_sampler_bp_adj_f32", 4, 13),
                                  ("svae_hmm_fb_fwd_f32", 3, 5),
                                  ("svae_hmm_fb_stat_fwd_f32", 3, 6),
@@ -117,6 +119,8 @@ def load_library():
                                  ("svae_hmm_fb_stat_adj_f32", 3, 12),
                                  ("svae_elem_scan_f32", 3, 3),
                                  ("svae_elem_scan_adj_f32", 3, 6),
+                                 ("svae_elem_scan_adj_factor_f32", 3, 4),
+                                 ("svae_elem_scan_adj_chain_f32", 3, 4),
                                  ("svae_filter_shared_f32", 3, 12),
                                  ("svae_backward_shared_f32", 3, 8),
                                  ("svae_sampler_shared_f32", 4, 8)):

@@ -22,7 +22,11 @@ pairs stream per step and per sequence instead of sitting still as in
   forward filter's messages, on lane ``s*B + b``.
 
 :func:`bidir_adj` and :func:`sampler_bp_adj` are their adjoints, the
-backward of :class:`BidirFwd` and :class:`SamplerBp`. The lanes are
+backward of :class:`BidirFwd` and :class:`SamplerBp`; on a card
+:func:`bidir_adj` runs as two kernels from one C call, a pass over every
+(step, lane) for the step's inverse (:func:`bidir_adj_factor`) and the
+serial chain of the carried cotangents (:func:`bidir_adj_chain`), each
+with a plain version of its own. The lanes are
 independent chains, so :func:`lds_filter` and :func:`lds_backward` (the
 counterparts of pallas_vjp's) run one direction's B lanes alone. Each of
 the four is a CUDA kernel (``csrc/bpairs.cu``, ``csrc/bidir_adj.cu``,
@@ -34,7 +38,8 @@ are ``torch.autograd``'s vector-Jacobian products of the twins.
 
 Streams keep the JAX package's packed layout with the lane innermost
 ((T-1, d*d, lanes) and (T-1, d, lanes)), without its 128-lane padding: on
-the card a lane is a thread. The packing, the smoothed-moment assembly
+the card a lane is a thread (or a block, in ``bidir_adj``'s chain). The
+packing, the smoothed-moment assembly
 (estep.smoother_assembly, shared with the stationary E-step) and the
 terminal sample are batched torch ops, differentiable by autograd.
 """
@@ -43,7 +48,8 @@ import torch
 
 from svae_tpu_torch.ops import _build
 from svae_tpu_torch.ops.estep import (LOG2PI, _check_kernel_args, _forward,
-                                      _launch, _vjp, smoother_assembly)
+                                      _launch, _vjp, filter_adj_chain_step,
+                                      smoother_assembly)
 from svae_tpu_torch.utils import smallchol
 from svae_tpu_torch.utils.psd import mvn_logZ_info, symmetrize
 
@@ -114,7 +120,9 @@ bidir_fwd.launches = 0
 def bidir_adj(J0, h0, A, C, D, E, F, Pc, J, h, dJ, dh, dln):
     """Adjoint of :func:`bidir_fwd`: its inputs, its outputs ``J``, ``h``
     and their cotangents ``dJ``, ``dh``, ``dln`` -> the cotangents of its
-    inputs ``(dJ0, dh0, dA, dC, dD, dE, dF, dPc)``, shaped as the inputs."""
+    inputs ``(dJ0, dh0, dA, dC, dD, dE, dF, dPc)``, shaped as the inputs.
+    On a card one C call runs the two passes of :func:`bidir_adj_factor`
+    and :func:`bidir_adj_chain`."""
     if J0.device.type == "cpu":
         return bidir_adj_plain(J0, h0, A, C, D, E, F, Pc, J, h, dJ, dh, dln)
     args = (J0, h0, A, C, D, E, F, Pc, J, h, dJ, dh, dln)
@@ -122,17 +130,85 @@ def bidir_adj(J0, h0, A, C, D, E, F, Pc, J, h, dJ, dh, dln):
     T1, dd, NL = A.shape
     d = h0.shape[0]
     _check_kernel_args("bidir_adj", d, args)
-    dA, dC, dD = (torch.empty_like(A) for _ in range(3))
-    dE, dF = torch.empty_like(E), torch.empty_like(F)
-    dJ0, dh0 = torch.empty_like(J0), torch.empty_like(h0)
+    kw = dict(dtype=A.dtype, device=A.device)
+    fac = torch.empty((T1, 2 * dd + d, NL), **kw)
+    outs = _bidir_adj_outputs(T1, d, NL, **kw)
     lib = _build.load_library()
     _launch("bidir_adj", lib.svae_bidir_adj_f32, J0.device, d, NL, T1, J0,
-            h0, A, D, F, J, h, dJ, dh, dln, dA, dC, dD, dE, dF, dJ0, dh0)
+            h0, A, D, F, J, h, dJ, dh, dln, fac, *outs)
     bidir_adj.launches += 1
+    dA, dC, dD, dE, dF, dJ0, dh0 = outs
     return dJ0, dh0, dA, dC, dD, dE, dF, dln.expand(T1, NL)
 
 
 bidir_adj.launches = 0
+
+
+# The adjoint's passes one by one, for holding each kernel against its own
+# plain version: bidir_adj = bidir_adj_chain(bidir_adj_factor(...), ...)
+# and the cotangent of Pc, which is dln on every step. The model paths
+# call bidir_adj, which launches the same kernels from one C call.
+
+
+def _bidir_adj_outputs(T1, d, NL, **kw):
+    """Empty outputs of the chain pass: ``(dA, dC, dD, dE, dF, dJ0,
+    dh0)``."""
+    mats = [torch.empty((T1, d * d, NL), **kw) for _ in range(3)]
+    vecs = [torch.empty((T1, d, NL), **kw) for _ in range(2)]
+    return (*mats, *vecs, torch.empty((d * d, NL), **kw),
+            torch.empty((d, NL), **kw))
+
+
+def bidir_adj_factor(J0, h0, A, C, D, E, F, Pc, J, h):
+    """Pass 1 of :func:`bidir_adj`, parallel over (step, lane): per step t
+    of every lane the inverse W of M = J_pre + A_t (J_pre = ``J0`` at t = 0,
+    ``J[t-1]`` after), K = W D_t^T and w = W (h_pre + f_t), as ``fac``
+    (T-1, 2d^2 + d, NL) = [W, K (row-major), w], lane-minor. Arguments as
+    :func:`bidir_adj`'s first ten (``C``, ``E`` and ``Pc`` are not
+    read)."""
+    if J0.device.type == "cpu":
+        return bidir_adj_factor_plain(J0, h0, A, C, D, E, F, Pc, J, h)
+    args = (J0, h0, A, C, D, E, F, Pc)
+    _check_bidir_shapes("bidir_adj_factor", *args)
+    T1, dd, NL = A.shape
+    d = h0.shape[0]
+    if J.shape != (T1, dd, NL) or h.shape != (T1, d, NL):
+        raise ValueError("bidir_adj_factor: inconsistent shapes")
+    _check_kernel_args("bidir_adj_factor", d, args + (J, h))
+    fac = torch.empty((T1, 2 * dd + d, NL), dtype=A.dtype, device=A.device)
+    _launch("bidir_adj_factor", _build.load_library().svae_bidir_adj_factor_f32,
+            J0.device, d, NL, T1, J0, h0, A, D, F, J, h, fac)
+    bidir_adj_factor.launches += 1
+    return fac
+
+
+bidir_adj_factor.launches = 0
+
+
+def bidir_adj_chain(fac, dJ, dh, dln):
+    """Pass 2 of :func:`bidir_adj`, serial in the steps: the carried
+    cotangents walked back through the steps from
+    :func:`bidir_adj_factor`'s ``fac`` and the cotangents ``dJ``, ``dh``,
+    ``dln``. Returns ``(dJ0, dh0, dA, dC, dD, dE, dF)``, :func:`bidir_adj`'s
+    outputs but the last."""
+    if fac.device.type == "cpu":
+        return bidir_adj_chain_plain(fac, dJ, dh, dln)
+    T1, R, NL = fac.shape
+    d = dh.shape[1] if dh.dim() == 3 else 0
+    if (R != 2 * d * d + d or dJ.shape != (T1, d * d, NL)
+            or dh.shape != (T1, d, NL) or dln.shape != (NL,)):
+        raise ValueError("bidir_adj_chain: inconsistent shapes")
+    args = (fac, dJ, dh, dln)
+    _check_kernel_args("bidir_adj_chain", d, args)
+    outs = _bidir_adj_outputs(T1, d, NL, dtype=fac.dtype, device=fac.device)
+    _launch("bidir_adj_chain", _build.load_library().svae_bidir_adj_chain_f32,
+            fac.device, d, NL, T1, *args, *outs)
+    bidir_adj_chain.launches += 1
+    dA, dC, dD, dE, dF, dJ0, dh0 = outs
+    return dJ0, dh0, dA, dC, dD, dE, dF
+
+
+bidir_adj_chain.launches = 0
 
 
 def sampler_bp_fwd(P2, P3, Jf, hf, eps, xT):
@@ -268,6 +344,59 @@ def bidir_adj_plain(J0, h0, A, C, D, E, F, Pc, J, h, dJ, dh, dln):
 
 
 bidir_adj_plain.calls = 0
+
+
+def bidir_adj_factor_plain(J0, h0, A, C, D, E, F, Pc, J, h):
+    """Plain version of :func:`bidir_adj_factor` (same arguments, same
+    output), batched over lanes and steps."""
+    bidir_adj_factor_plain.calls += 1
+    T1, dd, NL = A.shape
+    d = h0.shape[0]
+    lanes = lambda X: X.permute(2, 0, 1)                # (T1, k, NL) -> lanes
+    Jpre = lanes(torch.cat([J0[None], J[:-1]])).reshape(NL, T1, d, d)
+    hpre = lanes(torch.cat([h0[None], h[:-1]]))
+    Dm = lanes(D).reshape(NL, T1, d, d)
+    W = torch.cholesky_inverse(smallchol.chol(
+        Jpre + lanes(A).reshape(NL, T1, d, d)))
+    K = W @ Dm.mT
+    w = (W @ (hpre + lanes(F))[..., None])[..., 0]
+    fac = torch.cat([W.reshape(NL, T1, dd), K.reshape(NL, T1, dd), w],
+                    dim=-1)
+    return fac.permute(1, 2, 0).contiguous()
+
+
+bidir_adj_factor_plain.calls = 0
+
+
+def bidir_adj_chain_plain(fac, dJ, dh, dln):
+    """Plain version of :func:`bidir_adj_chain` (same arguments, same
+    outputs): ``estep.filter_adj_chain_step`` one step at a time over all
+    lanes, every output kept per step."""
+    bidir_adj_chain_plain.calls += 1
+    T1, R, NL = fac.shape
+    d = dh.shape[1]
+    dd = d * d
+    fac = fac.permute(2, 0, 1)                            # (NL, T1, R)
+    W = fac[..., :dd].reshape(NL, T1, d, d)
+    K = fac[..., dd:2 * dd].reshape(NL, T1, d, d)
+    w = fac[..., 2 * dd:]
+    Mc = fac.new_zeros((NL, d, d))
+    hc = fac.new_zeros((NL, d))
+    steps = [None] * T1
+    for t in reversed(range(T1)):
+        wt = w[:, t]
+        G = Mc + dJ[t].T.reshape(NL, d, d)
+        g = hc + dh[t].T
+        Mc, hc, P = filter_adj_chain_step(K[:, t], wt, W[:, t], G, g, dln)
+        dD = g[..., :, None] * wt[..., None, :] - P.mT
+        steps[t] = (Mc, G, dD, g, hc)
+    stream = lambda k: _pack(torch.stack([s[k] for s in steps], 1))
+    dA, dC, dD, dE, dF = (stream(k) for k in range(5))
+    return (Mc.reshape(NL, dd).T.contiguous(), hc.T.contiguous(),
+            dA, dC, dD, dE, dF)
+
+
+bidir_adj_chain_plain.calls = 0
 
 
 def sampler_bp_adj_plain(P2, P3, Jf, hf, eps, xT, x, dx):

@@ -19,9 +19,13 @@ The element scan is :func:`elem_scan`: a CUDA kernel (``csrc/elem_scan.cu``)
 for tensors on a card and a plain PyTorch version for tensors on the CPU,
 with the launch counters and the no-fallback rule of
 :mod:`~svae_tpu_torch.ops.estep`. :class:`ElemScan` makes it
-differentiable; its backward is :func:`elem_scan_adj`, the reverse-sweep
-adjoint kernel (``csrc/elem_scan_adj.cu``) in the closed form of the
-combine's vector-Jacobian product. The plain versions loop
+differentiable; its backward is :func:`elem_scan_adj`, the reverse sweep
+in the closed form of the combine's vector-Jacobian product
+(``csrc/elem_scan_adj.cu``), which runs on a card as two kernels from one
+C call: a pass over every (combine, lane) for the combine's inverse and
+products (:func:`elem_scan_adj_factor`) and the serial chain of the
+carried cotangent (:func:`elem_scan_adj_chain`), each with a plain version
+of its own. The plain versions of the scan and the adjoint loop
 ``kalman.combine`` over the steps, batched over the lanes, and take the
 adjoint as ``torch.autograd``'s VJP of that loop, independent of the
 kernels' algebra. Elements travel packed as (L, R, N) float32 with the lane
@@ -33,7 +37,8 @@ decoupled pad steps, the pad leaf (J11 = 0, J12 = 0, J22 = I, h = 0,
 c = -d/2 log 2 pi) appending an independent unit-Gaussian step whose
 marginalization adds exactly zero to the running constant, so the real
 steps' logZ, messages and moments are exact for any (T, C). The kernels
-take any lane count: a lane is a thread, so the JAX package's lane pad to
+take any lane count: a lane is a thread (the scan, the adjoint's factor
+pass) or a block (the adjoint's chain), so the JAX package's lane pad to
 128 has no counterpart.
 """
 
@@ -44,11 +49,17 @@ import torch
 from svae_tpu_torch.ops import _build, kalman
 from svae_tpu_torch.ops.estep import (LOG2PI, _check_kernel_args, _forward,
                                       _launch, _vjp)
+from svae_tpu_torch.utils import smallchol
 from svae_tpu_torch.utils.psd import f32_linalg
 
 
 def _nrows(d):
     return 3 * d * d + 2 * d + 1
+
+
+def _nfac(d):
+    """Rows of the adjoint's factor pass a combine: X, Y, W and v."""
+    return 3 * d * d + d
 
 
 def _dim(R):
@@ -96,22 +107,73 @@ elem_scan.launches = 0
 def elem_scan_adj(leaves, pref, douts):
     """Adjoint of :func:`elem_scan`: its input ``leaves``, its output
     ``pref`` and the cotangent ``douts`` of that output, each (L, R, N) ->
-    the cotangent of ``leaves``."""
+    the cotangent of ``leaves``. On a card one C call runs the two passes
+    of :func:`elem_scan_adj_factor` and :func:`elem_scan_adj_chain`."""
     if leaves.device.type == "cpu":
         return elem_scan_adj_plain(leaves, pref, douts)
     L, N, d = _check_shapes("elem_scan_adj", leaves, pref, douts)
     _check_kernel_args("elem_scan_adj", d, (leaves, pref, douts))
     dleaves = torch.empty_like(leaves)
-    # the carried cotangent, one buffer read and one written a step
-    scratch = torch.empty((2,) + leaves.shape[1:], dtype=leaves.dtype,
-                          device=leaves.device)
+    fac = torch.empty((L - 1, _nfac(d), N), dtype=leaves.dtype,
+                      device=leaves.device)
     _launch("elem_scan_adj", _build.load_library().svae_elem_scan_adj_f32,
-            leaves.device, d, L, N, leaves, pref, douts, dleaves, scratch)
+            leaves.device, d, L, N, leaves, pref, douts, dleaves, fac)
     elem_scan_adj.launches += 1
     return dleaves
 
 
 elem_scan_adj.launches = 0
+
+
+# The adjoint's passes one by one, for holding each kernel against its own
+# plain version: elem_scan_adj = elem_scan_adj_chain(elem_scan_adj_factor(
+# leaves, pref), douts). The chunked E-step calls elem_scan_adj, which
+# launches the same kernels from one C call.
+
+
+def elem_scan_adj_factor(leaves, pref):
+    """Pass 1 of :func:`elem_scan_adj`, parallel over (step, lane): for
+    every combine j >= 1 of every lane, with M = sym(J22 of ``pref[j-1]``
+    + J11 of ``leaves[j]``) and W = M^-1, the products X = W J12a^T,
+    Y = W J12b (J12a of ``pref[j-1]``, J12b of ``leaves[j]``), W and
+    v = W (h2a + h1b), as ``fac`` (L-1, 3d^2 + d, N) = [X, Y, W (row-major),
+    v], lane-minor. Arguments as :func:`elem_scan_adj`'s first two."""
+    if leaves.device.type == "cpu":
+        return elem_scan_adj_factor_plain(leaves, pref)
+    L, N, d = _check_shapes("elem_scan_adj_factor", leaves, pref)
+    _check_kernel_args("elem_scan_adj_factor", d, (leaves, pref))
+    fac = torch.empty((L - 1, _nfac(d), N), dtype=leaves.dtype,
+                      device=leaves.device)
+    _launch("elem_scan_adj_factor",
+            _build.load_library().svae_elem_scan_adj_factor_f32,
+            leaves.device, d, L, N, leaves, pref, fac)
+    elem_scan_adj_factor.launches += 1
+    return fac
+
+
+elem_scan_adj_factor.launches = 0
+
+
+def elem_scan_adj_chain(fac, douts):
+    """Pass 2 of :func:`elem_scan_adj`, serial in the steps: the carried
+    cotangent walked back from j = L-1 to 0 through
+    :func:`elem_scan_adj_factor`'s ``fac`` and the cotangents ``douts``
+    (L, R, N). Returns the cotangent of the leaves, (L, R, N)."""
+    if fac.device.type == "cpu":
+        return elem_scan_adj_chain_plain(fac, douts)
+    L, N, d = _check_shapes("elem_scan_adj_chain", douts)
+    if fac.shape != (L - 1, _nfac(d), N):
+        raise ValueError("elem_scan_adj_chain: inconsistent shapes")
+    _check_kernel_args("elem_scan_adj_chain", d, (fac, douts))
+    dleaves = torch.empty_like(douts)
+    _launch("elem_scan_adj_chain",
+            _build.load_library().svae_elem_scan_adj_chain_f32, douts.device,
+            d, L, N, fac, douts, dleaves)
+    elem_scan_adj_chain.launches += 1
+    return dleaves
+
+
+elem_scan_adj_chain.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -140,6 +202,71 @@ def elem_scan_adj_plain(leaves, pref, douts):
 
 
 elem_scan_adj_plain.calls = 0
+
+
+def _sym(X):
+    return 0.5 * (X + X.mT)
+
+
+def elem_scan_adj_factor_plain(leaves, pref):
+    """Plain version of :func:`elem_scan_adj_factor` (same arguments, same
+    output), batched over lanes and steps."""
+    elem_scan_adj_factor_plain.calls += 1
+    L, R, N = leaves.shape
+    d = _dim(R)
+    _, J12a, J22a, _, h2a, _ = _unpack(pref[:-1], d)
+    J11b, J12b, _, h1b, _, _ = _unpack(leaves[1:], d)
+    W = torch.cholesky_inverse(smallchol.chol(_sym(J22a) + _sym(J11b)))
+    X = W @ J12a.mT
+    Y = W @ J12b
+    v = (W @ (h2a + h1b)[..., None])[..., 0]
+    flat = lambda M: M.reshape(N, L - 1, d * d)
+    fac = torch.cat([flat(X), flat(Y), flat(W), v], dim=-1)
+    return fac.permute(1, 2, 0).contiguous()
+
+
+elem_scan_adj_factor_plain.calls = 0
+
+
+def elem_scan_adj_chain_plain(fac, douts):
+    """Plain version of :func:`elem_scan_adj_chain` (same arguments, same
+    output): the closed-form vector-Jacobian product of the combine (the
+    form of pallas_chunked's ``_combine_vjp_rows``), one step at a time
+    over all lanes."""
+    elem_scan_adj_chain_plain.calls += 1
+    L, R, N = douts.shape
+    d = _dim(R)
+    dd = d * d
+    fac = fac.permute(2, 0, 1)                            # (N, L-1, F)
+    X, Y, W = (fac[..., k * dd:(k + 1) * dd].reshape(N, L - 1, d, d)
+               for k in range(3))
+    v = fac[..., 3 * dd:]
+    g_out = _unpack(douts, d)                             # (N, L, ...)
+    outer = lambda a, b: a[..., :, None] * b[..., None, :]
+    mv = lambda M, x: (M @ x[..., None])[..., 0]
+    carry = tuple(torch.zeros_like(a[:, 0]) for a in g_out)
+    dleaves = [None] * L
+    for j in reversed(range(1, L)):
+        G11, G12, G22, g1, g2, gc = (c + a[:, j] for c, a in
+                                     zip(carry, g_out))
+        G11, G22 = _sym(G11), _sym(G22)
+        Xj, Yj, Wj, vj = X[:, j - 1], Y[:, j - 1], W[:, j - 1], v[:, j - 1]
+        db0 = gc[:, None] * vj - mv(Xj, g1) - mv(Yj, g2)
+        Q1 = G11 @ Xj.mT + G12 @ Yj.mT + outer(g1, vj)
+        Q2 = G22 @ Yj.mT + outer(g2, vj)
+        dM = (_sym(Xj @ Q1 + Yj @ Q2)
+              - 0.5 * gc[:, None, None] * (Wj + outer(vj, vj)))
+        dJ12a = -(Q1 + G11 @ Xj.mT)
+        dJ12b = -(Xj @ G12 + 2.0 * Yj @ G22 + outer(vj, g2))
+        dleaves[j] = (dM, dJ12b, G22, db0, g2, gc)
+        carry = (G11, dJ12a, dM, g1, db0, gc)
+    dleaves[0] = tuple(c + a[:, 0] for c, a in zip(carry, g_out))
+    stacked = tuple(torch.stack([e[k] for e in dleaves], 1)
+                    for k in range(6))
+    return _pack(stacked, L)
+
+
+elem_scan_adj_chain_plain.calls = 0
 
 
 class ElemScan(torch.autograd.Function):

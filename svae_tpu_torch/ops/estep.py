@@ -623,6 +623,23 @@ def filter_adj_factor_plain(J0, h0, A, C, D, jd, n2, J, h):
 filter_adj_factor_plain.calls = 0
 
 
+def _outer(a, b):
+    return a[..., :, None] * b[..., None, :]
+
+
+def filter_adj_chain_step(K, w, W, G, g, dln):
+    """One step of the information filter adjoint's chain in products,
+    batched over the lanes (the plain chain passes of :func:`filter_adj`
+    and ``bpairs.bidir_adj``): with P = K (G + G^T) and a = K g, returns
+    ``(M-bar, h-bar, P)``, M-bar = 1/2 P K^T - 1/2 (a w^T + w a^T) -
+    1/2 lam (w w^T + W), h-bar = lam w + a, lam = ``dln`` per lane."""
+    P = K @ (G + G.mT)
+    a = (K @ g[..., None])[..., 0]
+    Mc = (0.5 * P @ K.mT - 0.5 * (_outer(a, w) + _outer(w, a))
+          - 0.5 * dln[:, None, None] * (_outer(w, w) + W))
+    return Mc, dln[:, None] * w + a, P
+
+
 def filter_adj_chain_plain(fac, dJ, dh, dln):
     """Plain version of :func:`filter_adj_chain` (same arguments, same
     outputs): the same products, one step at a time over all lanes."""
@@ -634,26 +651,20 @@ def filter_adj_chain_plain(fac, dJ, dh, dln):
     W = fac[..., :dd].reshape(NL, T1, d, d)
     K = fac[..., dd:2 * dd].reshape(NL, T1, d, d)
     w = fac[..., 2 * dd:]
-    lam = dln[:, None, None]
     Mc = fac.new_zeros((NL, d, d))
     hc = fac.new_zeros((NL, d))
     acc = fac.new_zeros((3, NL, d, d))
     dnode = fac.new_zeros((2, 2, T, d, B))
-    outer = lambda a, b: a[..., :, None] * b[..., None, :]
     for t in reversed(range(T1)):
-        Kt, wt = K[:, t], w[:, t]
+        wt = w[:, t]
         G = Mc + dJ[t].T.reshape(NL, d, d)
         g = hc + dh[t].T
-        P = Kt @ (G + G.mT)
-        a = (Kt @ g[..., None])[..., 0]
-        Mc = (0.5 * P @ Kt.mT - 0.5 * (outer(a, wt) + outer(wt, a))
-              - 0.5 * lam * (outer(wt, wt) + W[:, t]))
-        hc = dln[:, None] * wt + a
+        Mc, hc, P = filter_adj_chain_step(K[:, t], wt, W[:, t], G, g, dln)
         dnode[0, 0, t + 1] = torch.diagonal(G[:B], dim1=-2, dim2=-1).T
         dnode[1, 0, t + 1] = g[:B].T
         dnode[0, 1, T - 1 - t] = torch.diagonal(Mc[B:], dim1=-2, dim2=-1).T
         dnode[1, 1, T - 1 - t] = hc[B:].T
-        acc = acc + torch.stack([Mc, G, outer(g, wt) - P.mT])
+        acc = acc + torch.stack([Mc, G, _outer(g, wt) - P.mT])
     dpar = acc.reshape(3, NL, dd).transpose(1, 2).contiguous()
     return dnode, Mc.reshape(NL, dd).T.contiguous(), hc.T.contiguous(), dpar
 

@@ -8,6 +8,7 @@ Kernels run in float32, plain versions in float64 on the same inputs; the
 tolerances are chip_smoke.py's (the float32 tiers of
 tests/test_f32_parity.py, and a normwise 1e-3 for the adjoints)."""
 
+import ctypes
 import os
 import sys
 
@@ -369,6 +370,85 @@ def test_elem_scan_wrappers_reject_what_the_kernels_do_not_take(smoke):
     d5 = smoke.elem_problem(dict(B=3, T=7, d=5, C=2), 0, "cuda")
     with pytest.raises(ValueError, match="d=5"):
         chunked.elem_scan(d5.float())
+
+
+@pytest.mark.parametrize("d", estep.KERNEL_DIMS)
+def test_scan_and_bidir_adjoint_passes_match_plain_at_every_built_d(smoke,
+                                                                    d):
+    """Each pass of the element scan's and the bidirectional filter's
+    adjoints (chunked.elem_scan_adj_factor, elem_scan_adj_chain;
+    bpairs.bidir_adj_factor, bidir_adj_chain) against its own plain
+    version."""
+    errs = smoke.check_elem_scan(dict(B=7, T=20, d=d, C=3), seed=d)
+    filt = smoke.bpairs_problem(dict(B=5, T=9, d=d, S=1), seed=d)[0]
+    errs.update(smoke.check_bidir_adj(filt))
+    names = [w.__name__ for w in smoke.CHUNK_PASS_WRAPPERS
+             + smoke.RAGGED_PASS_WRAPPERS]
+    assert all(errs[k][0] <= smoke.TOL_ADJ_REL for k in names), errs
+
+
+def test_bidir_adj_and_its_passes_at_their_other_shapes(smoke):
+    """The slds_synth x-step's lanes and one direction's lanes at T=2048."""
+    errs = smoke.check_bidir_adj_shapes()
+    assert set(errs) == set(smoke.BIDIR_ADJ_SHAPES)
+
+
+def test_scan_and_bidir_adjoint_pass_launch_counters(smoke):
+    leaves = smoke.elem_problem(smoke.ELEM_SHAPES["small"], 0, "cuda")
+    filt = smoke.bpairs_problem(smoke.RAGGED_SHAPES["small"], 0, "cuda")[0]
+    smoke._reset_counters()
+    smoke.check_elem_scan(smoke.ELEM_SHAPES["small"], seed=0)
+    smoke.check_bidir_adj(filt)
+    passes = smoke.CHUNK_PASS_WRAPPERS + smoke.RAGGED_PASS_WRAPPERS
+    assert [w.launches for w in passes] == [1] * 4
+    assert [p.calls for p in smoke.CHUNK_PASS_PLAINS
+            + smoke.RAGGED_PASS_PLAINS] == [1] * 4
+    # each adjoint launches its passes' kernels in one C call of its own,
+    # and counts that call alone
+    assert chunked.elem_scan_adj.launches == 1
+    assert bpairs.bidir_adj.launches == 1
+    pref = chunked.elem_scan_plain(leaves)
+    chunked.elem_scan_adj(*smoke._f32((leaves, pref, pref)))
+    bpairs.bidir_adj(*smoke._f32(filt))
+    torch.cuda.synchronize()
+    assert [w.launches for w in passes] == [1] * 4
+    assert chunked.elem_scan_adj.launches == 2
+    assert bpairs.bidir_adj.launches == 2
+
+
+def test_scan_and_bidir_adjoint_c_entries_reject_what_they_do_not_take(
+        smoke):
+    """Every C entry of the two adjoints refuses an unbuilt d
+    (cudaErrorInvalidValue) before it reads a pointer, and every wrapper
+    refuses float64, mixed devices and an unbuilt d."""
+    from svae_tpu_torch.ops import _build
+    lib = _build.load_library()
+    for name in ("svae_elem_scan_adj_f32", "svae_elem_scan_adj_factor_f32",
+                 "svae_elem_scan_adj_chain_f32", "svae_bidir_adj_f32",
+                 "svae_bidir_adj_factor_f32", "svae_bidir_adj_chain_f32"):
+        fn = getattr(lib, name)
+        ints = sum(t is ctypes.c_int for t in fn.argtypes)
+        assert fn(5, *[3] * (ints - 1),
+                  *[None] * (len(fn.argtypes) - ints)) != 0, name
+    leaves = smoke.elem_problem(smoke.ELEM_SHAPES["small"], 0, "cuda")
+    pref = chunked.elem_scan_plain(leaves)
+    fac = chunked.elem_scan_adj_factor(*smoke._f32((leaves, pref)))
+    filt = smoke.bpairs_problem(smoke.RAGGED_SHAPES["small"], 0, "cuda")[0]
+    bfac = bpairs.bidir_adj_factor(*smoke._f32(filt[:10]))
+    with pytest.raises(TypeError, match="float32"):
+        chunked.elem_scan_adj_factor(leaves, pref)
+    with pytest.raises(ValueError, match="CUDA"):
+        chunked.elem_scan_adj_chain(fac, pref.float().cpu())
+    with pytest.raises(TypeError, match="float32"):
+        bpairs.bidir_adj_factor(*filt[:10])
+    with pytest.raises(ValueError, match="CUDA"):
+        bpairs.bidir_adj_chain(bfac, *[x.float().cpu() for x in filt[10:]])
+    d5 = smoke.elem_problem(dict(B=3, T=7, d=5, C=2), 0, "cuda").float()
+    with pytest.raises(ValueError, match="d=5"):
+        chunked.elem_scan_adj_factor(d5, d5)
+    filt5 = smoke.bpairs_problem(dict(B=3, T=7, d=5, S=1), 0, "cuda")[0]
+    with pytest.raises(ValueError, match="d=5"):
+        bpairs.bidir_adj_factor(*smoke._f32(filt5[:10]))
 
 
 @pytest.mark.parametrize("shape", ["small", "config2", "longT"])

@@ -26,16 +26,24 @@ the element scan's adjoint alone (``chunked.elem_scan_adj`` at the config-2
 fold: B=64, T=100 in C=8 chunks, 512 lanes of 13 steps) and the
 bidirectional filter's (``bpairs.bidir_adj`` at a ragged B=64, T=512
 batch, at the slds_synth x-step's 32 lanes of T=80, d=4, and over one
-direction's 8 lanes of T=2048), on float32 copies of chip_smoke.py's
-float64 problems, where the checkout has them; and, where the checkout has
-the training loop, one train step (``make_train_step``), one chunked
-config-2 train step (``run_inference(parallel=8)``) and one ragged train
-step at the T=512 bucket of ``benchmarks/ragged_throughput.py``'s corpus
-(S=1).
+direction's 8 lanes of T=2048); the bidirectional filter alone
+(``bpairs.bidir_fwd`` at ragged B=64 batches of T=128 and T=512, at the
+slds_synth x-step's lanes and over one direction's lanes of T=2048) and
+the per-sequence sampler's adjoint alone (``bpairs.sampler_bp_adj`` at
+T=128 and T=512, S=1, and at the slds_synth shape, B=16, S=2); all on
+float32 copies of chip_smoke.py's float64 problems, where the checkout has
+them; and, where the checkout has the training loop, one train step
+(``make_train_step``), one chunked config-2 train step
+(``run_inference(parallel=8)``), one ragged train step at the T=512
+bucket of ``benchmarks/ragged_throughput.py``'s corpus (S=1) and one
+slds_synth train step (chip_smoke.py's SLDS_CONFIG).
 Prints one line per run, then for every stage and checkout the median
 and quartiles of the event times and of the issue times and, against the
 first checkout, how many of the A B / B A pairs each side was faster in
-(by event time), and last a JSON object of every reading. There is no CPU path.
+(by event time); for the kernel stages alone (DEVICE_STAGES) the same by
+their device time under torch.profiler (every kernel of the call
+summed), taken after the event times; and last a JSON object of every
+reading. There is no CPU path.
 """
 
 import argparse
@@ -50,6 +58,8 @@ import sys
 import time
 
 B, T, S, D, D_OBS = 64, 100, 2, 10, 20
+# the stages whose device time is taken too
+DEVICE_STAGES = ("bidir_fwd", "sampler_bp_adj", "bidir_adj", "elem_scan_adj")
 
 
 def _median_ms(fn, calls):
@@ -130,13 +140,27 @@ def _scan_bidir_adj_stages(torch, dev):
                                 device=dev)
     stages["bidir_adj_one_direction"] = functools.partial(
         bpairs.bidir_adj, *f32((*fin, J, h, cot(J), cot(h), cot(ln))))
+    # the bidirectional filter and the per-sequence sampler's adjoint alone
+    stages["bidir_fwd_one_direction"] = functools.partial(bpairs.bidir_fwd,
+                                                          *f32(fin))
+    for name, shape in (("T128", dict(B=B, T=128, d=D, S=1)),
+                        ("T512", dict(B=B, T=512, d=D, S=1)),
+                        ("slds", dict(B=16, T=80, d=4, S=2))):
+        filt, samp, _ = chip_smoke.bpairs_problem(shape, 0, dev)
+        stages[f"bidir_fwd_{name}"] = functools.partial(bpairs.bidir_fwd,
+                                                        *f32(filt[:8]))
+        stages[f"sampler_bp_adj_{name}"] = functools.partial(
+            bpairs.sampler_bp_adj, *f32(samp))
     return stages
 
 
 def _train_stages(torch, loop, lds, parts, glob, rec, dec, batch, gen):
-    """One chunked config-2 train step and one ragged train step at the
-    T=512 bucket, each on its own copy of the models."""
+    """One chunked config-2 train step, one ragged train step at the T=512
+    bucket, each on its own copy of the models, and one slds_synth train
+    step on its own models."""
     import chip_smoke
+    from svae_tpu_torch.data.synthetic import make_switching_dot_data
+    from svae_tpu_torch.models import slds
     prior = parts[3]
     copies = lambda: copy.deepcopy((glob, rec, dec))
     g1, r1, d1 = copies()
@@ -158,8 +182,25 @@ def _train_stages(torch, loop, lds, parts, glob, rec, dec, batch, gen):
     def ragged_step():
         ragged_state[:3] = rstep(*ragged_state, bucket, gen)[:3]
 
+    cfg = chip_smoke.SLDS_CONFIG
+    sdata = torch.from_numpy(make_switching_dot_data(
+        1, cfg["N"], cfg["T"], cfg["width"])).to(batch.device)
+    sprior, sglob, srec, sdec = chip_smoke._slds_models(
+        batch.device, cfg["K"], cfg["d"], cfg["width"], cfg["hidden"])
+    sopt_init, sstep = loop.make_train_step(
+        functools.partial(slds.run_inference,
+                          num_meanfield_iters=cfg["sweeps"]),
+        *parts[1:3], sprior, cfg["N"], num_samples=cfg["S"],
+        pgm_step_size=cfg["pgm_step_size"],
+        net_step_size=cfg["net_step_size"])
+    slds_state = [sglob, (srec, sdec), sopt_init(sglob, (srec, sdec))]
+
+    def slds_step():
+        slds_state[:3] = sstep(*slds_state, sdata[:cfg["B"]], gen)[:3]
+
     return {"train_step_chunked": chunked_step,
-            "ragged_train_step_T512": ragged_step}
+            "ragged_train_step_T512": ragged_step,
+            "slds_train_step": slds_step}
 
 
 def worker(root, calls):
@@ -215,6 +256,15 @@ def worker(root, calls):
            for m in ("bpairs", "chunked")):
         stages.update(_scan_bidir_adj_stages(torch, dev))
     readings = {k: _median_ms(fn, calls) for k, fn in stages.items()}
+    # the device time of the kernel stages alone, whose event time can be
+    # the host's time to issue them (chip_smoke._device_ms: every kernel
+    # the call runs, summed)
+    import chip_smoke
+    device = {}
+    for k, fn in stages.items():
+        if k.startswith(DEVICE_STAGES):
+            ms = chip_smoke._device_ms(fn)
+            device[k] = sum(ms.values()) if ms else float("nan")
     # the training loop is imported and built only now, so that every
     # checkout has done the same work when its inference stages are timed
     try:
@@ -232,35 +282,49 @@ def worker(root, calls):
         for k, fn in _train_stages(torch, loop, lds, parts, glob, rec, dec,
                                    batch, gen).items():
             readings[k] = _median_ms(fn, calls)
-    return {"root": root, "build_s": build_s, "stages": readings}
+    return {"root": root, "build_s": build_s, "stages": readings,
+            "device": device}
+
+
+def _summary_line(stage, root, ev, issue, base, root0):
+    import numpy as np
+    q1, med, q3 = np.percentile(ev, [25, 50, 75])
+    line = (f"{stage} {root}: median {med:.4f} ms, quartiles "
+            f"{q1:.4f}-{q3:.4f} ms, {len(ev)} runs")
+    if issue is not None:
+        i1, imed, i3 = np.percentile(issue, [25, 50, 75])
+        line += (f"; issue median {imed:.4f} ms, quartiles "
+                 f"{i1:.4f}-{i3:.4f} ms")
+    if base is not None and len(base) == len(ev):
+        faster = sum(b < a for a, b in zip(base, ev))
+        line += f"; faster than {root0} in {faster} of {len(ev)} pairs"
+    return line
 
 
 def summarize(runs):
     """Per stage and checkout: median, quartiles and, against the first
     checkout, the pairs won (a pair is one run of each, next to each
-    other in the A B B A order). Returns the lines."""
-    import numpy as np
+    other in the A B B A order), by event time and, for DEVICE_STAGES, by
+    device time. Returns the lines."""
     roots = list(dict.fromkeys(r["root"] for r in runs))
     lines = []
     for stage in runs[-1]["stages"]:
         by = {root: [r["stages"][stage] for r in runs
                      if r["root"] == root and stage in r["stages"]]
               for root in roots}
+        dev = {root: [r["device"][stage] for r in runs if r["root"] == root
+                      and stage in r.get("device", {})] for root in roots}
         for root in roots:
-            if not by[root]:
-                continue
-            ev, issue = zip(*by[root])
-            q1, med, q3 = np.percentile(ev, [25, 50, 75])
-            i1, imed, i3 = np.percentile(issue, [25, 50, 75])
-            line = (f"{stage} {root}: median {med:.4f} ms, quartiles "
-                    f"{q1:.4f}-{q3:.4f} ms, {len(ev)} runs; issue median "
-                    f"{imed:.4f} ms, quartiles {i1:.4f}-{i3:.4f} ms")
-            base = [e for e, _ in by[roots[0]]]
-            if root != roots[0] and len(base) == len(ev):
-                faster = sum(b < a for a, b in zip(base, ev))
-                line += (f"; faster than {roots[0]} in {faster} of "
-                         f"{len(ev)} pairs")
-            lines.append(line)
+            if by[root]:
+                ev, issue = zip(*by[root])
+                base = (None if root == roots[0]
+                        else [e for e, _ in by[roots[0]]])
+                lines.append(_summary_line(stage, root, ev, issue, base,
+                                           roots[0]))
+            if dev[root]:
+                base = None if root == roots[0] else dev[roots[0]]
+                lines.append(_summary_line(stage + " (device)", root,
+                                           dev[root], None, base, roots[0]))
     return lines
 
 

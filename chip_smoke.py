@@ -39,12 +39,16 @@ exits non-zero:
 3r. each per-sequence-pairs ("bpairs") kernel of the ragged path, forward
    and adjoint, in float32 against its plain version in float64 on the
    same inputs (and random cotangents), and each pass of ``bidir_adj``
-   (``bpairs.bidir_adj_factor``, ``bidir_adj_chain``) against its own,
+   (``bpairs.bidir_adj_factor``, ``bidir_adj_chain``) and of
+   ``sampler_bp_adj`` (``bpairs.sampler_bp_adj_factor``,
+   ``sampler_bp_adj_chain``, ``sampler_bp_adj_dJc``) against its own,
    at a small odd shape and at a ragged one (B=64, T=128, lengths spread
    over [2, 128]), and at T=512 (lengths over [2, 512]), all under the
-   same tiers; ``bidir_adj`` and its passes also at the slds_synth
-   x-step's lanes (B=16, T=80, d=4) and over one direction's lanes of
-   B=8, T=2048;
+   same tiers; ``bidir_fwd``, ``bidir_adj`` and its passes also at the
+   slds_synth x-step's lanes (B=16, T=80, d=4) and over one direction's
+   lanes of B=8, T=2048, and ``bidir_fwd`` with C's upper triangle
+   perturbed and with one lane's step made indefinite (its J, h and ln
+   non-finite from there, every other lane finite);
 4c. ragged training at ``benchmarks/ragged_throughput.py``'s shape: its
    corpus of 512 sequences (lengths uniform in [64, 512], d_obs=20) made
    from a seed, d=10, S=1, MLP recognizer and decoder of width 64, one
@@ -91,8 +95,11 @@ exits non-zero:
    chain-element scan kernels and their plain versions, of one chunked
    (``parallel=8``) config-2 train step against the sequential one, and of
    ``posterior_moments(parallel=C)`` at bench_longT's shape against
-   ``parallel=False``; the passes of ``elem_scan_adj`` and ``bidir_adj``
-   alone, and each one's device time within its adjoint;
+   ``parallel=False``; the passes of ``elem_scan_adj``, ``bidir_adj`` and
+   ``sampler_bp_adj`` alone, and each one's device time within its
+   adjoint; ``bidir_fwd``'s and ``sampler_bp_adj``'s device time at the
+   ragged shapes, the slds_synth x-step's and (``bidir_fwd``) over one
+   direction's lanes at T=2048;
 3c. the chain-element scan kernel of the chunked parallel-in-time E-step
    (``ops/chunked.py``) in float32 against its plain version in float64
    on the same leaves, its adjoint against the float64 plain adjoint
@@ -131,7 +138,8 @@ exits non-zero:
    shared-pair functions, both E-steps, at config-2 width and T=2048).
 
 The line before the last is a JSON object with one entry per kernel (the
-passes of ``sampler_fwd``, ``elem_scan_adj`` and ``bidir_adj`` too, each
+passes of ``sampler_fwd``, ``elem_scan_adj``, ``bidir_adj`` and
+``sampler_bp_adj`` too, each
 with its adjoint's launches, since one C call launches each pass once;
 its launches on the path that runs it: the training paths, phase 3h's
 stationary ``hmm_posterior`` for the stationary HMM kernels and phase 4k's
@@ -194,6 +202,9 @@ KERNELS = {
     "bidir_adj_chain": "svae_tpu/ops/pallas_bidir.py:121",
     "sampler_bp_fwd": "svae_tpu/ops/pallas_vjp.py:169",
     "sampler_bp_adj": "svae_tpu/ops/pallas_vjp.py:417",
+    "sampler_bp_adj_factor": "svae_tpu/ops/pallas_vjp.py:417",
+    "sampler_bp_adj_chain": "svae_tpu/ops/pallas_vjp.py:417",
+    "sampler_bp_adj_dJc": "svae_tpu/ops/pallas_vjp.py:417",
     "hmm_fb_fwd": "svae_tpu/ops/pallas_hmm.py:51",
     "hmm_fb_adj": "svae_tpu/ops/pallas_hmm.py:257",
     "hmm_fb_stat_fwd": "svae_tpu/ops/pallas_hmm.py:110",
@@ -231,6 +242,9 @@ SOURCES = {
     "bidir_adj_chain": "svae_tpu_torch/csrc/bidir_adj.cu",
     "sampler_bp_fwd": "svae_tpu_torch/csrc/bpairs.cu",
     "sampler_bp_adj": "svae_tpu_torch/csrc/sampler_bp_adj.cu",
+    "sampler_bp_adj_factor": "svae_tpu_torch/csrc/sampler_bp_adj.cu",
+    "sampler_bp_adj_chain": "svae_tpu_torch/csrc/sampler_bp_adj.cu",
+    "sampler_bp_adj_dJc": "svae_tpu_torch/csrc/sampler_bp_adj.cu",
     "hmm_fb_fwd": "svae_tpu_torch/csrc/hmm_fb.cu",
     "hmm_fb_adj": "svae_tpu_torch/csrc/hmm_fb_adj.cu",
     "hmm_fb_stat_fwd": "svae_tpu_torch/csrc/hmm_fb.cu",
@@ -606,10 +620,11 @@ def bpairs_problem(shape, seed=0, device="cuda"):
 
 def check_bpairs(shape, seed=0, device="cuda"):
     """The four bpairs kernels (float32) against their plain versions
-    (float64) on the same inputs and cotangents at ``shape``; raises past
-    the forward tiers and TOL_ADJ_REL. Returns the
-    forward kernels' max abs errors and the log-normalizer's rel error,
-    and the adjoints' ``(normwise rel, max abs)``."""
+    (float64) on the same inputs and cotangents at ``shape``, and each pass
+    of the two adjoints against its own; raises past the forward tiers and
+    TOL_ADJ_REL. Returns the forward kernels' max abs errors and the
+    log-normalizer's rel error, and the adjoints' and passes' ``(normwise
+    rel, max abs)``."""
     filt, samp, lnp = bpairs_problem(shape, seed, device)
     J, h, ln = bpairs.bidir_fwd(*_f32(filt[:8]))
     x = bpairs.sampler_bp_fwd(*_f32(samp[:6]))
@@ -622,12 +637,40 @@ def check_bpairs(shape, seed=0, device="cuda"):
     got = bpairs.sampler_bp_adj(*_f32(samp))
     torch.cuda.synchronize()
     errs["sampler_bp_adj"] = _rel_err(got, bpairs.sampler_bp_adj_plain(*samp))
+    errs.update(check_sampler_bp_adj_passes(samp))
     ok = (errs["bidir_fwd"] <= TOL_ABS and errs["bidir_ln_rel"] <= TOL_LOGZ_REL
           and errs["sampler_bp_fwd"] <= TOL_ABS
-          and errs["sampler_bp_adj"][0] <= TOL_ADJ_REL)
+          and all(errs[k][0] <= TOL_ADJ_REL for k in SAMPLER_BP_ERRS))
     if not ok:
         raise AssertionError(f"a bpairs kernel disagrees with its plain "
                              f"version at {shape}: {errs}")
+    return errs
+
+
+SAMPLER_BP_ERRS = ("sampler_bp_adj", "sampler_bp_adj_factor",
+                   "sampler_bp_adj_chain", "sampler_bp_adj_dJc")
+
+
+def check_sampler_bp_adj_passes(samp):
+    """Each pass of ``sampler_bp_adj`` (float32 kernel) against its own
+    plain version (float64) on ``samp`` (``sampler_bp_adj``'s float64
+    arguments), each pass fed the plain output of the pass before it.
+    Returns ``{pass: (normwise rel, max abs)}``; check_bpairs holds them to
+    TOL_ADJ_REL."""
+    P2, P3, Jf, hf, eps, xT, x, dx = samp
+    errs = {}
+    W = bpairs.sampler_bp_adj_factor_plain(P3, Jf)
+    got = bpairs.sampler_bp_adj_factor(*_f32((P3, Jf)))
+    torch.cuda.synchronize()
+    errs["sampler_bp_adj_factor"] = _rel_err((got,), (W,))
+    bbar, dxT = bpairs.sampler_bp_adj_chain_plain(W, P2, dx)
+    got = bpairs.sampler_bp_adj_chain(*_f32((W, P2, dx)))
+    torch.cuda.synchronize()
+    errs["sampler_bp_adj_chain"] = _rel_err(got, (bbar, dxT))
+    got = bpairs.sampler_bp_adj_dJc(*_f32((P2, P3, Jf, hf, eps, xT, x, bbar)))
+    torch.cuda.synchronize()
+    errs["sampler_bp_adj_dJc"] = _rel_err(got, bpairs.sampler_bp_adj_dJc_plain(
+        P2, P3, Jf, hf, eps, xT, x, bbar))
     return errs
 
 
@@ -669,6 +712,67 @@ def one_direction_problem(shape, seed=0, device="cuda"):
     cot = lambda x: torch.randn(x.shape, generator=g, dtype=x.dtype,
                                 device=device)
     return (*fin, J, h, cot(J), cot(h), cot(ln))
+
+
+def check_bidir_fwd(seed=0, device="cuda"):
+    """``bidir_fwd`` (float32 kernel) against its plain version (float64)
+    where check_bpairs does not hold it: at BIDIR_ADJ_SHAPES (the
+    slds_synth x-step's 32 lanes, and one direction's 8 lanes at T=2048),
+    on a ragged batch whose C has its upper triangle perturbed (the kernel
+    writes C_t - D_t X_D with C read in full, and carries C's lower
+    triangle, as the plain version does), all within TOL_ABS and
+    TOL_LOGZ_REL (the summed ln; at T=2048 per lane); and with one lane's
+    step made indefinite, whose J, h from that step on and ln must come back
+    non-finite, and every other lane's output finite. Raises if not;
+    returns ``{case: (max abs, ln rel)}`` and the non-finite counts."""
+    def held(name, args, per_lane=False):
+        J, h, ln = bpairs.bidir_fwd(*_f32(args))
+        torch.cuda.synchronize()
+        Jp, hp, lnp = bpairs.bidir_fwd_plain(*args)
+        err = _max_err((J, h), (Jp, hp))
+        ln_rel = (float(((ln.double() - lnp).abs() / lnp.abs()).max())
+                  if per_lane else abs(float(ln.double().sum() - lnp.sum()))
+                  / abs(float(lnp.sum())))
+        if not (err <= TOL_ABS and ln_rel <= TOL_LOGZ_REL):
+            raise AssertionError(f"bidir_fwd disagrees with its plain "
+                                 f"version [{name}]: max abs {err}, ln rel "
+                                 f"{ln_rel}")
+        out[name] = (err, ln_rel)
+
+    out = {}
+    held("slds", bpairs_problem(BIDIR_ADJ_SHAPES["slds"], seed,
+                                device)[0][:8])
+    held("one_direction", one_direction_problem(
+        BIDIR_ADJ_SHAPES["one_direction"], seed, device)[:8], per_lane=True)
+    args = list(bpairs_problem(RAGGED_SHAPES["small"], seed, device)[0][:8])
+    T1, dd, NL = args[3].shape
+    d = args[1].shape[0]
+    upper = torch.triu(torch.ones(d, d, device=device), 1).reshape(dd, 1)
+    g = torch.Generator(device=device).manual_seed(seed + 7)
+    args[3] = args[3] + 0.3 * upper * torch.randn(
+        args[3].shape, generator=g, dtype=args[3].dtype, device=device)
+    held("asymmetric_C", args)
+
+    # lane l0's step t0 made indefinite: M = J + A_t0 - 1e4 I
+    l0, t0 = NL - 1, T1 // 2
+    A = args[2].clone()
+    A[t0, ::d + 1, l0] -= 1e4
+    args[2] = A
+    J, h, ln = bpairs.bidir_fwd(*_f32(args))
+    torch.cuda.synchronize()
+    bad = ~torch.isfinite(J).all(1), ~torch.isfinite(h).all(1)
+    want = torch.zeros((T1, NL), dtype=torch.bool, device=device)
+    want[t0:, l0] = True
+    lane = torch.zeros(NL, dtype=torch.bool, device=device)
+    lane[l0] = True
+    if not (bool((bad[0] == want).all()) and bool((bad[1] == want).all())
+            and bool((~torch.isfinite(ln) == lane).all())):
+        raise AssertionError("bidir_fwd: an indefinite step did not poison "
+                             "exactly its lane's J, h from that step on and "
+                             "its ln")
+    out["non_spd"] = int((~torch.isfinite(J)).sum() + (~torch.isfinite(h))
+                         .sum())
+    return out
 
 
 def check_bidir_adj_shapes(seed=0, device="cuda"):
@@ -850,29 +954,43 @@ def _time_ms(fn, runs=TIMING_RUNS, warmup=3):
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-def _device_ms(fn, calls=20, warmup=3):
+def _device_ms(fn, calls=20, warmup=3, tries=3):
     """Device time per call of ``fn()`` by kernel, under torch.profiler:
     ``{kernel name: ms}`` (a port kernel by its function name, a PyTorch
     kernel by the first 40 characters of its name). Unlike _time_ms, it
-    does not count the host's time to launch the call."""
+    does not count the host's time to launch the call. In a process that
+    opens many profiler sessions, a session can lose some of its device
+    records (a 2.5 ms kernel read 1.9 ms a call in one), or all of them:
+    so a kernel's time a call is the mean of its records times its
+    launches a call, the count of its records over ``calls`` rounded, and
+    a session with no device record is taken again, up to ``tries``
+    sessions; after that the reading is empty and said to be not
+    measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    ms = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        m = re.search(r"(\w+_kernel)<", e.name)
-        name = m.group(1) if m else e.name[:40]
-        ms[name] = ms.get(name, 0.0) + (
-            e.time_range.end - e.time_range.start) / calls / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            m = re.search(r"(\w+_kernel)<", e.name)
+            name = m.group(1) if m else e.name[:40]
+            spans.setdefault(name, []).append(
+                (e.time_range.end - e.time_range.start) / 1e3)
+        ms = {k: float(np.mean(v)) * max(1, round(len(v) / calls))
+              for k, v in spans.items()}
+        if ms:
+            return ms
+    print(f"device time not measured: torch.profiler recorded no device "
+          f"event in {tries} sessions")
     return ms
 
 
@@ -997,9 +1115,10 @@ PASS_PLAINS = (estep.filter_adj_factor_plain, estep.filter_adj_chain_plain,
 FWD_PASS_WRAPPERS = (estep.sampler_fwd_factor, estep.sampler_fwd_chain)
 FWD_PASS_PLAINS = (estep.sampler_fwd_factor_plain,
                    estep.sampler_fwd_chain_plain)
-# the passes of the element scan's and the bidirectional filter's
-# adjoints one by one (check_elem_scan, check_bidir_adj, phase 5); the model
-# paths launch both kernels of each through its adjoint's one C call
+# the passes of the element scan's, the bidirectional filter's and the
+# per-sequence sampler's adjoints one by one (check_elem_scan,
+# check_bidir_adj, check_sampler_bp_adj_passes, phase 5); the model paths
+# launch the kernels of each through its adjoint's one C call
 CHUNK_PASS_WRAPPERS = (chunked.elem_scan_adj_factor,
                        chunked.elem_scan_adj_chain)
 CHUNK_PASS_PLAINS = (chunked.elem_scan_adj_factor_plain,
@@ -1007,18 +1126,28 @@ CHUNK_PASS_PLAINS = (chunked.elem_scan_adj_factor_plain,
 RAGGED_PASS_WRAPPERS = (bpairs.bidir_adj_factor, bpairs.bidir_adj_chain)
 RAGGED_PASS_PLAINS = (bpairs.bidir_adj_factor_plain,
                       bpairs.bidir_adj_chain_plain)
+SAMPLER_BP_PASS_WRAPPERS = (bpairs.sampler_bp_adj_factor,
+                            bpairs.sampler_bp_adj_chain,
+                            bpairs.sampler_bp_adj_dJc)
+SAMPLER_BP_PASS_PLAINS = (bpairs.sampler_bp_adj_factor_plain,
+                          bpairs.sampler_bp_adj_chain_plain,
+                          bpairs.sampler_bp_adj_dJc_plain)
 LAUNCHED_BY = {**{w.__name__: estep.sampler_fwd.__name__
                   for w in FWD_PASS_WRAPPERS},
                **{w.__name__: chunked.elem_scan_adj.__name__
                   for w in CHUNK_PASS_WRAPPERS},
                **{w.__name__: bpairs.bidir_adj.__name__
-                  for w in RAGGED_PASS_WRAPPERS}}
+                  for w in RAGGED_PASS_WRAPPERS},
+               **{w.__name__: bpairs.sampler_bp_adj.__name__
+                  for w in SAMPLER_BP_PASS_WRAPPERS}}
 ALL_WRAPPERS = (WRAPPERS + PASS_WRAPPERS + FWD_PASS_WRAPPERS
                 + RAGGED_WRAPPERS + RAGGED_PASS_WRAPPERS
+                + SAMPLER_BP_PASS_WRAPPERS
                 + HMM_WRAPPERS + CHUNK_WRAPPERS + CHUNK_PASS_WRAPPERS
                 + KFWD_WRAPPERS)
 ALL_PLAINS = (PLAINS + PASS_PLAINS + FWD_PASS_PLAINS + RAGGED_PLAINS
-              + RAGGED_PASS_PLAINS + HMM_PLAINS + CHUNK_PLAINS
+              + RAGGED_PASS_PLAINS + SAMPLER_BP_PASS_PLAINS + HMM_PLAINS
+              + CHUNK_PLAINS
               + CHUNK_PASS_PLAINS + KFWD_PLAINS)
 TRAIN_K = 8
 
@@ -1772,7 +1901,8 @@ def kalman_fwd_timings(device="cuda"):
     ``sampler_bp_fwd`` on the pairs expanded per sequence (the routes the
     shared-pair kernels could have been served by), at config-2 width and
     at the long T; both E-steps on the same chain (CUDA events; the plain
-    versions 10 runs at config 2, 3 at the long T)."""
+    versions 10 runs at config 2, 3 at the long T; ``bidir_fwd``'s device
+    time too)."""
     t = {}
     for tag, name in (("", "config2"), ("_longT", "longT")):
         shape = KFWD_SHAPES[name]
@@ -1816,6 +1946,9 @@ def kalman_fwd_timings(device="cuda"):
         for k, (fwd, adj) in one_dir.items():
             t[f"bidir_fwd_{k}{tag}"] = _time_ms(lambda: bpairs.bidir_fwd(
                 *fwd))
+            t[f"bidir_fwd_{k}_device{tag}"] = _device_ms(
+                lambda: bpairs.bidir_fwd(*fwd)).get("bidir_fwd_kernel",
+                                                    math.nan)
             t[f"bidir_fwd_{k}_plain{tag}"] = _time_ms(
                 lambda: bpairs.bidir_fwd_plain(*fwd), runs=runs, warmup=1)
             t[f"bidir_adj_{k}{tag}"] = _time_ms(lambda: bpairs.bidir_adj(
@@ -1853,7 +1986,10 @@ def _twins_on_card():
 
 def slds_timings(device="cuda", cfg=SLDS_CONFIG, epochs=2):
     """Phase 5, SLDS path: each HMM kernel and its plain version at the
-    slds_synth sweep shape and at measure_hmm's; ``slds.run_inference`` at
+    slds_synth sweep shape and at measure_hmm's; ``bidir_fwd`` and
+    ``sampler_bp_adj`` (with its passes) at the slds_synth x-step's shape
+    (BIDIR_ADJ_SHAPES["slds"]: 2B = 32 lanes, T=80, d=4, S=2), event and
+    device time; ``slds.run_inference`` at
     measure_slds's shape on the kernels and on the twins; one slds_synth
     train step (CUDA events); and the wall time of an slds_synth epoch
     (host clock around each, ending in a sync; one untimed, then the
@@ -1876,6 +2012,9 @@ def slds_timings(device="cuda", cfg=SLDS_CONFIG, epochs=2):
                                   (adj + "_plain", adj_args, 10)):
                 fn = getattr(hmm_fb, name)
                 t[name + tag] = _time_ms(lambda: fn(*a), runs=runs)
+
+    filt, samp, _ = bpairs_problem(BIDIR_ADJ_SHAPES["slds"], 0, device)
+    _bpairs_kernel_times(t, "_slds", _f32(filt), _f32(samp))
 
     ms = MEASURE_SLDS
     g = torch.Generator().manual_seed(0)
@@ -1936,11 +2075,12 @@ def _adjoint_pass_times(t, tag, name, adjoint, passes, plains=None):
     version's event time. Keys end in ``tag``."""
     t[name + tag] = _time_ms(adjoint)
     dev = _device_ms(adjoint)
-    t[name + "_device" + tag] = sum(v for n, v in dev.items()
-                                    if n.startswith(name))
+    t[name + "_device" + tag] = (sum(v for n, v in dev.items()
+                                     if n.startswith(name))
+                                 if dev else math.nan)
     for k, fn in passes.items():
         t[k + tag] = _time_ms(fn)
-        t[k + "_device" + tag] = dev.get(k + "_kernel", 0.0)
+        t[k + "_device" + tag] = dev.get(k + "_kernel", math.nan)
     for k, fn in (plains or {}).items():
         t[k + "_plain" + tag] = _time_ms(fn, runs=10)
     print(f"device {name}{tag}: {t[name + '_device' + tag]:.4f} ms in its "
@@ -2145,10 +2285,37 @@ def timings(device="cuda"):
     return t
 
 
+def _bpairs_kernel_times(t, tag, filt, samp, plains=False):
+    """Into ``t`` (keys ending in ``tag``), on the float32 problems ``filt``
+    and ``samp`` of bpairs_problem: ``bidir_fwd``'s event and device time;
+    ``sampler_bp_adj``'s, and each of its passes alone and its device time
+    within the adjoint (_adjoint_pass_times), with the passes' plain
+    versions if ``plains``."""
+    fwd = lambda: bpairs.bidir_fwd(*filt[:8])
+    t["bidir_fwd" + tag] = _time_ms(fwd)
+    t["bidir_fwd_device" + tag] = _device_ms(fwd).get("bidir_fwd_kernel",
+                                                      math.nan)
+    P2, P3, Jf, hf, eps, xT, x, dx = samp
+    W = bpairs.sampler_bp_adj_factor(P3, Jf)
+    bbar = bpairs.sampler_bp_adj_chain(W, P2, dx)[0]
+    dJc_args = (P2, P3, Jf, hf, eps, xT, x, bbar)
+    passes = {
+        "sampler_bp_adj_factor": (bpairs.sampler_bp_adj_factor, (P3, Jf)),
+        "sampler_bp_adj_chain": (bpairs.sampler_bp_adj_chain, (W, P2, dx)),
+        "sampler_bp_adj_dJc": (bpairs.sampler_bp_adj_dJc, dJc_args)}
+    _adjoint_pass_times(
+        t, tag, "sampler_bp_adj", lambda: bpairs.sampler_bp_adj(*samp),
+        {k: functools.partial(fn, *a) for k, (fn, a) in passes.items()},
+        {k: functools.partial(getattr(bpairs, k + "_plain"), *a)
+         for k, (_, a) in passes.items()} if plains else None)
+    print(f"device bidir_fwd{tag}: {t['bidir_fwd_device' + tag]:.4f} ms")
+
+
 def ragged_timings(device="cuda", seqs=None, B=RAGGED_B, pad=RAGGED_PAD):
     """Phase 5, ragged path: the bpairs kernels at B=64, T=128 and at
-    T=512, their plain versions at T=128, ``bidir_adj``'s passes alone and
-    the device time of each within the adjoint (also at
+    T=512, their plain versions at T=128, ``bidir_fwd``'s device time,
+    ``bidir_adj``'s and ``sampler_bp_adj``'s passes alone and the device
+    time of each within its adjoint (``bidir_adj`` also at
     BIDIR_ADJ_SHAPES), one ragged train step per length
     bucket (CUDA events), and the wall time of a bucketed epoch against
     the same corpus padded to T_max (host clock around each epoch, which
@@ -2158,7 +2325,7 @@ def ragged_timings(device="cuda", seqs=None, B=RAGGED_B, pad=RAGGED_PAD):
     for tag, shape in (("", RAGGED_SHAPES["ragged"]), ("_T512", RAGGED_LONG)):
         filt, samp, _ = bpairs_problem(shape, 0, device)
         filt, samp = _f32(filt), _f32(samp)
-        t["bidir_fwd" + tag] = _time_ms(lambda: bpairs.bidir_fwd(*filt[:8]))
+        _bpairs_kernel_times(t, tag, filt, samp, plains=not tag)
         fac = bpairs.bidir_adj_factor(*filt[:10])
         passes = {"bidir_adj_factor": lambda: bpairs.bidir_adj_factor(
                       *filt[:10]),
@@ -2173,8 +2340,6 @@ def ragged_timings(device="cuda", seqs=None, B=RAGGED_B, pad=RAGGED_PAD):
                             lambda: bpairs.bidir_adj(*filt), passes, plains)
         t["sampler_bp_fwd" + tag] = _time_ms(
             lambda: bpairs.sampler_bp_fwd(*samp[:6]))
-        t["sampler_bp_adj" + tag] = _time_ms(
-            lambda: bpairs.sampler_bp_adj(*samp))
         if not tag:
             t["bidir_fwd_plain"] = _time_ms(
                 lambda: bpairs.bidir_fwd_plain(*filt[:8]), runs=10)
@@ -2331,7 +2496,12 @@ def bound(name, B, T, d, S, NL=None):
                   + T1 * (3 * dd + 2 * d) * NL + (dd + d) * NL)
     elif name == "bidir_fwd":
         chains = NL
-        step = d ** 3 / 3 + d ** 3 + d * d * (d + 1) + 3 * d * d
+        # Gauss-Jordan on [M | D^T | v]: round k updates d-1 rows of the
+        # d-k-1 columns of M right of the pivot and the d+1 columns on the
+        # right, (d-1)(3d^2 + d)/2 multiply-adds in all; D X_D d^3, D X_v
+        # d^2, v . X_v d; J' and h' d^2 + d
+        step = 2 * ((d - 1) * (3 * d * d + d) / 2 + d ** 3 + 2 * d * d
+                    + 2 * d)
         # in: J0, h0, the A, C, D, e, f, pc streams; out: J, h, ln
         floats = ((tri + d) * NL + T1 * (2 * tri + dd + 2 * d + 1) * NL
                   + T1 * (dd + d) * NL + NL)
@@ -2354,14 +2524,36 @@ def bound(name, B, T, d, S, NL=None):
         step = d ** 3 / 3 + 4 * d * d
         # in: P2, P3, Jf, hf per sequence, eps, xT; out: x
         floats = T1 * (dd + 2 * tri + d) * B + 2 * T1 * d * SB + d * SB
-    elif name == "sampler_bp_adj":
-        chains = SB
-        step = d ** 3 / 3 + 2 * d ** 3 + 14 * d * d
-        # in: P2, P3, Jf, hf, xT, x (steps 1..T-2), dx (not the noise: x
-        # determines it); out: dP2, dP3, dJf, dhf (summed over the
-        # samples), dxT
-        floats = (T1 * (dd + 2 * tri + d) * B + T1 * (3 * dd + d) * B
-                  + (2 * T1 - 1) * d * SB + 2 * d * SB)
+    elif name.startswith("sampler_bp_adj"):
+        # per (step, sequence) of the three passes, S = the samples: the
+        # factor pass's chol d^3/3 and inverse 2 d^3/3; the chain's W x-bar
+        # and P2 b-bar 4 d^2 a sample; the dJc pass's chol d^3/3, L^-1
+        # d^3/3 and Linv^T Z Linv 4 d^3/3 once, and per sample b 2 d^2, w
+        # and u 2 d^2, Z 3 d^2, dP2 2 d^2 and dhf d
+        chains = B
+        ops = {"factor": d ** 3, "chain": 4 * d * d * S,
+               "dJc": 2 * d ** 3 + S * (9 * d * d + d)}
+        if name == "sampler_bp_adj_factor":
+            step = ops["factor"]
+            # in: P3, Jf (lower triangles); out: W
+            floats = T1 * (2 * tri + dd) * B
+        elif name == "sampler_bp_adj_chain":
+            step = ops["chain"]
+            # in: W (symmetric), P2, dx; out: bbar, dxT
+            floats = T1 * (tri + dd) * B + 2 * T1 * d * SB + d * SB
+        elif name == "sampler_bp_adj_dJc":
+            step = ops["dJc"]
+            # in: P2, P3, Jf, hf, eps, xT, x (steps 1..T-2), bbar; out:
+            # dP2, dP3, dJf, dhf
+            floats = (T1 * (dd + 2 * tri + d) * B + 3 * T1 * d * SB
+                      + T1 * (3 * dd + d) * B)
+        else:
+            step = sum(ops.values())
+            # in: P2, P3, Jf, hf, xT, x (steps 1..T-2), dx (not the noise:
+            # x determines it); out: dP2, dP3, dJf, dhf (summed over the
+            # samples), dxT
+            floats = (T1 * (dd + 2 * tri + d) * B + T1 * (3 * dd + d) * B
+                      + (2 * T1 - 1) * d * SB + 2 * d * SB)
     elif name in ("filter_shared", "backward_shared"):
         chains = B
         # chol d^3/3, z d^2, Y = L^-1 P2^T d^3, J' d^2 (d+1), h' 2 d^2
@@ -2523,9 +2715,16 @@ def main():
               f"rel, max abs): {e}")
         for k in ("bidir_fwd", "sampler_bp_fwd"):
             errs[k] = max(errs.get(k, 0.0), e[k])
-        for k in ("bidir_adj", "bidir_adj_factor", "bidir_adj_chain",
-                  "sampler_bp_adj"):
+        for k in ("bidir_adj", "bidir_adj_factor",
+                  "bidir_adj_chain") + SAMPLER_BP_ERRS:
             errs[k] = max(errs.get(k, 0.0), e[k][1])
+    e = check_bidir_fwd()
+    print(f"bidir_fwd vs plain [slds {BIDIR_ADJ_SHAPES['slds']}, one "
+          f"direction {BIDIR_ADJ_SHAPES['one_direction']}, asymmetric C] "
+          f"(max abs, ln rel), and non-finite entries of an indefinite "
+          f"step's lane: {e}")
+    errs["bidir_fwd"] = max([errs["bidir_fwd"]]
+                            + [v[0] for k, v in e.items() if k != "non_spd"])
     for name, e in check_bidir_adj_shapes().items():
         print(f"bidir_adj and its passes vs plain versions [{name} "
               f"{BIDIR_ADJ_SHAPES[name]}] (normwise rel, max abs): {e}")

@@ -1,9 +1,10 @@
 // Pieces shared by the kernels that run as passes (filter_adj.cu,
-// bidir_adj.cu, sampler_adj.cu, elem_scan_adj.cu, and the sampler's in
-// estep.cu): the in-place inverse of a Cholesky factor, which their
-// parallel factor passes run on one thread's registers; the sampler's step
-// precision Jc = Jf_t - 2 P3, its factor and its inverse W, which the
-// forward sampler's factor pass and the adjoint's compute alike; the
+// bidir_adj.cu, sampler_adj.cu, sampler_bp_adj.cu, elem_scan_adj.cu, and
+// the sampler's in estep.cu): the in-place inverse of a Cholesky factor,
+// which their parallel factor passes run on one thread's registers; the
+// sampler's step precision Jc = Jf_t - 2 P3, its factor and its inverse W,
+// which the forward sampler's factor pass and the adjoints' compute alike,
+// on stationary or per-sequence pairs; the
 // information filter adjoint's factor row [W | K | w] and its chain step,
 // which the stationary (filter_adj.cu) and the per-sequence-pairs
 // (bidir_adj.cu) adjoints share; and the geometry of the passes.
@@ -72,11 +73,12 @@ __device__ __forceinline__ void inverse_from_chol(float (&L)[D][D],
 
 // The lower Cholesky factor L (rd: its reciprocal diagonal) of one
 // sequence's Jc = Jf_t - 2 P3: Jt points at Jf_t's entry of the sequence
-// ((d*d, B) from there, lane-minor; its lower triangle read), s2P3 holds
-// 2 P3.
-template <int D>
+// ((d*d, B) from there, lane-minor; its lower triangle read), s2P3[k]
+// gives 2 P3's entry k = i*d + j (a shared row of the stationary P3, or
+// TwiceStream's row of a per-sequence one).
+template <int D, class TwoP3>
 __device__ __forceinline__ void factor_jc(const float* __restrict__ Jt,
-                                          const float* s2P3, int B,
+                                          const TwoP3& s2P3, int B,
                                           float (&L)[D][D], float (&rd)[D]) {
 #pragma unroll
   for (int i = 0; i < D; ++i) {
@@ -85,6 +87,29 @@ __device__ __forceinline__ void factor_jc(const float* __restrict__ Jt,
       L[i][j] = Jt[(i * D + j) * B] - s2P3[i * D + j];
   }
   chol_inplace<D>(L, rd);
+}
+
+// 2 P3_t's entries of one sequence on a per-sequence (T-1, d*d, B) stream,
+// p at the step and sequence's entry.
+struct TwiceStream {
+  const float* p;
+  int B;
+  __device__ __forceinline__ float operator[](int k) const {
+    return 2.f * p[(size_t)k * B];
+  }
+};
+
+// factor_jc on per-sequence pairs: Jc_t = Jf_t - 2 P3_t of sequence b, at
+// = t*d*d*B + b its entry of both (T-1, d*d, B) streams. The factor passes
+// of the per-sequence samplers (sampler_bp_adj.cu) run it, once for the S
+// samples of a sequence, and store_inverse writes their W.
+template <int D>
+__device__ __forceinline__ void factor_jc_bp(const float* __restrict__ Jf,
+                                             const float* __restrict__ P3,
+                                             size_t at, int B,
+                                             float (&L)[D][D],
+                                             float (&rd)[D]) {
+  factor_jc<D>(Jf + at, TwiceStream{P3 + at, B}, B, L, rd);
 }
 
 // Overwrite the factor L of factor_jc with the lower triangle of W = Jc^-1

@@ -10,112 +10,197 @@
 // chain of T-1 small dense steps, and at the ragged slice's shape (B=64,
 // 2B = 128 filter chains, S*B = 64 sampler chains, T up to 512, d=10) there
 // are far fewer chains than the card holds threads: the latency of one
-// chain's arithmetic bounds them. Unlike estep.cu's, these kernels stream
-// the pair blocks: a filter step reads A (lower triangle), C, D, e, f and
-// pc, 2.55 d^2 + 2d + 1 floats a lane (about 1.1 KB at d=10) where the
-// stationary filter reads 2d, and writes d^2 + d as it does. That is still
-// far below what the card moves in the time the chain's arithmetic takes.
+// chain's step bounds them. Unlike estep.cu's, these kernels stream the
+// pair blocks: a filter step reads A (lower triangle), C, D, e, f and pc,
+// 2.55 d^2 + 2d + 1 floats a lane (about 1.1 KB at d=10) where the
+// stationary filter reads 2d, and writes d^2 + d as it does. The function's
+// bytes still take far less time than the chain's steps.
 //
-// What the design does about it. One thread runs one chain in one launch,
-// its carried message in registers. The streams keep the lane innermost
-// ((T-1, d*d, lanes)), so at every step the threads of a warp read
-// neighbouring addresses. T and the lane counts are runtime arguments (the
+// What the design does about it.
+//
+// The filter's factorization cannot leave its chain: the step's M = J + A_t
+// depends on the carried J. So bidir_fwd_kernel takes estep.cu's
+// filter_fwd design, one warp per chain: lane j < d holds column j of M and
+// row j of D_t (column j of D_t^T), lane d the vector v = h + f_t, and a
+// step is a Gauss-Jordan elimination of the tile [M | D_t^T | v] over d
+// rounds of pivot-column shuffles, which leaves X = M^-1 [D_t^T | v] on the
+// lanes. Then column j of J' = C_t - D_t X_D goes on lane j, which already
+// holds the column that the next step's M reads, h' = D_t X_v + e_t on lane
+// d, and ln gains d/2 log 2pi - 1/2 sum log p_k + 1/2 v . X_v + pc_t, the
+// log sum over the warp off the chain, summed in double on the vector
+// lane. A non-positive pivot gives a NaN reciprocal, which poisons the
+// step's J, h and the chain's ln.
+// What differs from the stationary filter: every block is a per-lane
+// stream ((T-1, d*d, lanes), the lane innermost, the layout bidir_adj's
+// passes and the packing glue read). D_t changes every step, so each lane
+// stores its row of D_t into a double-buffered shared tile every step (one
+// warp barrier a step), and D_t X reads it as broadcasts. A lane loads
+// its column of A and row of D (the vector lane: f) for step t+1 while
+// step t computes, and its column of C, the row of C that holds its
+// column's lower triangle (the vector lane: e) and pc at the start of the
+// step that reads them at its end; the loads are unconditional and the
+// step clamped (a load under a condition waits at once). J is written as
+// C_t - D_t X_D with C read in full, and the carry takes C's lower
+// triangle, as the plain version does. One chain's entries lie 4 NL bytes
+// apart, so each float a lane loads costs a sector of its own; adjacent
+// chains in one block (kBidirChains warps) would share those sectors, but
+// 2 and 4 a block ran 3-33% slower than 1 (PERF.md §6), so a block runs
+// one chain.
+//
+// The sampler (one thread per chain, unchanged here) reads the pairs at
+// sequence lane % B. T and the lane counts are runtime arguments (the
 // length buckets and a tail batch vary them); only d is a template
-// parameter, so the step's loops unroll. There is no lane or time padding:
-// a lane is a thread, and every stream row is a real step.
+// parameter, so the steps' loops unroll. There is no lane or time padding:
+// every stream row is a real step.
 
 #include "estep_common.cuh"
 
 namespace {
 
-// One thread per lane. Per stream row t:
-//   M = J + A_t (lower triangle), L = chol(M), v = L^-1 (h + f_t),
-//   ln += d/2 log 2pi - logdet(L) + |v|^2 / 2 + pc_t,
-//   Y = L^-1 D_t^T, J' = C_t - Y^T Y, h' = Y^T v + e_t.
-// Layouts: J0 (d*d, NL), h0 (d, NL); A, C, D (T1, d*d, NL); E, F (T1, d, NL);
-// Pc (T1, NL); out J (T1, d*d, NL), h (T1, d, NL), ln (NL).
+// How many chains (one warp each) a block of bidir_fwd_kernel runs.
+constexpr int kBidirChains = 1;
+
+// One warp per lane (chain) l of the NL lanes, kBidirChains a block. Per
+// stream row t: the Gauss-Jordan elimination of [M | D_t^T | v], M = J +
+// A_t, v = h + f_t, gives X = M^-1 [D_t^T | v]; then J' = C_t - D_t X_D,
+// h' = D_t X_v + e_t, ln += d/2 log 2pi - 1/2 sum log p_k + 1/2 v . X_v +
+// pc_t. Layouts: J0 (d*d, NL), h0 (d, NL); A, C, D (T1, d*d, NL); E, F
+// (T1, d, NL); Pc (T1, NL); out J (T1, d*d, NL), h (T1, d, NL), ln (NL).
+// J0 and A are read as their lower triangles.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kBidirChains)
 bidir_fwd_kernel(int NL, int T1, const float* __restrict__ J0,
                  const float* __restrict__ h0, const float* __restrict__ A,
                  const float* __restrict__ C, const float* __restrict__ Dm,
                  const float* __restrict__ E, const float* __restrict__ F,
                  const float* __restrict__ Pc, float* __restrict__ Jout,
                  float* __restrict__ hout, float* __restrict__ ln) {
+  static_assert(D + 1 <= 32, "a chain's columns must fit one warp");
   constexpr int DD = D * D;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= NL) return;
+  constexpr int DP = (D + 3) & ~3;  // the D tile's row stride, for float4
+  constexpr unsigned kAll = 0xffffffffu;
+  __shared__ __align__(16) float sDall[kBidirChains][2 * D * DP];
+  const int lane = blockIdx.x * kBidirChains + threadIdx.x / 32;
+  if (lane >= NL) return;  // the whole warp
+  float* sD = sDall[threadIdx.x / 32];
+  const int j = threadIdx.x % 32;
+  for (int k = j; k < 2 * D * DP; k += 32) sD[k] = 0.f;  // the padding
+  __syncwarp();  // before the first step's rows land on the zeros
+  const bool vec = j == D;           // the lane of the vector column
+  const int jc = j < D ? j : D - 1;  // the column a lane reads (clamped)
+  const size_t mstep = (size_t)DD * NL;
+  // a lane's row streams, stride NL between entries: row jc of D (the
+  // vector lane: f) and row jc of C (the vector lane: e)
+  const float* Drow = vec ? F + lane : Dm + (size_t)jc * D * NL + lane;
+  const float* Crow = vec ? E + lane : C + (size_t)jc * D * NL + lane;
+  const size_t rstep = vec ? (size_t)D * NL : mstep;
+  // entry i of column jc of a symmetric block, read from its lower triangle
+  auto lo = [&](int i) { return (i > jc ? i * D + jc : jc * D + i) * NL; };
 
-  float J[D][D];  // carried message, lower triangle
-  float h[D];
+  // lane j < D: column j of the carried J; lane D: the carried h
+  float cj[D];
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-#pragma unroll
-    for (int j = 0; j <= i; ++j) J[i][j] = J0[(i * D + j) * NL + lane];
-    h[i] = h0[i * NL + lane];
-  }
-  float acc = 0.f;
+  for (int i = 0; i < D; ++i)
+    cj[i] = vec ? h0[i * NL + lane] : J0[lo(i) + lane];
 
+  // step t+1's column of A and row of D (f) in flight while step t
+  // computes (unconditional loads, the step clamped to T1-1)
+  float nA[D], nR[D];
+  auto load = [&](int t) {
+    t = t < T1 ? t : T1 - 1;
+    const float* a = A + t * mstep + lane;
+    const float* r = Drow + t * rstep;
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      nA[i] = a[lo(i)];
+      nR[i] = r[(size_t)i * NL];
+    }
+  };
+  load(0);
+  // the chain's ln, on the vector lane, summed in double: a float sum of
+  // T-1 terms would round at the sum's magnitude every step
+  double acc = 0.0;
+
+#pragma unroll 1
   for (int t = 0; t < T1; ++t) {
-    const size_t mat = (size_t)t * DD * NL + lane;
-    const size_t vec = (size_t)t * D * NL + lane;
-    float L[D][D], rd[D];
+    float Ar[D], Dr[D];
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-#pragma unroll
-      for (int j = 0; j <= i; ++j)
-        L[i][j] = J[i][j] + A[mat + (size_t)(i * D + j) * NL];
+      Ar[i] = nA[i];
+      Dr[i] = nR[i];
     }
-    const float half_logdet = chol_inplace<D>(L, rd);
-
-    float v[D];
-    float q = 0.f;
+    // what the step reads at its end: column jc of C_t in full (Cc), the
+    // row of C_t that holds the column's lower triangle above the
+    // diagonal (the vector lane: e_t) (Cr), and pc_t
+    float Cc[D], Cr[D];
+    const float* c = C + t * mstep + lane;
+    const float* cr = Crow + t * rstep;
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-      float s = h[i] + F[vec + (size_t)i * NL];
-#pragma unroll
-      for (int k = 0; k < i; ++k) s -= L[i][k] * v[k];
-      v[i] = s * rd[i];
-      q += v[i] * v[i];
+      Cc[i] = c[(size_t)(i * D + jc) * NL];
+      Cr[i] = cr[(size_t)i * NL];
     }
-    acc += 0.5f * D * kLog2Pi - half_logdet + 0.5f * q +
-           Pc[(size_t)t * NL + lane];
+    const float pc = Pc[(size_t)t * NL + lane];
+    load(t + 1);
+    float* sDt = sD + (t & 1) * D * DP;
+    if (j < D) {
+#pragma unroll
+      for (int i = 0; i < D; ++i) sDt[j * DP + i] = Dr[i];
+    }
+    // (one barrier a step: the tile written here was last read two steps
+    // ago, before every lane passed the previous step's barrier)
+    __syncwarp();
 
-    float Y[D][D];  // L^-1 D^T: column j of D^T is row j of D
+    float m[D], x[D], v[D];
 #pragma unroll
     for (int i = 0; i < D; ++i) {
+      m[i] = cj[i] + Ar[i];
+      v[i] = cj[i] + Dr[i];  // the vector lane's h + f
+      x[i] = vec ? v[i] : Dr[i];
+    }
+    float pj = 1.f;  // this lane's pivot
 #pragma unroll
-      for (int j = 0; j < D; ++j) {
-        float s = Dm[mat + (size_t)(j * D + i) * NL];
+    for (int k = 0; k < D; ++k) {
+      // the pivot column, from lane k
+      float col[D];
 #pragma unroll
-        for (int k = 0; k < i; ++k) s -= L[i][k] * Y[k][j];
-        Y[i][j] = s * rd[i];
+      for (int i = 0; i < D; ++i) col[i] = __shfl_sync(kAll, m[i], k);
+      const float p = col[k];
+      if (j == k) pj = p;
+      const float rp = p > 0.f ? __fdividef(1.f, p) : nan_f();
+      const float mk = m[k] * rp, xk = x[k] * rp;
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        if (i == k) continue;
+        m[i] -= col[i] * mk;
+        x[i] -= col[i] * xk;
       }
+      m[k] = mk;
+      x[k] = xk;
     }
 
-    // J' = C - Y^T Y, written in full (C is read in full, as the Pallas
-    // kernel does); the carry keeps the lower triangle
-    float* Jt = Jout + mat;
+    // y = D_t X, column j of it on lane j
+    float y[D], q = 0.f;
 #pragma unroll
     for (int i = 0; i < D; ++i) {
+      y[i] = row_dot<D, DP>(sDt + i * DP, x);
+      q += v[i] * x[i];
+    }
+    acc += 0.5f * D * kLog2Pi - 0.5f * warp_log_sum(pj) + 0.5f * q + pc;
+
+    // lane j < D writes column j of J' in full and carries its lower
+    // triangle; the vector lane writes and carries h'
+    float* out = vec ? hout + (size_t)t * D * NL + lane
+                     : Jout + t * mstep + (size_t)jc * NL + lane;
+    const size_t ostep = vec ? (size_t)NL : (size_t)D * NL;
 #pragma unroll
-      for (int j = 0; j <= i; ++j) {
-        float s = 0.f;
-#pragma unroll
-        for (int k = 0; k < D; ++k) s += Y[k][i] * Y[k][j];
-        J[i][j] = C[mat + (size_t)(i * D + j) * NL] - s;
-        Jt[(size_t)(i * D + j) * NL] = J[i][j];
-        if (j < i)
-          Jt[(size_t)(j * D + i) * NL] = C[mat + (size_t)(j * D + i) * NL] - s;
-      }
-      float s = E[vec + (size_t)i * NL];
-#pragma unroll
-      for (int k = 0; k < D; ++k) s += Y[k][i] * v[k];
-      h[i] = s;
-      hout[vec + (size_t)i * NL] = s;
+    for (int i = 0; i < D; ++i) {
+      const float o = vec ? y[i] + Cr[i] : Cc[i] - y[i];
+      cj[i] = vec || i >= jc ? o : Cr[i] - y[i];
+      if (j <= D) out[i * ostep] = o;
     }
   }
-  ln[lane] = acc;
+  if (vec) ln[lane] = (float)acc;
 }
 
 // One thread per (sample s, sequence b), lane s*B + b, walking
@@ -185,8 +270,8 @@ int launch_bidir_fwd(int NL, int T1, const float* J0, const float* h0,
                      const float* A, const float* C, const float* Dm,
                      const float* E, const float* F, const float* Pc,
                      float* J, float* h, float* ln, cudaStream_t stream) {
-  dim3 grid((NL + kThreads - 1) / kThreads);
-  bidir_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
+  dim3 grid((NL + kBidirChains - 1) / kBidirChains);
+  bidir_fwd_kernel<D><<<grid, 32 * kBidirChains, 0, stream>>>(
       NL, T1, J0, h0, A, C, Dm, E, F, Pc, J, h, ln);
   return (int)cudaGetLastError();
 }

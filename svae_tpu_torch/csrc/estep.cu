@@ -76,34 +76,6 @@ namespace {
 constexpr int kFilterRing = 1;
 constexpr int kSamplerRing = 4;
 
-__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fffffff); }
-
-// w . x for a row w of d floats in shared memory (16-byte aligned, padded
-// with zeros to DP), read four at a time.
-template <int D, int DP>
-__device__ __forceinline__ float row_dot(const float* w, const float (&x)[D]) {
-  float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-  for (int k = 0; k < DP; k += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(w + k);
-    s0 += v.x * x[k];
-    if (k + 1 < D) s1 += v.y * x[k + 1];
-    if (k + 2 < D) s0 += v.z * x[k + 2];
-    if (k + 3 < D) s1 += v.w * x[k + 3];
-  }
-  return s0 + s1;
-}
-
-// sum_k log p_k over a step's pivots, lane k holding p_k (1 on the other
-// lanes): one logf a lane and a butterfly sum over the warp, off the
-// chain, where a logf a pivot on every lane would cost d of them a step.
-__device__ __forceinline__ float warp_log_sum(float p) {
-  float s = logf(p);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  return s;
-}
-
 // One warp per chain (sequence b, direction r): lane r*B + b of the
 // outputs. Per step t, a Gauss-Jordan elimination of the tile [M | D_r^T |
 // v], M = J + A_r (+ diag jv backward), v = h (+ nv backward), gives X =

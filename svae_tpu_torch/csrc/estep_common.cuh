@@ -1,7 +1,8 @@
 // Shared pieces of the port's kernels (estep.cu, filter_adj.cu,
 // sampler_adj.cu, elem_scan.cu, elem_scan_adj.cu and the rest): the block
-// width and the unrolled small-matrix Cholesky factor and triangular solves
-// every kernel runs on one thread's registers.
+// width, the unrolled small-matrix Cholesky factor and triangular solves
+// every kernel runs on one thread's registers, and the pieces of the
+// warp-per-chain filters' Gauss-Jordan step (estep.cu, bpairs.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -72,6 +73,35 @@ __device__ __forceinline__ void solve_upper(const float (&L)[D][D],
     for (int k = i + 1; k < D; ++k) s -= L[k][i] * x[k];
     x[i] = s * rd[i];
   }
+}
+
+// The reciprocal of a pivot that is not positive.
+__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fffffff); }
+
+// w . x for a row w of d floats in shared memory (16-byte aligned, padded
+// with zeros to DP), read four at a time.
+template <int D, int DP>
+__device__ __forceinline__ float row_dot(const float* w, const float (&x)[D]) {
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int k = 0; k < DP; k += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(w + k);
+    s0 += v.x * x[k];
+    if (k + 1 < D) s1 += v.y * x[k + 1];
+    if (k + 2 < D) s0 += v.z * x[k + 2];
+    if (k + 3 < D) s1 += v.w * x[k + 3];
+  }
+  return s0 + s1;
+}
+
+// sum_k log p_k over a step's pivots, lane k holding p_k (1 on the other
+// lanes): one logf a lane and a butterfly sum over the warp, off the
+// chain, where a logf a pivot on every lane would cost d of them a step.
+__device__ __forceinline__ float warp_log_sum(float p) {
+  float s = logf(p);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
 }
 
 }  // namespace

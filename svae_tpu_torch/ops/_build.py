@@ -90,42 +90,56 @@ def build():
     return so
 
 
+# The C entries of the library: (name, leading int arguments, pointers
+# including the stream).
+ENTRIES = (("svae_filter_fwd_f32", 3, 11),
+           ("svae_sampler_fwd_f32", 4, 10),
+           ("svae_sampler_fwd_factor_f32", 4, 7),
+           ("svae_sampler_fwd_chain_f32", 4, 6),
+           ("svae_filter_adj_f32", 3, 17),
+           ("svae_filter_adj_factor_f32", 3, 10),
+           ("svae_filter_adj_chain_f32", 3, 9),
+           ("svae_sampler_adj_f32", 4, 14),
+           ("svae_sampler_adj_factor_f32", 3, 4),
+           ("svae_sampler_adj_chain_f32", 4, 9),
+           ("svae_sampler_adj_dJc_f32", 4, 10),
+           ("svae_bidir_fwd_f32", 3, 12),
+           ("svae_sampler_bp_fwd_f32", 4, 8),
+           ("svae_bidir_adj_f32", 3, 19),
+           ("svae_bidir_adj_factor_f32", 3, 9),
+           ("svae_bidir_adj_chain_f32", 3, 12),
+           ("svae_sampler_bp_adj_f32", 4, 16),
+           ("svae_sampler_bp_adj_factor_f32", 3, 4),
+           ("svae_sampler_bp_adj_chain_f32", 4, 6),
+           ("svae_sampler_bp_adj_dJc_f32", 4, 13),
+           ("svae_hmm_fb_fwd_f32", 3, 5),
+           ("svae_hmm_fb_stat_fwd_f32", 3, 6),
+           ("svae_hmm_fb_adj_f32", 3, 10),
+           ("svae_hmm_fb_stat_adj_f32", 3, 12),
+           ("svae_elem_scan_f32", 3, 3),
+           ("svae_elem_scan_adj_f32", 3, 6),
+           ("svae_elem_scan_adj_factor_f32", 3, 4),
+           ("svae_elem_scan_adj_chain_f32", 3, 4),
+           ("svae_filter_shared_f32", 3, 12),
+           ("svae_backward_shared_f32", 3, 8),
+           ("svae_sampler_shared_f32", 4, 8))
+
+
+def bind(lib, names=None):
+    """Set the argument and result types of ``lib``'s C entries (those in
+    ``names``, else all of ENTRIES); returns ``lib``."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, ints, ptrs in ENTRIES:
+        if names is None or name in names:
+            fn = getattr(lib, name)
+            fn.argtypes = [i] * ints + [p] * ptrs
+            fn.restype = i
+    return lib
+
+
 def load_library():
     """The loaded kernel library, built first if needed (cached)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for name, ints, ptrs in (("svae_filter_fwd_f32", 3, 11),
-                                 ("svae_sampler_fwd_f32", 4, 10),
-                                 ("svae_sampler_fwd_factor_f32", 4, 7),
-                                 ("svae_sampler_fwd_chain_f32", 4, 6),
-                                 ("svae_filter_adj_f32", 3, 17),
-                                 ("svae_filter_adj_factor_f32", 3, 10),
-                                 ("svae_filter_adj_chain_f32", 3, 9),
-                                 ("svae_sampler_adj_f32", 4, 14),
-                                 ("svae_sampler_adj_factor_f32", 3, 4),
-                                 ("svae_sampler_adj_chain_f32", 4, 9),
-                                 ("svae_sampler_adj_dJc_f32", 4, 10),
-                                 ("svae_bidir_fwd_f32", 3, 12),
-                                 ("svae_sampler_bp_fwd_f32", 4, 8),
-                                 ("svae_bidir_adj_f32", 3, 19),
-                                 ("svae_bidir_adj_factor_f32", 3, 9),
-                                 ("svae_bidir_adj_chain_f32", 3, 12),
-                                 ("svae_sampler_bp_adj_f32", 4, 13),
-                                 ("svae_hmm_fb_fwd_f32", 3, 5),
-                                 ("svae_hmm_fb_stat_fwd_f32", 3, 6),
-                                 ("svae_hmm_fb_adj_f32", 3, 10),
-                                 ("svae_hmm_fb_stat_adj_f32", 3, 12),
-                                 ("svae_elem_scan_f32", 3, 3),
-                                 ("svae_elem_scan_adj_f32", 3, 6),
-                                 ("svae_elem_scan_adj_factor_f32", 3, 4),
-                                 ("svae_elem_scan_adj_chain_f32", 3, 4),
-                                 ("svae_filter_shared_f32", 3, 12),
-                                 ("svae_backward_shared_f32", 3, 8),
-                                 ("svae_sampler_shared_f32", 4, 8)):
-            fn = getattr(lib, name)
-            fn.argtypes = [i] * ints + [p] * ptrs
-            fn.restype = i
-        _lib = lib
+        _lib = bind(ctypes.CDLL(build()))
     return _lib

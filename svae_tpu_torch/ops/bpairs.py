@@ -22,11 +22,16 @@ pairs stream per step and per sequence instead of sitting still as in
   forward filter's messages, on lane ``s*B + b``.
 
 :func:`bidir_adj` and :func:`sampler_bp_adj` are their adjoints, the
-backward of :class:`BidirFwd` and :class:`SamplerBp`; on a card
+backward of :class:`BidirFwd` and :class:`SamplerBp`. On a card
 :func:`bidir_adj` runs as two kernels from one C call, a pass over every
 (step, lane) for the step's inverse (:func:`bidir_adj_factor`) and the
-serial chain of the carried cotangents (:func:`bidir_adj_chain`), each
-with a plain version of its own. The lanes are
+serial chain of the carried cotangents (:func:`bidir_adj_chain`);
+:func:`sampler_bp_adj` as three, a pass over every (step, sequence) for
+the step's inverse (:func:`sampler_bp_adj_factor`), the serial chain of
+the sample cotangents (:func:`sampler_bp_adj_chain`) and a pass over every
+(step, sequence) that sums the cotangents of the pairs and messages over
+the samples (:func:`sampler_bp_adj_dJc`). Each pass has a plain version of
+its own. The lanes are
 independent chains, so :func:`lds_filter` and :func:`lds_backward` (the
 counterparts of pallas_vjp's) run one direction's B lanes alone. Each of
 the four is a CUDA kernel (``csrc/bpairs.cu``, ``csrc/bidir_adj.cu``,
@@ -38,18 +43,22 @@ are ``torch.autograd``'s vector-Jacobian products of the twins.
 
 Streams keep the JAX package's packed layout with the lane innermost
 ((T-1, d*d, lanes) and (T-1, d, lanes)), without its 128-lane padding: on
-the card a lane is a thread (or a block, in ``bidir_adj``'s chain). The
+the card a lane is a warp in ``bidir_fwd``, a block in the adjoints'
+chains and a thread elsewhere. The
 packing, the smoothed-moment assembly
 (estep.smoother_assembly, shared with the stationary E-step) and the
 terminal sample are batched torch ops, differentiable by autograd.
 """
 
+import math
+
 import torch
 
 from svae_tpu_torch.ops import _build
 from svae_tpu_torch.ops.estep import (LOG2PI, _check_kernel_args, _forward,
-                                      _launch, _vjp, filter_adj_chain_step,
-                                      smoother_assembly)
+                                      _lane_minor, _launch, _next_samples,
+                                      _vjp, filter_adj_chain_step,
+                                      sampler_dJc, smoother_assembly)
 from svae_tpu_torch.utils import smallchol
 from svae_tpu_torch.utils.psd import mvn_logZ_info, symmetrize
 
@@ -238,20 +247,19 @@ def sampler_bp_fwd(P2, P3, Jf, hf, eps, xT):
 sampler_bp_fwd.launches = 0
 
 
-def _sampler_adj_outputs(dJc, dhf, dP2, dxT, B):
-    """The adjoint kernel's per-lane outputs -> the cotangents of
-    :func:`sampler_bp_fwd`'s inputs ``(dP2, dP3, dJf, dhf, dxT)``: the S
-    samples of a sequence summed, dP3 = -2 dJf."""
-    S = dJc.shape[-1] // B
-    fold = lambda x: x.reshape(x.shape[:2] + (S, B)).sum(2)
-    dJf = fold(dJc)
-    return fold(dP2), -2.0 * dJf, dJf, fold(dhf), dxT
+def _sampler_adj_outputs(T1, d, B, **kw):
+    """Empty outputs of the dJc pass: ``(dP2, dP3, dJf (T-1, d*d, B), dhf
+    (T-1, d, B))``, summed over the S samples of a sequence."""
+    return (*(torch.empty((T1, d * d, B), **kw) for _ in range(3)),
+            torch.empty((T1, d, B), **kw))
 
 
 def sampler_bp_adj(P2, P3, Jf, hf, eps, xT, x, dx):
     """Adjoint of :func:`sampler_bp_fwd`: its inputs, its output ``x`` and
     the cotangent ``dx`` -> the cotangents ``(dP2, dP3, dJf, dhf, dxT)`` of
-    its inputs other than the noise, which has none."""
+    its inputs other than the noise, which has none. On a card one C call
+    runs the three passes of :func:`sampler_bp_adj_factor`,
+    :func:`sampler_bp_adj_chain` and :func:`sampler_bp_adj_dJc`."""
     if P2.device.type == "cpu":
         return sampler_bp_adj_plain(P2, P3, Jf, hf, eps, xT, x, dx)
     args = (P2, P3, Jf, hf, eps, xT, x, dx)
@@ -260,18 +268,99 @@ def sampler_bp_adj(P2, P3, Jf, hf, eps, xT, x, dx):
     d, SB = xT.shape
     _check_kernel_args("sampler_bp_adj", d, args)
     kw = dict(dtype=xT.dtype, device=xT.device)
-    dJc = torch.empty((T1, dd, SB), **kw)
-    dhf = torch.empty((T1, d, SB), **kw)
-    dP2 = torch.empty((T1, dd, SB), **kw)
+    W = torch.empty((T1, dd, B), **kw)
+    bbar = torch.empty((T1, d, SB), **kw)
+    outs = _sampler_adj_outputs(T1, d, B, **kw)
     dxT = torch.empty((d, SB), **kw)
     lib = _build.load_library()
     _launch("sampler_bp_adj", lib.svae_sampler_bp_adj_f32, xT.device, d, B,
-            SB // B, T1, *args, dJc, dhf, dP2, dxT)
+            SB // B, T1, *args, W, bbar, *outs, dxT)
     sampler_bp_adj.launches += 1
-    return _sampler_adj_outputs(dJc, dhf, dP2, dxT, B)
+    return (*outs, dxT)
 
 
 sampler_bp_adj.launches = 0
+
+
+# The sampler adjoint's passes one by one, for holding each kernel against
+# its own plain version: sampler_bp_adj = sampler_bp_adj_dJc(...,
+# sampler_bp_adj_chain(sampler_bp_adj_factor(P3, Jf), P2, dx)[0]) and the
+# chain's dxT. The model paths call sampler_bp_adj, which launches the
+# same kernels from one C call.
+
+
+def sampler_bp_adj_factor(P3, Jf):
+    """Pass 1 of :func:`sampler_bp_adj`, parallel over (step, sequence):
+    ``W`` (T-1, d*d, B), the inverse of Jc_t = Jf_t - 2 P3_t (lower
+    triangles read) per sequence, shared by its S samples, in ``Jf``'s
+    layout. ``P3``, ``Jf`` (T-1, d*d, B)."""
+    if P3.device.type == "cpu":
+        return sampler_bp_adj_factor_plain(P3, Jf)
+    T1, dd, B = Jf.shape
+    d = math.isqrt(dd)
+    if T1 < 1 or d * d != dd or P3.shape != Jf.shape:
+        raise ValueError("sampler_bp_adj_factor: inconsistent shapes")
+    _check_kernel_args("sampler_bp_adj_factor", d, (P3, Jf))
+    W = torch.empty((T1, dd, B), dtype=Jf.dtype, device=Jf.device)
+    _launch("sampler_bp_adj_factor",
+            _build.load_library().svae_sampler_bp_adj_factor_f32, Jf.device,
+            d, B, T1, P3, Jf, W)
+    sampler_bp_adj_factor.launches += 1
+    return W
+
+
+sampler_bp_adj_factor.launches = 0
+
+
+def sampler_bp_adj_chain(W, P2, dx):
+    """Pass 2 of :func:`sampler_bp_adj`, serial in the steps: per sample
+    chain b-bar_t = W_t (x-bar_t + dx_t), x-bar_{t+1} = P2_t b-bar_t from
+    :func:`sampler_bp_adj_factor`'s ``W``. Returns ``(bbar (T-1, d, S*B),
+    dxT (d, S*B))``."""
+    if W.device.type == "cpu":
+        return sampler_bp_adj_chain_plain(W, P2, dx)
+    T1, dd, B = W.shape
+    d, SB = dx.shape[1:] if dx.dim() == 3 else (0, 0)
+    if (dd != d * d or SB % B or P2.shape != W.shape
+            or dx.shape != (T1, d, SB)):
+        raise ValueError("sampler_bp_adj_chain: inconsistent shapes")
+    args = (W, P2, dx)
+    _check_kernel_args("sampler_bp_adj_chain", d, args)
+    kw = dict(dtype=W.dtype, device=W.device)
+    bbar = torch.empty((T1, d, SB), **kw)
+    dxT = torch.empty((d, SB), **kw)
+    _launch("sampler_bp_adj_chain",
+            _build.load_library().svae_sampler_bp_adj_chain_f32, W.device, d,
+            B, SB // B, T1, *args, bbar, dxT)
+    sampler_bp_adj_chain.launches += 1
+    return bbar, dxT
+
+
+sampler_bp_adj_chain.launches = 0
+
+
+def sampler_bp_adj_dJc(P2, P3, Jf, hf, eps, xT, x, bbar):
+    """Pass 3 of :func:`sampler_bp_adj`, parallel over (step, sequence):
+    from :func:`sampler_bp_adj_chain`'s ``bbar`` and the sampler's inputs
+    and output (arguments as :func:`sampler_bp_adj`'s first seven), the
+    cotangents ``(dP2, dP3, dJf, dhf)`` of the pairs and messages, summed
+    over the S samples of each sequence."""
+    if P2.device.type == "cpu":
+        return sampler_bp_adj_dJc_plain(P2, P3, Jf, hf, eps, xT, x, bbar)
+    args = (P2, P3, Jf, hf, eps, xT, x, bbar)
+    _check_sampler_shapes("sampler_bp_adj_dJc", *args)
+    T1, _, B = Jf.shape
+    d, SB = xT.shape
+    _check_kernel_args("sampler_bp_adj_dJc", d, args)
+    outs = _sampler_adj_outputs(T1, d, B, dtype=Jf.dtype, device=Jf.device)
+    _launch("sampler_bp_adj_dJc",
+            _build.load_library().svae_sampler_bp_adj_dJc_f32, Jf.device, d,
+            B, SB // B, T1, *args, *outs)
+    sampler_bp_adj_dJc.launches += 1
+    return outs
+
+
+sampler_bp_adj_dJc.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -410,6 +499,64 @@ def sampler_bp_adj_plain(P2, P3, Jf, hf, eps, xT, x, dx):
 
 
 sampler_bp_adj_plain.calls = 0
+
+
+def sampler_bp_adj_factor_plain(P3, Jf):
+    """Plain version of :func:`sampler_bp_adj_factor` (same arguments, same
+    output), batched over steps and sequences."""
+    sampler_bp_adj_factor_plain.calls += 1
+    d = math.isqrt(Jf.shape[1])
+    L = smallchol.chol(_mats(Jf, d) - 2.0 * _mats(P3, d))
+    return _lane_minor(torch.cholesky_inverse(L))
+
+
+sampler_bp_adj_factor_plain.calls = 0
+
+
+def sampler_bp_adj_chain_plain(W, P2, dx):
+    """Plain version of :func:`sampler_bp_adj_chain` (same arguments, same
+    outputs), one step at a time over all lanes."""
+    sampler_bp_adj_chain_plain.calls += 1
+    T1, _, B = W.shape
+    d, SB = dx.shape[1:]
+    tile = lambda M: _mats(M, d).repeat(1, SB // B, 1, 1)  # lane s*B + b
+    Wl, P2l = tile(W), tile(P2)
+    xc = dx.new_zeros((SB, d))
+    bbar = []
+    for t in range(T1):
+        bb = (Wl[t] @ (xc + dx[t].T)[..., None])[..., 0]
+        xc = (P2l[t] @ bb[..., None])[..., 0]
+        bbar.append(bb.T)
+    return torch.stack(bbar), xc.T.contiguous()
+
+
+sampler_bp_adj_chain_plain.calls = 0
+
+
+def sampler_bp_adj_dJc_plain(P2, P3, Jf, hf, eps, xT, x, bbar):
+    """Plain version of :func:`sampler_bp_adj_dJc` (same arguments, same
+    outputs), batched over steps and lanes: per lane dJc =
+    ``estep.sampler_dJc``, dhf = bbar, dP2 = x_{t+1} bbar^T, then the S
+    samples of each sequence summed."""
+    sampler_bp_adj_dJc_plain.calls += 1
+    T1, _, B = Jf.shape
+    d, SB = xT.shape
+    S = SB // B
+    tile = lambda M: M.repeat(1, S, 1, 1)                  # lane s*B + b
+    L = tile(smallchol.chol(_mats(Jf, d) - 2.0 * _mats(P3, d)))
+    lanes = lambda X: X.permute(0, 2, 1)                   # (T1, SB, k)
+    xn = lanes(_next_samples(xT, x))
+    b = (lanes(hf).repeat(1, S, 1)
+         + (xn[..., None, :] @ tile(_mats(P2, d)))[..., 0, :])
+    bb = lanes(bbar)
+    dJc = sampler_dJc(L, smallchol.cho_solve(L, b), bb, lanes(eps))
+    fold = lambda X: _lane_minor(X.reshape(T1, S, B, *X.shape[2:]).sum(1))
+    dJf = fold(dJc)
+    return (fold(xn[..., :, None] * bb[..., None, :]), -2.0 * dJf, dJf,
+            fold(bb))
+
+
+sampler_bp_adj_dJc_plain.calls = 0
 
 
 # --------------------------------------------------------------------------

@@ -724,20 +724,29 @@ def sampler_adj_dJc_plain(P2, P3, Jf, hf, eps, xT, x, bbar):
     xn = lanes(_next_samples(xT, x))
     hfl = lanes(hf).repeat(1, SB // B, 1)
     mu = smallchol.cho_solve(L, hfl + xn @ P2)
-    bb = lanes(bbar)
-    u = (L.mT @ bb[..., None])[..., 0]
-    P = -torch.tril(lanes(eps)[..., :, None] * u[..., None, :])
+    dJc = sampler_dJc(L, mu, lanes(bbar), lanes(eps))
+    return dJc.reshape(T1, SB, dd).permute(0, 2, 1).contiguous()
+
+
+sampler_adj_dJc_plain.calls = 0
+
+
+def sampler_dJc(L, mu, bbar, eps):
+    """The cotangent of a sampler step's precision Jc = L L^T, per lane
+    (the plain dJc passes of :func:`sampler_adj` and
+    ``bpairs.sampler_bp_adj``): sym(-bbar mu^T + L^-T P L^-1) with P =
+    -phi(eps u^T), u = L^T bbar, where ``mu`` = Jc^-1 b is the step's mean
+    and ``eps`` its noise; ``L`` (..., d, d), the vectors (..., d)."""
+    d = L.shape[-1]
+    u = (L.mT @ bbar[..., None])[..., 0]
+    P = -torch.tril(eps[..., :, None] * u[..., None, :])
     P = P - 0.5 * torch.diag_embed(torch.diagonal(P, dim1=-2, dim2=-1))
     Linv = torch.linalg.solve_triangular(L, torch.eye(d, dtype=L.dtype,
                                                       device=L.device),
                                          upper=False)
     S = Linv.mT @ P @ Linv
-    outer = bb[..., :, None] * mu[..., None, :]
-    dJc = 0.5 * (S + S.mT - outer - outer.mT)
-    return dJc.reshape(T1, SB, dd).permute(0, 2, 1).contiguous()
-
-
-sampler_adj_dJc_plain.calls = 0
+    outer = bbar[..., :, None] * mu[..., None, :]
+    return 0.5 * (S + S.mT - outer - outer.mT)
 
 
 # --------------------------------------------------------------------------

@@ -451,6 +451,83 @@ def test_scan_and_bidir_adjoint_c_entries_reject_what_they_do_not_take(
         bpairs.bidir_adj_factor(*smoke._f32(filt5[:10]))
 
 
+def test_bidir_fwd_at_its_other_shapes_and_cases(smoke):
+    """The slds_synth x-step's 32 lanes (d=4, T=80), one direction's lanes
+    at T=2048, C with its upper triangle perturbed (J written with C in
+    full, the carry on C's lower triangle) and an indefinite step (its
+    lane's J, h and ln non-finite from there, every other lane finite)."""
+    errs = smoke.check_bidir_fwd()
+    assert set(errs) == {"slds", "one_direction", "asymmetric_C", "non_spd"}
+    assert errs["non_spd"] > 0
+
+
+@pytest.mark.parametrize("d", estep.KERNEL_DIMS)
+def test_sampler_bp_adj_passes_match_plain_at_every_built_d(smoke, d):
+    """Each pass of the per-sequence sampler's adjoint
+    (bpairs.sampler_bp_adj_factor, sampler_bp_adj_chain,
+    sampler_bp_adj_dJc) against its own plain version."""
+    samp = smoke.bpairs_problem(dict(B=5, T=9, d=d, S=2), seed=d)[1]
+    errs = smoke.check_sampler_bp_adj_passes(samp)
+    assert len(errs) == len(smoke.SAMPLER_BP_PASS_WRAPPERS)
+    assert all(rel <= smoke.TOL_ADJ_REL for rel, _ in errs.values()), errs
+
+
+@pytest.mark.parametrize("S", [1, 2])
+def test_sampler_bp_adj_sums_the_samples_of_a_sequence(smoke, S):
+    """The composed adjoint (one C call, three passes) at one and two
+    samples a sequence, at the ragged width."""
+    samp = smoke.bpairs_problem(dict(B=64, T=40, d=10, S=S), seed=S)[1]
+    got = bpairs.sampler_bp_adj(*smoke._f32(samp))
+    torch.cuda.synchronize()
+    rel, _ = smoke._rel_err(got, bpairs.sampler_bp_adj_plain(*samp))
+    assert rel <= smoke.TOL_ADJ_REL
+
+
+def test_sampler_bp_adj_pass_launch_counters(smoke):
+    samp = smoke.bpairs_problem(smoke.RAGGED_SHAPES["small"], 0)[1]
+    smoke._reset_counters()
+    smoke.check_sampler_bp_adj_passes(samp)
+    assert [w.launches for w in smoke.SAMPLER_BP_PASS_WRAPPERS] == [1] * 3
+    assert [p.calls for p in smoke.SAMPLER_BP_PASS_PLAINS] == [1] * 3
+    assert bpairs.sampler_bp_adj.launches == 0
+    # sampler_bp_adj launches the three passes' kernels in one C call of
+    # its own, and counts that call alone
+    bpairs.sampler_bp_adj(*smoke._f32(samp))
+    torch.cuda.synchronize()
+    assert [w.launches for w in smoke.SAMPLER_BP_PASS_WRAPPERS] == [1] * 3
+    assert bpairs.sampler_bp_adj.launches == 1
+    assert bpairs.sampler_bp_adj_plain.calls == 0
+
+
+def test_bpairs_c_entries_reject_an_unbuilt_d(smoke):
+    """The C entries of bidir_fwd and of sampler_bp_adj and its passes
+    refuse d=5 (cudaErrorInvalidValue) before they read a pointer, and the
+    pass wrappers refuse float64, mixed devices and d=5."""
+    from svae_tpu_torch.ops import _build
+    lib = _build.load_library()
+    for name in ("svae_bidir_fwd_f32", "svae_sampler_bp_adj_f32",
+                 "svae_sampler_bp_adj_factor_f32",
+                 "svae_sampler_bp_adj_chain_f32",
+                 "svae_sampler_bp_adj_dJc_f32"):
+        fn = getattr(lib, name)
+        ints = sum(t is ctypes.c_int for t in fn.argtypes)
+        assert fn(5, *[3] * (ints - 1),
+                  *[None] * (len(fn.argtypes) - ints)) != 0, name
+    P2, P3, Jf, hf, eps, xT, x, dx = smoke.bpairs_problem(
+        smoke.RAGGED_SHAPES["small"], 0)[1]
+    with pytest.raises(TypeError, match="float32"):
+        bpairs.sampler_bp_adj_factor(P3, Jf)
+    W = bpairs.sampler_bp_adj_factor(*smoke._f32((P3, Jf)))
+    with pytest.raises(ValueError, match="CUDA"):
+        bpairs.sampler_bp_adj_chain(W, P2.float(), dx.float().cpu())
+    bbar = bpairs.sampler_bp_adj_chain(*smoke._f32((W, P2, dx)))[0]
+    with pytest.raises(TypeError, match="float32"):
+        bpairs.sampler_bp_adj_dJc(P2, P3, Jf, hf, eps, xT, x, bbar)
+    samp5 = smoke.bpairs_problem(dict(B=3, T=7, d=5, S=1), 0)[1]
+    with pytest.raises(ValueError, match="d=5"):
+        bpairs.sampler_bp_adj_factor(*smoke._f32(samp5[1:3]))
+
+
 @pytest.mark.parametrize("shape", ["small", "config2", "longT"])
 def test_kalman_fwd_kernels_match_plain(smoke, shape):
     smoke.check_kalman_fwd(smoke.KFWD_SHAPES[shape], seed=0)

@@ -234,9 +234,12 @@ def test_sampler_twin_matches_pallas_kernel(kernels):
 
 @pytest.mark.parametrize("route", ["plain", "kernel_outputs"])
 def test_sampler_adj_matches_pallas_kernel(kernels, route):
-    """The plain adjoint, and the mapping the CUDA wrapper applies to its
-    kernel's per-lane outputs (S-sum, dP3 = -2 sum dJc) applied to the
-    Pallas adjoint's per-lane outputs, against the Pallas adjoint."""
+    """The plain adjoint, and the three passes the CUDA route runs (their
+    plain versions, to which the kernels are held on a card: the factor
+    pass's W, the chain's per-lane b-bar, which is the Pallas adjoint's
+    per-lane dhf, and the dJc pass's sum over the samples of a sequence,
+    dP3 = -2 sum dJc), against the Pallas adjoint's per-lane outputs
+    summed over the samples."""
     dJc_r, dhf_r, dP2_r, dxT_r = (np.asarray(a)
                                   for a in kernels["samp_adj_ref"])
     fold = lambda a: a.reshape(a.shape[0], a.shape[1], S, B).sum(2)
@@ -244,8 +247,12 @@ def test_sampler_adj_matches_pallas_kernel(kernels, route):
     if route == "plain":
         got = bpairs.sampler_bp_adj_plain(*kernels["samp"])
     else:
-        got = bpairs._sampler_adj_outputs(
-            *(_t(a) for a in (dJc_r, dhf_r, dP2_r, dxT_r)), B)
+        P2, P3, Jf, hf, eps, xT, x, dx = kernels["samp"]
+        bbar, dxT = bpairs.sampler_bp_adj_chain(
+            bpairs.sampler_bp_adj_factor(P3, Jf), P2, dx)
+        _close(bbar, dhf_r)
+        got = bpairs.sampler_bp_adj_dJc(P2, P3, Jf, hf, eps, xT, x,
+                                        bbar) + (dxT,)
     _close(got, want)
 
 

@@ -22,15 +22,19 @@ packed inputs, ``estep.sampler_fwd`` on its forward messages and noise
 drawn from one seed), the two stationary adjoint kernels alone
 (``estep.filter_adj`` and ``estep.sampler_adj`` on the forward kernels'
 outputs and cotangents drawn from one seed) where the checkout has them;
-the element scan's adjoint alone (``chunked.elem_scan_adj`` at the config-2
-fold: B=64, T=100 in C=8 chunks, 512 lanes of 13 steps) and the
+the element scan alone (``chunked.elem_scan`` at the config-2 fold: B=64,
+T=100 in C=8 chunks, 512 lanes of 13 steps; at the long-T fold: B=8,
+T=2048 in C=64 chunks, 512 lanes of 32 steps; and at the config-2 chunk
+totals' shape: 64 lanes of 8 steps) and its adjoint alone
+(``chunked.elem_scan_adj`` at the config-2 fold) and the
 bidirectional filter's (``bpairs.bidir_adj`` at a ragged B=64, T=512
 batch, at the slds_synth x-step's 32 lanes of T=80, d=4, and over one
 direction's 8 lanes of T=2048); the bidirectional filter alone
 (``bpairs.bidir_fwd`` at ragged B=64 batches of T=128 and T=512, at the
 slds_synth x-step's lanes and over one direction's lanes of T=2048) and
-the per-sequence sampler's adjoint alone (``bpairs.sampler_bp_adj`` at
-T=128 and T=512, S=1, and at the slds_synth shape, B=16, S=2); all on
+the per-sequence sampler and its adjoint alone (``bpairs.sampler_bp_fwd``
+and ``bpairs.sampler_bp_adj`` at T=128 and T=512, S=1, and at the
+slds_synth shape, B=16, S=2); all on
 float32 copies of chip_smoke.py's float64 problems, where the checkout has
 them; and, where the checkout has the training loop, one train step
 (``make_train_step``), one chunked config-2 train step
@@ -59,7 +63,8 @@ import time
 
 B, T, S, D, D_OBS = 64, 100, 2, 10, 20
 # the stages whose device time is taken too
-DEVICE_STAGES = ("bidir_fwd", "sampler_bp_adj", "bidir_adj", "elem_scan_adj")
+DEVICE_STAGES = ("bidir_fwd", "sampler_bp_fwd", "sampler_bp_adj", "bidir_adj",
+                 "elem_scan")
 
 
 def _median_ms(fn, calls):
@@ -109,7 +114,8 @@ def _kernel_stages(torch, estep, init, mats, nodes):
 
 
 def _scan_bidir_adj_stages(torch, dev):
-    """The element scan's and the bidirectional filter's adjoints alone, on
+    """The element scan and its adjoint, the bidirectional filter and its
+    adjoint, and the per-sequence sampler and its adjoint alone, on
     float32 copies of the checkout's chip_smoke.py problems (seeded, the
     same in every checkout whose problem functions agree)."""
     import chip_smoke
@@ -123,6 +129,12 @@ def _scan_bidir_adj_stages(torch, dev):
                         device=dev)
     stages = {"elem_scan_adj": functools.partial(
         chunked.elem_scan_adj, *f32((leaves, pref, douts)))}
+    for name, shape in (("config2", dict(B=B, T=T, d=D, C=8)),
+                        ("longT", dict(B=8, T=2048, d=D, C=64)),
+                        ("totals", dict(B=B, T=9, d=D, C=1))):
+        stages[f"elem_scan_{name}"] = functools.partial(
+            chunked.elem_scan, *f32((chip_smoke.elem_problem(shape, 0,
+                                                             dev),)))
     for name, shape in (("T512", dict(B=B, T=512, d=D, S=1)),
                         ("slds", dict(B=16, T=80, d=4, S=2))):
         filt = chip_smoke.bpairs_problem(shape, 0, dev)[0]
@@ -151,6 +163,8 @@ def _scan_bidir_adj_stages(torch, dev):
                                                         *f32(filt[:8]))
         stages[f"sampler_bp_adj_{name}"] = functools.partial(
             bpairs.sampler_bp_adj, *f32(samp))
+        stages[f"sampler_bp_fwd_{name}"] = functools.partial(
+            bpairs.sampler_bp_fwd, *f32(samp[:6]))
     return stages
 
 

@@ -19,10 +19,10 @@ exits non-zero:
    ``sampler_adj_factor``, ``sampler_adj_chain``, ``sampler_adj_dJc``)
    against its own plain version there and at every built latent size;
    the stiff case (node precisions over [1e-2, 1e3] at config-2 width: each
-   forward kernel within twice the float32 plain version's error against
-   float64, normwise per step and per lane) and a non-SPD step, whose
-   outputs must come back non-finite in the lanes it reaches and nowhere
-   else;
+   forward kernel, the per-sequence sampler and the element scan among
+   them, within twice the float32 plain version's error against float64,
+   normwise per step and per lane) and a non-SPD step, whose outputs must
+   come back non-finite in the lanes it reaches and nowhere else;
 4. the inference path at BASELINE config 2 (LDS-SVAE on 1-D dot videos,
    B=64, T=100, d_latent=10, d_obs=20, S=2, MLP recognizer and decoder of
    width 64, random weights from a seed): the MC-ELBO objective on 3
@@ -38,14 +38,17 @@ exits non-zero:
    under the same noise;
 3r. each per-sequence-pairs ("bpairs") kernel of the ragged path, forward
    and adjoint, in float32 against its plain version in float64 on the
-   same inputs (and random cotangents), and each pass of ``bidir_adj``
+   same inputs (and random cotangents), and each pass of
+   ``sampler_bp_fwd`` (``bpairs.sampler_bp_fwd_factor``,
+   ``sampler_bp_fwd_chain``), of ``bidir_adj``
    (``bpairs.bidir_adj_factor``, ``bidir_adj_chain``) and of
    ``sampler_bp_adj`` (``bpairs.sampler_bp_adj_factor``,
    ``sampler_bp_adj_chain``, ``sampler_bp_adj_dJc``) against its own,
    at a small odd shape and at a ragged one (B=64, T=128, lengths spread
    over [2, 128]), and at T=512 (lengths over [2, 512]), all under the
-   same tiers; ``bidir_fwd``, ``bidir_adj`` and its passes also at the
-   slds_synth x-step's lanes (B=16, T=80, d=4) and over one direction's
+   same tiers; ``bidir_fwd``, ``sampler_bp_fwd``, ``bidir_adj`` and their
+   passes also at the slds_synth x-step's lanes (B=16, T=80, d=4; the
+   sampler's 32 lanes, S=2) and (the filters) over one direction's
    lanes of B=8, T=2048, and ``bidir_fwd`` with C's upper triangle
    perturbed and with one lane's step made indefinite (its J, h and ln
    non-finite from there, every other lane finite);
@@ -95,9 +98,11 @@ exits non-zero:
    chain-element scan kernels and their plain versions, of one chunked
    (``parallel=8``) config-2 train step against the sequential one, and of
    ``posterior_moments(parallel=C)`` at bench_longT's shape against
-   ``parallel=False``; the passes of ``elem_scan_adj``, ``bidir_adj`` and
-   ``sampler_bp_adj`` alone, and each one's device time within its
-   adjoint; ``bidir_fwd``'s and ``sampler_bp_adj``'s device time at the
+   ``parallel=False``; the passes of ``sampler_bp_fwd``,
+   ``elem_scan_adj``, ``bidir_adj`` and ``sampler_bp_adj`` alone, and
+   each one's device time within the whole; ``elem_scan``'s device time at
+   its three shapes; ``bidir_fwd``'s, ``sampler_bp_fwd``'s and
+   ``sampler_bp_adj``'s device time at the
    ragged shapes, the slds_synth x-step's and (``bidir_fwd``) over one
    direction's lanes at T=2048;
 3c. the chain-element scan kernel of the chunked parallel-in-time E-step
@@ -138,8 +143,8 @@ exits non-zero:
    shared-pair functions, both E-steps, at config-2 width and T=2048).
 
 The line before the last is a JSON object with one entry per kernel (the
-passes of ``sampler_fwd``, ``elem_scan_adj``, ``bidir_adj`` and
-``sampler_bp_adj`` too, each
+passes of ``sampler_fwd``, ``sampler_bp_fwd``, ``elem_scan_adj``,
+``bidir_adj`` and ``sampler_bp_adj`` too, each
 with its adjoint's launches, since one C call launches each pass once;
 its launches on the path that runs it: the training paths, phase 3h's
 stationary ``hmm_posterior`` for the stationary HMM kernels and phase 4k's
@@ -201,6 +206,8 @@ KERNELS = {
     "bidir_adj_factor": "svae_tpu/ops/pallas_bidir.py:121",
     "bidir_adj_chain": "svae_tpu/ops/pallas_bidir.py:121",
     "sampler_bp_fwd": "svae_tpu/ops/pallas_vjp.py:169",
+    "sampler_bp_fwd_factor": "svae_tpu/ops/pallas_vjp.py:169",
+    "sampler_bp_fwd_chain": "svae_tpu/ops/pallas_vjp.py:169",
     "sampler_bp_adj": "svae_tpu/ops/pallas_vjp.py:417",
     "sampler_bp_adj_factor": "svae_tpu/ops/pallas_vjp.py:417",
     "sampler_bp_adj_chain": "svae_tpu/ops/pallas_vjp.py:417",
@@ -241,6 +248,8 @@ SOURCES = {
     "bidir_adj_factor": "svae_tpu_torch/csrc/bidir_adj.cu",
     "bidir_adj_chain": "svae_tpu_torch/csrc/bidir_adj.cu",
     "sampler_bp_fwd": "svae_tpu_torch/csrc/bpairs.cu",
+    "sampler_bp_fwd_factor": "svae_tpu_torch/csrc/bpairs.cu",
+    "sampler_bp_fwd_chain": "svae_tpu_torch/csrc/bpairs.cu",
     "sampler_bp_adj": "svae_tpu_torch/csrc/sampler_bp_adj.cu",
     "sampler_bp_adj_factor": "svae_tpu_torch/csrc/sampler_bp_adj.cu",
     "sampler_bp_adj_chain": "svae_tpu_torch/csrc/sampler_bp_adj.cu",
@@ -419,15 +428,21 @@ FWD_ERRS = ("filter_fwd", "sampler_fwd", "sampler_fwd_factor",
             "sampler_fwd_chain")
 
 
+def _stiff_jd(jd, seed):
+    """Node precisions of ``jd``'s shape spread log-uniformly over
+    [1e-2, 1e3] (STIFF_JD), from ``seed``, on ``jd``'s device."""
+    g = torch.Generator().manual_seed(seed + 1)
+    lo, hi = (math.log10(v) for v in STIFF_JD)
+    return (10.0 ** (lo + (hi - lo) * torch.rand(
+        jd.shape, generator=g, dtype=torch.float64))).to(jd.device)
+
+
 def stiff_problem(shape=SHAPES["config2"], seed=12, device="cuda"):
     """``_problem`` with the node precisions spread log-uniformly over
     [1e-2, 1e3] (STIFF_JD): float64 filter inputs, the mats and the noise."""
     init, mats, (jd, h), eps = _problem(shape, seed, device)
-    g = torch.Generator().manual_seed(seed + 1)
-    lo, hi = (math.log10(v) for v in STIFF_JD)
-    jd = 10.0 ** (lo + (hi - lo) * torch.rand(jd.shape, generator=g,
-                                              dtype=torch.float64))
-    return estep.filter_inputs(init, mats, (jd.to(device), h)), mats, eps
+    return (estep.filter_inputs(init, mats, (_stiff_jd(jd, seed), h)), mats,
+            eps)
 
 
 def _step_rel(got, want):
@@ -448,14 +463,17 @@ def _lane_rel(ln, lnp):
 
 
 def check_stiff(shape=SHAPES["config2"], seed=12, device="cuda"):
-    """The stiff case: node precisions over [1e-2, 1e3] at ``shape``. The
-    forward kernels' explicit eliminations and inverses against float64,
-    beside the float32 plain versions' error on the same device: each
-    kernel's error may be at most STIFF_FACTOR times the float32 plain
-    version's. The errors are normwise per step (``_step_rel``) for the
-    filter's J and h and for the samples, and per lane (``_lane_rel``) for
-    the filter's ln. Returns
-    ``{name: (kernel error, float32 plain error)}``."""
+    """The stiff case: node precisions over [1e-2, 1e3] at ``shape`` (the
+    per-sequence sampler at RAGGED_SHAPES["ragged"], the element scan at
+    the config-2 fold of ELEM_SHAPES). The forward kernels' explicit
+    eliminations and inverses against float64, beside the float32 plain
+    versions' error on the same device: each kernel's error may be at most
+    STIFF_FACTOR times the float32 plain version's. The errors are
+    normwise per step and lane (``_step_rel``) for the filter's J and h,
+    the samples and each element field but c, and per lane (``_lane_rel``)
+    for the filter's ln and, normwise over the steps, the elements' c
+    (``_elem_stiff``).
+    Returns ``{name: (kernel error, float32 plain error)}``."""
     fin, mats, eps = stiff_problem(shape, seed, device)
     B = shape["B"]
     want = estep.filter_fwd_plain(*fin)
@@ -473,6 +491,15 @@ def check_stiff(shape=SHAPES["config2"], seed=12, device="cuda"):
     torch.cuda.synchronize()
     errs["sampler_fwd"] = (_step_rel(x, xp), _step_rel(
         estep.sampler_fwd_plain(*_f32(sin)), xp))
+    samp = bpairs_problem(RAGGED_SHAPES["ragged"], seed, device,
+                          stiff=True)[1][:6]
+    xp = bpairs.sampler_bp_fwd_plain(*samp)
+    x = bpairs.sampler_bp_fwd(*_f32(samp))
+    torch.cuda.synchronize()
+    errs["sampler_bp_fwd"] = (_step_rel(x, xp), _step_rel(
+        bpairs.sampler_bp_fwd_plain(*_f32(samp)), xp))
+    errs.update(_elem_stiff(elem_problem(ELEM_SHAPES["config2"], seed, device,
+                                         stiff=True)))
     if not all(k <= STIFF_FACTOR * p for k, p in errs.values()):
         raise AssertionError(f"a forward kernel's error in the stiff case "
                              f"passes {STIFF_FACTOR}x the float32 plain "
@@ -480,12 +507,38 @@ def check_stiff(shape=SHAPES["config2"], seed=12, device="cuda"):
     return errs
 
 
+def _elem_stiff(leaves):
+    """``check_stiff``'s errors of the element scan on float64 ``leaves``:
+    ``{"elem_scan_<field>": (kernel error, float32 plain error)}``,
+    normwise per step and lane over each field's rows, but per lane over
+    the steps for c (a prefix's constant can pass through zero), and only
+    where the float64 reference is not zero (the pad leaves' J12, h1 and
+    h2 are, and so are those of the prefixes that end in them)."""
+    want = chunked.elem_scan_plain(leaves)
+    got = chunked.elem_scan(leaves.float())
+    torch.cuda.synchronize()
+    plain = chunked.elem_scan_plain(leaves.float())
+    d = chunked._dim(leaves.shape[1])
+    rows = np.cumsum([0] + [d * d] * 3 + [d] * 2 + [1])
+    errs = {}
+    for f, a, b in zip(ELEM_FIELDS, rows[:-1], rows[1:]):
+        w = want[:, a:b]
+        axis = 0 if f == "c" else 1
+        norm = w.norm(dim=axis)
+        nz = norm > 0
+        rel = lambda x: float(((x[:, a:b].double() - w).norm(dim=axis)[nz]
+                               / norm[nz]).max())
+        errs["elem_scan_" + f] = (rel(got), rel(plain))
+    return errs
+
+
 def check_non_spd(device="cuda", seed=13):
     """A step whose precision is not positive definite must come back
     non-finite, in the lanes it reaches and no others: the filter with a
-    large negative node precision at one frame of one sequence, the sampler
-    with one step's Jf of one sequence made indefinite. Returns the count
-    of non-finite outputs of each."""
+    large negative node precision at one frame of one sequence, the two
+    samplers with one step's Jf of one sequence made indefinite, the
+    element scan with one combine's M of one lane made indefinite. Returns
+    the count of non-finite outputs of each."""
     shape = dict(B=4, T=9, d=3, S=2)
     B, d = shape["B"], shape["d"]
     b0, f0, t0 = 1, 4, 3  # the sequence, its filter frame, its sampler step
@@ -517,6 +570,36 @@ def check_non_spd(device="cuda", seed=13):
         raise AssertionError("sampler_fwd: a non-SPD step did not poison "
                              "exactly the samples it reaches")
     counts["sampler_fwd"] = int((~torch.isfinite(x)).sum())
+
+    # the per-sequence sampler: step t0's Jf of sequence b0 indefinite, so
+    # Jc_t0 of b0: that step's and every earlier step's samples of b0
+    P2, P3, Jf, hf, eps_s, xT = _f32(bpairs_problem(shape, seed,
+                                                    device)[1][:6])
+    Jf = Jf.clone()
+    Jf[t0, ::d + 1, b0] = -1e4
+    x = bpairs.sampler_bp_fwd(P2, P3, Jf, hf, eps_s, xT)
+    torch.cuda.synchronize()
+    if not bool((~torch.isfinite(x).cpu() == want).all()):
+        raise AssertionError("sampler_bp_fwd: a non-SPD step did not poison "
+                             "exactly the samples it reaches")
+    counts["sampler_bp_fwd"] = int((~torch.isfinite(x)).sum())
+
+    # the element scan: combine j0 of lane n0 with an indefinite M (its
+    # leaf's J11), which poisons that element of the lane and every later
+    # one, and nothing else
+    leaves = elem_problem(dict(B=4, T=9, d=d, C=2), seed, device).float()
+    n0, j0 = 5, 2
+    leaves[j0, ::d + 1, n0][:d] = -1e4
+    out = chunked.elem_scan(leaves)
+    torch.cuda.synchronize()
+    bad = ~torch.isfinite(out).all(1).cpu()
+    want = torch.zeros(bad.shape, dtype=torch.bool)
+    want[j0:, n0] = True
+    if not bool((bad == want).all()):
+        raise AssertionError("elem_scan: an indefinite combine did not "
+                             "poison exactly its lane's elements from there "
+                             "on")
+    counts["elem_scan"] = int((~torch.isfinite(out)).sum())
     return counts
 
 
@@ -595,13 +678,16 @@ def check_adjoints(shape, seed=0, device="cuda"):
     return errs
 
 
-def bpairs_problem(shape, seed=0, device="cuda"):
+def bpairs_problem(shape, seed=0, device="cuda", stiff=False):
     """float64 inputs of the four bpairs kernels at ``shape``, a ragged
     batch with lengths spread over [2, T]: the bidirectional filter's
     packed inputs, its twin's outputs J, h and random cotangents of J, h,
     ln; the sampler's inputs on the twin's forward messages, its twin's
-    output and a random cotangent; and the twin's ln."""
+    output and a random cotangent; and the twin's ln. ``stiff``: node
+    precisions over STIFF_JD."""
     init, mats, nodes, eps = _problem(shape, seed, device)
+    if stiff:
+        nodes = (_stiff_jd(nodes[0], seed), nodes[1])
     lengths = torch.linspace(2, shape["T"], shape["B"]).round().long().to(
         device)
     jd, h, _ = lds._prepare(nodes, None, lengths)
@@ -621,7 +707,8 @@ def bpairs_problem(shape, seed=0, device="cuda"):
 def check_bpairs(shape, seed=0, device="cuda"):
     """The four bpairs kernels (float32) against their plain versions
     (float64) on the same inputs and cotangents at ``shape``, and each pass
-    of the two adjoints against its own; raises past the forward tiers and
+    of the sampler and of the two adjoints against its own; raises past the
+    forward tiers and
     TOL_ADJ_REL. Returns the forward kernels' max abs errors and the
     log-normalizer's rel error, and the adjoints' and passes' ``(normwise
     rel, max abs)``."""
@@ -633,13 +720,14 @@ def check_bpairs(shape, seed=0, device="cuda"):
             "bidir_ln_rel": abs(float(ln.double().sum() - lnp.sum()))
             / abs(float(lnp.sum())),
             "sampler_bp_fwd": _max_err((x,), samp[6:7])}
+    errs.update(check_sampler_bp_fwd_passes(samp[:6]))
     errs.update(check_bidir_adj(filt))
     got = bpairs.sampler_bp_adj(*_f32(samp))
     torch.cuda.synchronize()
     errs["sampler_bp_adj"] = _rel_err(got, bpairs.sampler_bp_adj_plain(*samp))
     errs.update(check_sampler_bp_adj_passes(samp))
     ok = (errs["bidir_fwd"] <= TOL_ABS and errs["bidir_ln_rel"] <= TOL_LOGZ_REL
-          and errs["sampler_bp_fwd"] <= TOL_ABS
+          and all(errs[k] <= TOL_ABS for k in SAMPLER_BP_FWD_ERRS)
           and all(errs[k][0] <= TOL_ADJ_REL for k in SAMPLER_BP_ERRS))
     if not ok:
         raise AssertionError(f"a bpairs kernel disagrees with its plain "
@@ -649,6 +737,42 @@ def check_bpairs(shape, seed=0, device="cuda"):
 
 SAMPLER_BP_ERRS = ("sampler_bp_adj", "sampler_bp_adj_factor",
                    "sampler_bp_adj_chain", "sampler_bp_adj_dJc")
+SAMPLER_BP_FWD_ERRS = ("sampler_bp_fwd", "sampler_bp_fwd_factor",
+                       "sampler_bp_fwd_chain")
+
+
+def check_sampler_bp_fwd_passes(sin):
+    """Each pass of ``sampler_bp_fwd`` (float32 kernel) against its own
+    plain version (float64) on ``sin`` (``sampler_bp_fwd``'s float64
+    arguments), the chain fed the plain factor pass's output. Returns
+    ``{pass: max abs error}`` over the pass's outputs; the callers hold
+    them to TOL_ABS."""
+    P2, P3, Jf, hf, eps, xT = sin
+    Qc = bpairs.sampler_bp_fwd_factor(*_f32((P2, P3, Jf, hf, eps)))
+    Qcp = bpairs.sampler_bp_fwd_factor_plain(P2, P3, Jf, hf, eps)
+    x = bpairs.sampler_bp_fwd_chain(*_f32((*Qcp, xT)))
+    xp = bpairs.sampler_bp_fwd_chain_plain(*Qcp, xT)
+    torch.cuda.synchronize()
+    return {"sampler_bp_fwd_factor": _max_err(Qc, Qcp),
+            "sampler_bp_fwd_chain": _max_err((x,), (xp,))}
+
+
+def check_sampler_bp_fwd(seed=0, device="cuda"):
+    """``sampler_bp_fwd`` and each of its passes against their plain
+    versions where check_bpairs does not hold them: at the slds_synth
+    x-step's lanes (BIDIR_ADJ_SHAPES["slds"]: B=16, S=2, T=80, d=4).
+    Raises past TOL_ABS; returns ``{name: max abs error}``."""
+    sin = bpairs_problem(BIDIR_ADJ_SHAPES["slds"], seed, device)[1][:6]
+    x = bpairs.sampler_bp_fwd(*_f32(sin))
+    torch.cuda.synchronize()
+    errs = {"sampler_bp_fwd": _max_err((x,), (bpairs.sampler_bp_fwd_plain(
+        *sin),))}
+    errs.update(check_sampler_bp_fwd_passes(sin))
+    if not all(v <= TOL_ABS for v in errs.values()):
+        raise AssertionError(f"sampler_bp_fwd or a pass of it disagrees "
+                             f"with its plain version at the slds_synth "
+                             f"lanes: {errs}")
+    return errs
 
 
 def check_sampler_bp_adj_passes(samp):
@@ -1132,6 +1256,13 @@ SAMPLER_BP_PASS_WRAPPERS = (bpairs.sampler_bp_adj_factor,
 SAMPLER_BP_PASS_PLAINS = (bpairs.sampler_bp_adj_factor_plain,
                           bpairs.sampler_bp_adj_chain_plain,
                           bpairs.sampler_bp_adj_dJc_plain)
+# the per-sequence sampler's two passes one by one
+# (check_sampler_bp_fwd_passes, phase 5); the model paths launch both
+# kernels through sampler_bp_fwd's one C call
+SAMPLER_BP_FWD_PASS_WRAPPERS = (bpairs.sampler_bp_fwd_factor,
+                                bpairs.sampler_bp_fwd_chain)
+SAMPLER_BP_FWD_PASS_PLAINS = (bpairs.sampler_bp_fwd_factor_plain,
+                              bpairs.sampler_bp_fwd_chain_plain)
 LAUNCHED_BY = {**{w.__name__: estep.sampler_fwd.__name__
                   for w in FWD_PASS_WRAPPERS},
                **{w.__name__: chunked.elem_scan_adj.__name__
@@ -1139,14 +1270,17 @@ LAUNCHED_BY = {**{w.__name__: estep.sampler_fwd.__name__
                **{w.__name__: bpairs.bidir_adj.__name__
                   for w in RAGGED_PASS_WRAPPERS},
                **{w.__name__: bpairs.sampler_bp_adj.__name__
-                  for w in SAMPLER_BP_PASS_WRAPPERS}}
+                  for w in SAMPLER_BP_PASS_WRAPPERS},
+               **{w.__name__: bpairs.sampler_bp_fwd.__name__
+                  for w in SAMPLER_BP_FWD_PASS_WRAPPERS}}
 ALL_WRAPPERS = (WRAPPERS + PASS_WRAPPERS + FWD_PASS_WRAPPERS
                 + RAGGED_WRAPPERS + RAGGED_PASS_WRAPPERS
-                + SAMPLER_BP_PASS_WRAPPERS
+                + SAMPLER_BP_PASS_WRAPPERS + SAMPLER_BP_FWD_PASS_WRAPPERS
                 + HMM_WRAPPERS + CHUNK_WRAPPERS + CHUNK_PASS_WRAPPERS
                 + KFWD_WRAPPERS)
 ALL_PLAINS = (PLAINS + PASS_PLAINS + FWD_PASS_PLAINS + RAGGED_PLAINS
-              + RAGGED_PASS_PLAINS + SAMPLER_BP_PASS_PLAINS + HMM_PLAINS
+              + RAGGED_PASS_PLAINS + SAMPLER_BP_PASS_PLAINS
+              + SAMPLER_BP_FWD_PASS_PLAINS + HMM_PLAINS
               + CHUNK_PLAINS
               + CHUNK_PASS_PLAINS + KFWD_PLAINS)
 TRAIN_K = 8
@@ -1526,12 +1660,15 @@ def slds_padded_theorem(device="cuda", lengths=(37, 80), seed=8,
     return stat_rel, kl_rel
 
 
-def elem_problem(shape, seed=0, device="cuda"):
+def elem_problem(shape, seed=0, device="cuda", stiff=False):
     """float64 packed leaves (L, R, B*C) of config-``shape`` chains (the
     expected potentials of random globals and recognizer-like evidence)
     cut into C chunks and folded onto the lanes, as the chunked E-step
-    folds them (pad leaves included)."""
+    folds them (pad leaves included). ``stiff``: node precisions over
+    STIFF_JD."""
     init, mats, nodes, _ = _problem(dict(shape, S=1), seed, device)
+    if stiff:
+        nodes = (_stiff_jd(nodes[0], seed), nodes[1])
     pairs, nodes = lds._chain(mats, nodes)
     fold, _, L = chunked._fold(kalman.build_leaves(init, pairs, nodes),
                                shape["C"])
@@ -2066,15 +2203,15 @@ def slds_timings(device="cuda", cfg=SLDS_CONFIG, epochs=2):
     return t
 
 
-def _adjoint_pass_times(t, tag, name, adjoint, passes, plains=None):
-    """Into ``t``: the event time of the adjoint ``name`` (a no-argument
-    call) and its device time in its kernels (under torch.profiler); for
-    each of its ``passes`` ({pass name: call}) the event time of the pass
-    alone and its kernel's device time within the adjoint; for each of
-    ``plains`` ({pass name: call of its plain version}) the plain
-    version's event time. Keys end in ``tag``."""
-    t[name + tag] = _time_ms(adjoint)
-    dev = _device_ms(adjoint)
+def _pass_times(t, tag, name, whole, passes, plains=None):
+    """Into ``t``: the event time of ``name``, a function run as passes (a
+    no-argument call ``whole``), and its device time in its kernels (under
+    torch.profiler); for each of its ``passes`` ({pass name: call}) the
+    event time of the pass alone and its kernel's device time within the
+    whole; for each of ``plains`` ({pass name: call of its plain version})
+    the plain version's event time. Keys end in ``tag``."""
+    t[name + tag] = _time_ms(whole)
+    dev = _device_ms(whole)
     t[name + "_device" + tag] = (sum(v for n, v in dev.items()
                                      if n.startswith(name))
                                  if dev else math.nan)
@@ -2107,7 +2244,11 @@ def chunked_timings(device="cuda", cfg=LONG_T):
                             device=device)
         args = _f32((leaves, pref, douts))
         fac = chunked.elem_scan_adj_factor(*args[:2])
-        t["elem_scan" + tag] = _time_ms(lambda: chunked.elem_scan(args[0]))
+        scan = lambda: chunked.elem_scan(args[0])
+        t["elem_scan" + tag] = _time_ms(scan)
+        t["elem_scan_device" + tag] = _device_ms(scan).get(
+            "elem_scan_kernel", math.nan)
+        print(f"device elem_scan{tag}: {t['elem_scan_device' + tag]:.4f} ms")
         passes = {"elem_scan_adj_factor": lambda: chunked.elem_scan_adj_factor(
                       *args[:2]),
                   "elem_scan_adj_chain": lambda: chunked.elem_scan_adj_chain(
@@ -2123,7 +2264,7 @@ def chunked_timings(device="cuda", cfg=LONG_T):
                     lambda: chunked.elem_scan_adj_factor_plain(*args[:2]),
                 "elem_scan_adj_chain":
                     lambda: chunked.elem_scan_adj_chain_plain(fac, args[2])}
-        _adjoint_pass_times(t, tag, "elem_scan_adj",
+        _pass_times(t, tag, "elem_scan_adj",
                             lambda: chunked.elem_scan_adj(*args), passes,
                             plains)
 
@@ -2288,14 +2429,24 @@ def timings(device="cuda"):
 def _bpairs_kernel_times(t, tag, filt, samp, plains=False):
     """Into ``t`` (keys ending in ``tag``), on the float32 problems ``filt``
     and ``samp`` of bpairs_problem: ``bidir_fwd``'s event and device time;
-    ``sampler_bp_adj``'s, and each of its passes alone and its device time
-    within the adjoint (_adjoint_pass_times), with the passes' plain
-    versions if ``plains``."""
+    ``sampler_bp_fwd``'s and ``sampler_bp_adj``'s, and each of their passes
+    alone and its device time within the whole (_pass_times), with the
+    passes' plain versions if ``plains``."""
     fwd = lambda: bpairs.bidir_fwd(*filt[:8])
     t["bidir_fwd" + tag] = _time_ms(fwd)
     t["bidir_fwd_device" + tag] = _device_ms(fwd).get("bidir_fwd_kernel",
                                                       math.nan)
     P2, P3, Jf, hf, eps, xT, x, dx = samp
+    Q, c = bpairs.sampler_bp_fwd_factor(P2, P3, Jf, hf, eps)
+    passes = {"sampler_bp_fwd_factor": (bpairs.sampler_bp_fwd_factor,
+                                        (P2, P3, Jf, hf, eps)),
+              "sampler_bp_fwd_chain": (bpairs.sampler_bp_fwd_chain,
+                                       (Q, c, xT))}
+    _pass_times(
+        t, tag, "sampler_bp_fwd", lambda: bpairs.sampler_bp_fwd(*samp[:6]),
+        {k: functools.partial(fn, *a) for k, (fn, a) in passes.items()},
+        {k: functools.partial(getattr(bpairs, k + "_plain"), *a)
+         for k, (_, a) in passes.items()} if plains else None)
     W = bpairs.sampler_bp_adj_factor(P3, Jf)
     bbar = bpairs.sampler_bp_adj_chain(W, P2, dx)[0]
     dJc_args = (P2, P3, Jf, hf, eps, xT, x, bbar)
@@ -2303,7 +2454,7 @@ def _bpairs_kernel_times(t, tag, filt, samp, plains=False):
         "sampler_bp_adj_factor": (bpairs.sampler_bp_adj_factor, (P3, Jf)),
         "sampler_bp_adj_chain": (bpairs.sampler_bp_adj_chain, (W, P2, dx)),
         "sampler_bp_adj_dJc": (bpairs.sampler_bp_adj_dJc, dJc_args)}
-    _adjoint_pass_times(
+    _pass_times(
         t, tag, "sampler_bp_adj", lambda: bpairs.sampler_bp_adj(*samp),
         {k: functools.partial(fn, *a) for k, (fn, a) in passes.items()},
         {k: functools.partial(getattr(bpairs, k + "_plain"), *a)
@@ -2314,8 +2465,8 @@ def _bpairs_kernel_times(t, tag, filt, samp, plains=False):
 def ragged_timings(device="cuda", seqs=None, B=RAGGED_B, pad=RAGGED_PAD):
     """Phase 5, ragged path: the bpairs kernels at B=64, T=128 and at
     T=512, their plain versions at T=128, ``bidir_fwd``'s device time,
-    ``bidir_adj``'s and ``sampler_bp_adj``'s passes alone and the device
-    time of each within its adjoint (``bidir_adj`` also at
+    ``sampler_bp_fwd``'s, ``bidir_adj``'s and ``sampler_bp_adj``'s passes
+    alone and the device time of each within the whole (``bidir_adj`` also at
     BIDIR_ADJ_SHAPES), one ragged train step per length
     bucket (CUDA events), and the wall time of a bucketed epoch against
     the same corpus padded to T_max (host clock around each epoch, which
@@ -2336,10 +2487,8 @@ def ragged_timings(device="cuda", seqs=None, B=RAGGED_B, pad=RAGGED_PAD):
                 *filt[:10]),
             "bidir_adj_chain": lambda: bpairs.bidir_adj_chain_plain(
                 fac, *filt[10:])}
-        _adjoint_pass_times(t, tag, "bidir_adj",
+        _pass_times(t, tag, "bidir_adj",
                             lambda: bpairs.bidir_adj(*filt), passes, plains)
-        t["sampler_bp_fwd" + tag] = _time_ms(
-            lambda: bpairs.sampler_bp_fwd(*samp[:6]))
         if not tag:
             t["bidir_fwd_plain"] = _time_ms(
                 lambda: bpairs.bidir_fwd_plain(*filt[:8]), runs=10)
@@ -2355,7 +2504,7 @@ def ragged_timings(device="cuda", seqs=None, B=RAGGED_B, pad=RAGGED_PAD):
                     if name == "one_direction" else
                     bpairs_problem(shape, 0, device)[0])
         fac = bpairs.bidir_adj_factor(*filt[:10])
-        _adjoint_pass_times(
+        _pass_times(
             t, "_" + name, "bidir_adj", lambda: bpairs.bidir_adj(*filt),
             {"bidir_adj_factor": lambda: bpairs.bidir_adj_factor(*filt[:10]),
              "bidir_adj_chain": lambda: bpairs.bidir_adj_chain(
@@ -2519,11 +2668,26 @@ def bound(name, B, T, d, S, NL=None):
         floats = ((tri + d) * NL + T1 * (tri + dd + d) * NL
                   + (T1 - 1) * (tri + d) * NL + T1 * (dd + d) * NL + NL
                   + (dd + d) * NL + T1 * (3 * dd + 2 * d + 1) * NL)
-    elif name == "sampler_bp_fwd":
-        chains = SB
-        step = d ** 3 / 3 + 4 * d * d
-        # in: P2, P3, Jf, hf per sequence, eps, xT; out: x
-        floats = T1 * (dd + 2 * tri + d) * B + 2 * T1 * d * SB + d * SB
+    elif name.startswith("sampler_bp_fwd"):
+        # per (step, sequence), S = the samples: the factor pass's chol
+        # d^3/3, Q = Jc^-1 P2^T by two triangular solves a column 2 d^3,
+        # L^-1 hf d^2 and a back substitution d^2 a sample; the chain's
+        # Q x 2 d^2 a sample
+        chains = B
+        ops = {"factor": 7 * d ** 3 / 3 + (1 + S) * d * d,
+               "chain": 2 * d * d * S}
+        if name == "sampler_bp_fwd_factor":
+            step = ops["factor"]
+            # in: P2, P3 and Jf (lower triangles), hf, eps; out: Q, c
+            floats = T1 * (2 * dd + 2 * tri + d) * B + 2 * T1 * d * SB
+        elif name == "sampler_bp_fwd_chain":
+            step = ops["chain"]
+            # in: Q, c, xT; out: x
+            floats = T1 * dd * B + 2 * T1 * d * SB + d * SB
+        else:
+            step = sum(ops.values())
+            # in: P2, P3, Jf, hf per sequence, eps, xT; out: x
+            floats = T1 * (dd + 2 * tri + d) * B + 2 * T1 * d * SB + d * SB
     elif name.startswith("sampler_bp_adj"):
         # per (step, sequence) of the three passes, S = the samples: the
         # factor pass's chol d^3/3 and inverse 2 d^3/3; the chain's W x-bar
@@ -2713,11 +2877,16 @@ def main():
         print(f"bpairs kernels vs plain versions [{name} {shape}, lengths "
               f"over [2, {shape['T']}]] (forward max abs; adjoints normwise "
               f"rel, max abs): {e}")
-        for k in ("bidir_fwd", "sampler_bp_fwd"):
+        for k in ("bidir_fwd",) + SAMPLER_BP_FWD_ERRS:
             errs[k] = max(errs.get(k, 0.0), e[k])
         for k in ("bidir_adj", "bidir_adj_factor",
                   "bidir_adj_chain") + SAMPLER_BP_ERRS:
             errs[k] = max(errs.get(k, 0.0), e[k][1])
+    e = check_sampler_bp_fwd()
+    print(f"sampler_bp_fwd and its passes vs plain versions [slds "
+          f"{BIDIR_ADJ_SHAPES['slds']}] (max abs): {e}")
+    for k, v in e.items():
+        errs[k] = max(errs[k], v)
     e = check_bidir_fwd()
     print(f"bidir_fwd vs plain [slds {BIDIR_ADJ_SHAPES['slds']}, one "
           f"direction {BIDIR_ADJ_SHAPES['one_direction']}, asymmetric C] "

@@ -1,10 +1,12 @@
 """Time variants of a kernel's compile-time constant side by side on one
 CUDA card: ``bidir_fwd``'s chains (warps) a block (``kBidirChains``,
-svae_tpu_torch/csrc/bpairs.cu) or the ring depth of ``sampler_bp_adj``'s
-chain pass (``kBpRing``, csrc/sampler_bp_adj.cu).
+svae_tpu_torch/csrc/bpairs.cu), the ring depth of ``sampler_bp_adj``'s
+chain pass (``kBpRing``, csrc/sampler_bp_adj.cu) or of ``sampler_bp_fwd``'s
+(``kBpFwdRing``, csrc/bpairs.cu).
 
     python3 chip_variants.py bidir_fwd [--values 1 2 4] [--rounds R]
     python3 chip_variants.py sampler_bp_adj --values 2 3 4
+    python3 chip_variants.py sampler_bp_fwd --values 2 3 4
 
 Each value rewrites the constant's definition (``constexpr int NAME =
 N;``) in a copy of svae_tpu_torch/csrc/ under the build directory,
@@ -47,6 +49,11 @@ KERNELS = {
                         if n.startswith("svae_sampler_bp_adj")],
                        ("sampler_bp_adj_chain_kernel",
                         "sampler_bp_adj_dJc_kernel"), "sampler_bp_adj"),
+    "sampler_bp_fwd": ("kBpFwdRing", "bpairs.cu",
+                       [n for n, _, _ in _build.ENTRIES
+                        if n.startswith("svae_sampler_bp_fwd")],
+                       ("sampler_bp_fwd_factor_kernel",
+                        "sampler_bp_fwd_chain_kernel"), "sampler_bp_fwd"),
 }
 
 
@@ -104,7 +111,8 @@ def problems(kernel, device="cuda"):
     probs = {}
     for name, shape in shapes.items():
         filt, samp, _ = chip_smoke.bpairs_problem(shape, 0, device)
-        probs[name] = filt[:8] if kernel == "bidir_fwd" else samp
+        probs[name] = (filt[:8] if kernel == "bidir_fwd" else
+                       samp[:6] if kernel == "sampler_bp_fwd" else samp)
     if kernel == "bidir_fwd":
         probs["one_direction"] = chip_smoke.one_direction_problem(
             chip_smoke.BIDIR_ADJ_SHAPES["one_direction"], 0, device)[:8]
@@ -144,6 +152,9 @@ def main():
             want = plain(*a)
             if args.kernel == "bidir_fwd":
                 err = chip_smoke._max_err(got[:2], want[:2])
+                ok = err <= chip_smoke.TOL_ABS
+            elif args.kernel == "sampler_bp_fwd":
+                err = chip_smoke._max_err((got,), (want,))
                 ok = err <= chip_smoke.TOL_ABS
             else:
                 err = chip_smoke._rel_err(got, want)[0]

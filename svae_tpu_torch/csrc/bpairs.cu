@@ -2,9 +2,9 @@
 // potentials: the generic bidirectional information filter and the
 // backward conditional sampler, both reading their pair blocks as streams.
 //
-// bidir_fwd_kernel<D> replaces svae_tpu/ops/pallas_bidir.py:_bidir_fwd_kernel.
-// sampler_bp_fwd_kernel<D> replaces
-// svae_tpu/ops/pallas_vjp.py:_sampler_fwd_kernel.
+// bidir_fwd_kernel<D> replaces svae_tpu/ops/pallas_bidir.py:_bidir_fwd_kernel;
+// sampler_bp_fwd_factor_kernel<D> and sampler_bp_fwd_chain_kernel<D>
+// together replace svae_tpu/ops/pallas_vjp.py:_sampler_fwd_kernel.
 //
 // What bounds them on an H100. As in estep.cu, every lane is a serial
 // chain of T-1 small dense steps, and at the ragged slice's shape (B=64,
@@ -47,18 +47,42 @@
 // 2 and 4 a block ran 3-33% slower than 1 (PERF.md §6), so a block runs
 // one chain.
 //
-// The sampler (one thread per chain, unchanged here) reads the pairs at
-// sequence lane % B. T and the lane counts are runtime arguments (the
-// length buckets and a tail batch vary them); only d is a template
-// parameter, so the steps' loops unroll. There is no lane or time padding:
-// every stream row is a real step.
+// The sampler's factorization depends neither on the carried sample nor
+// on the sample s, so it leaves the chain, as in estep.cu's sampler. With
+// L_t = chol(Jc_t), Jc_t = Jf_t - 2 P3_t, a step is
+//   x_t = Jc_t^-1 (hf_t + P2_t^T x_{t+1}) + L_t^-T eps_t = c_t + Q_t x_{t+1},
+//   c_t = L_t^-T (L_t^-1 hf_t + eps_t),  Q_t = Jc_t^-1 P2_t^T.
+// The one-thread-per-chain kernel this replaces refactored Jc_t on the
+// chain, 4.5 us a step at d=10 with 64 threads busy at ragged T=512.
+// 1. sampler_bp_fwd_factor_kernel runs one thread per (step, sequence),
+//    32,704 at T=512, B=64: it factors Jc_t once for the S samples
+//    (adj_passes.cuh's factor_jc_bp), writes c per sample, and Q_t by two
+//    triangular solves a column, lane-minor in Jf's layout. P2_t streams,
+//    unlike estep.cu's stationary P2, so folding it into Q here leaves the
+//    chain one matrix-vector product, one barrier and d loads a thread a
+//    step, where W_t and P2_t streamed to the chain took two of each (1.8x
+//    slower at T=512, PERF.md §6).
+// 2. sampler_bp_fwd_chain_kernel runs one chain per block of d threads
+//    (sample s, sequence b), thread i owning row i: x_t[i] = c_t[i] +
+//    Q_t[i] . x_{t+1}, x_{t+1} through shared memory double-buffered by the
+//    step's parity, and the coming steps' rows of Q and c in a ring of
+//    registers (kBpFwdRing), loaded unconditionally.
+// svae_sampler_bp_fwd_f32 launches the two, one after the other, with Q
+// and c as the caller's scratch. The sampler reads the pairs at sequence
+// lane % B. T and the lane counts are runtime arguments (the length
+// buckets and a tail batch vary them); only d is a template parameter, so
+// the steps' loops unroll. There is no lane or time padding: every stream
+// row is a real step.
 
-#include "estep_common.cuh"
+#include "adj_passes.cuh"
 
 namespace {
 
 // How many chains (one warp each) a block of bidir_fwd_kernel runs.
 constexpr int kBidirChains = 1;
+
+// How many steps ahead the sampler's chain pass loads.
+constexpr int kBpFwdRing = 4;
 
 // One warp per lane (chain) l of the NL lanes, kBidirChains a block. Per
 // stream row t: the Gauss-Jordan elimination of [M | D_t^T | v], M = J +
@@ -203,65 +227,113 @@ bidir_fwd_kernel(int NL, int T1, const float* __restrict__ J0,
   if (vec) ln[lane] = (float)acc;
 }
 
-// One thread per (sample s, sequence b), lane s*B + b, walking
-// t = T1-1 ... 0 from the terminal sample xT. Per step:
-//   Jc = Jf_t - 2 P3_t, L = chol(Jc),
-//   x_t = L^-T (L^-1 (hf_t + P2_t^T x_{t+1}) + eps_t).
-// Pairs and messages are read at sequence b = lane % B, not tiled S times.
-// Layouts: P2, P3, Jf (T1, d*d, B), hf (T1, d, B); eps (T1, d, S*B),
-// xT (d, S*B); out x (T1, d, S*B).
+// One thread per (step t, sequence b), b fastest. Inputs: P2, P3, Jf
+// (T-1, d*d, B) (P3's and Jf's lower triangles read), hf (T-1, d, B), eps
+// (T-1, d, S*B). Outputs: the step's matrix Q_t = W_t P2_t^T (T-1, d*d, B)
+// in Jf's layout and c (T-1, d, S*B), per sample s of sequence b (lane
+// s*B + b) c = L^-T (L^-1 hf_t + eps_t) = W_t hf_t + L^-T eps_t, with L =
+// chol(Jc_t), Jc_t = Jf_t - 2 P3_t and W_t = Jc_t^-1.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-sampler_bp_fwd_kernel(int B, int SB, int T1, const float* __restrict__ P2,
-                      const float* __restrict__ P3,
-                      const float* __restrict__ Jf,
-                      const float* __restrict__ hf,
-                      const float* __restrict__ eps,
-                      const float* __restrict__ xT,
-                      float* __restrict__ xout) {
-  constexpr int DD = D * D;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= SB) return;
+__global__ void __launch_bounds__(kPassThreads)
+sampler_bp_fwd_factor_kernel(int B, int S, int T1,
+                             const float* __restrict__ P2,
+                             const float* __restrict__ P3,
+                             const float* __restrict__ Jf,
+                             const float* __restrict__ hf,
+                             const float* __restrict__ eps,
+                             float* __restrict__ Q, float* __restrict__ c) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= T1 * B) return;
+  const int t = idx / B;
+  const int b = idx - t * B;
+  const int SB = S * B;
+  const size_t at = (size_t)t * D * D * B + b;
+  float L[D][D], rd[D], hv[D], y[D];
+  factor_jc_bp<D>(Jf, P3, at, B, L, rd);
+#pragma unroll
+  for (int i = 0; i < D; ++i) hv[i] = hf[((size_t)t * D + i) * B + b];
+  solve_lower<D>(L, rd, hv, y);
+  for (int s = 0; s < S; ++s) {
+    const size_t v = (size_t)t * D * SB + s * B + b;
+    float z[D], cv[D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) z[i] = y[i] + eps[v + (size_t)i * SB];
+    solve_upper<D>(L, rd, z, cv);
+#pragma unroll
+    for (int i = 0; i < D; ++i) c[v + (size_t)i * SB] = cv[i];
+  }
+  // Q = Jc^-1 P2^T, column k of it by two triangular solves against row
+  // k of P2_t (fewer operations than W and a product, and no explicit
+  // inverse's rounding)
+#pragma unroll (Rows<D>::value)
+  for (int k = 0; k < D; ++k) {
+    float p[D], z[D], q[D];
+#pragma unroll
+    for (int m = 0; m < D; ++m) p[m] = P2[at + (size_t)(k * D + m) * B];
+    solve_lower<D>(L, rd, p, z);
+    solve_upper<D>(L, rd, z, q);
+#pragma unroll
+    for (int i = 0; i < D; ++i) Q[at + (size_t)(i * D + k) * B] = q[i];
+  }
+}
+
+// One block of D threads per chain (sample s, sequence b), lane s*B + b,
+// thread i owning row i, walking t = T-2 ... 0 from the terminal sample:
+// x_t = c_t + Q_t x_{t+1}. Inputs: Q and c from
+// sampler_bp_fwd_factor_kernel, xT (d, S*B). Output x (T-1, d, S*B).
+template <int D>
+__global__ void __launch_bounds__(32)
+sampler_bp_fwd_chain_kernel(int B, int SB, int T1, const float* __restrict__ Q,
+                            const float* __restrict__ c,
+                            const float* __restrict__ xT,
+                            float* __restrict__ x) {
+  constexpr int R = kBpFwdRing;
+  __shared__ __align__(16) float sx[2][D];
+  const unsigned mask = chain_mask<D>();
+  const int lane = blockIdx.x;
+  const int i = threadIdx.x;
   const int b = lane % B;
-
-  float x[D];
+  // steps t-1 ... t-R in flight while step t computes: a ring of R
+  // register slots (row i of Q_t and c_t[i]), the loop unrolled by R so
+  // that every slot index is a constant; the loads unconditional, the step
+  // clamped to 0
+  float nQ[R][D], nc[R];
+  auto load = [&](int t, int u) {
+    t = t > 0 ? t : 0;
+    const size_t row = ((size_t)t * D * D + i * D) * B + b;
 #pragma unroll
-  for (int i = 0; i < D; ++i) x[i] = xT[i * SB + lane];
-
-  for (int t = T1 - 1; t >= 0; --t) {
-    const size_t mat = (size_t)t * DD * B + b;
-    float L[D][D], rd[D];
+    for (int k = 0; k < D; ++k) nQ[u][k] = Q[row + (size_t)k * B];
+    nc[u] = c[((size_t)t * D + i) * SB + lane];
+  };
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
+  for (int u = 0; u < R; ++u) load(T1 - 1 - u, u);
+  float xi = xT[i * SB + lane];
+  for (int t0 = T1 - 1; t0 >= 0; t0 -= R) {
 #pragma unroll
-      for (int j = 0; j <= i; ++j) {
-        const size_t k = mat + (size_t)(i * D + j) * B;
-        L[i][j] = Jf[k] - 2.f * P3[k];
+    for (int u = 0; u < R; ++u) {
+      const int t = t0 - u;
+      if (t < 0) break;
+      float Qr[D];
+#pragma unroll
+      for (int k = 0; k < D; ++k) Qr[k] = nQ[u][k];
+      const float ci = nc[u];
+      // x_{t+1} into the buffer of the step's parity: the other one may
+      // still be read by a thread in the step before (one barrier a step)
+      float* sv = sx[t & 1];
+      sv[i] = xi;
+      load(t - R, u);
+      __syncwarp(mask);
+      // (Q_t x_{t+1})_i + c_t[i], in two partial sums to halve the
+      // dependent adds
+      float s0 = ci, s1 = 0.f;
+#pragma unroll
+      for (int k = 0; k < D; k += 2) {
+        s0 += Qr[k] * sv[k];
+        if (k + 1 < D) s1 += Qr[k + 1] * sv[k + 1];
       }
+      xi = s0 + s1;
+      x[((size_t)t * D + i) * SB + lane] = xi;
     }
-    chol_inplace<D>(L, rd);
-
-    float y[D];
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      float s = hf[((size_t)t * D + i) * B + b];
-#pragma unroll
-      for (int k = 0; k < D; ++k) s += P2[mat + (size_t)(k * D + i) * B] * x[k];
-#pragma unroll
-      for (int k = 0; k < i; ++k) s -= L[i][k] * y[k];
-      y[i] = s * rd[i];
-    }
-#pragma unroll
-    for (int i = 0; i < D; ++i) y[i] += eps[((size_t)t * D + i) * SB + lane];
-#pragma unroll
-    for (int i = D - 1; i >= 0; --i) {
-      float s = y[i];
-#pragma unroll
-      for (int k = i + 1; k < D; ++k) s -= L[k][i] * x[k];
-      x[i] = s * rd[i];
-    }
-#pragma unroll
-    for (int i = 0; i < D; ++i) xout[((size_t)t * D + i) * SB + lane] = x[i];
   }
 }
 
@@ -277,18 +349,40 @@ int launch_bidir_fwd(int NL, int T1, const float* J0, const float* h0,
 }
 
 template <int D>
-int launch_sampler_bp_fwd(int B, int S, int T1, const float* P2,
-                          const float* P3, const float* Jf, const float* hf,
-                          const float* eps, const float* xT, float* x,
-                          cudaStream_t stream) {
-  const int SB = S * B;
-  dim3 grid((SB + kThreads - 1) / kThreads);
-  sampler_bp_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
-      B, SB, T1, P2, P3, Jf, hf, eps, xT, x);
+int launch_sampler_bp_factor(int B, int S, int T1, const float* P2,
+                             const float* P3, const float* Jf,
+                             const float* hf, const float* eps, float* Q,
+                             float* c, cudaStream_t stream) {
+  const int n = T1 * B;
+  sampler_bp_fwd_factor_kernel<D>
+      <<<(n + kPassThreads - 1) / kPassThreads, kPassThreads, 0, stream>>>(
+          B, S, T1, P2, P3, Jf, hf, eps, Q, c);
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_sampler_bp_chain(int B, int SB, int T1, const float* Q,
+                            const float* c, const float* xT, float* x,
+                            cudaStream_t stream) {
+  sampler_bp_fwd_chain_kernel<D><<<SB, D, 0, stream>>>(B, SB, T1, Q, c, xT,
+                                                       x);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_sampler_bp_fwd(int B, int S, int T1, const float* P2,
+                          const float* P3, const float* Jf, const float* hf,
+                          const float* eps, const float* xT, float* Q,
+                          float* c, float* x, cudaStream_t stream) {
+  const int err = launch_sampler_bp_factor<D>(B, S, T1, P2, P3, Jf, hf, eps,
+                                              Q, c, stream);
+  if (err != 0) return err;
+  return launch_sampler_bp_chain<D>(B, S * B, T1, Q, c, xT, x, stream);
+}
+
 }  // namespace
+
+#define SVAE_DIMS(CASE) CASE(2) CASE(3) CASE(4) CASE(8) CASE(10) CASE(16)
 
 // Plain C entries for ctypes. Each returns cudaGetLastError() after the
 // launch (0 on success); an unsupported d returns cudaErrorInvalidValue.
@@ -304,12 +398,7 @@ extern "C" int svae_bidir_fwd_f32(int d, int NL, int T1, const float* J0,
     return launch_bidir_fwd<DIM>(NL, T1, J0, h0, A, C, Dm, E, F, Pc, J, h, \
                                  ln, s);
   switch (d) {
-    SVAE_BIDIR_FWD(2)
-    SVAE_BIDIR_FWD(3)
-    SVAE_BIDIR_FWD(4)
-    SVAE_BIDIR_FWD(8)
-    SVAE_BIDIR_FWD(10)
-    SVAE_BIDIR_FWD(16)
+    SVAE_DIMS(SVAE_BIDIR_FWD)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_BIDIR_FWD
@@ -319,20 +408,51 @@ extern "C" int svae_sampler_bp_fwd_f32(int d, int B, int S, int T1,
                                        const float* P2, const float* P3,
                                        const float* Jf, const float* hf,
                                        const float* eps, const float* xT,
-                                       float* x, void* stream) {
+                                       float* Q, float* c, float* x,
+                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SVAE_SAMPLER_BP_FWD(DIM)                                            \
-  case DIM:                                                                 \
-    return launch_sampler_bp_fwd<DIM>(B, S, T1, P2, P3, Jf, hf, eps, xT, x, \
-                                      s);
+#define SVAE_CASE(DIM)                                                     \
+  case DIM:                                                                \
+    return launch_sampler_bp_fwd<DIM>(B, S, T1, P2, P3, Jf, hf, eps, xT, Q, \
+                                      c, x, s);
   switch (d) {
-    SVAE_SAMPLER_BP_FWD(2)
-    SVAE_SAMPLER_BP_FWD(3)
-    SVAE_SAMPLER_BP_FWD(4)
-    SVAE_SAMPLER_BP_FWD(8)
-    SVAE_SAMPLER_BP_FWD(10)
-    SVAE_SAMPLER_BP_FWD(16)
+    SVAE_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
-#undef SVAE_SAMPLER_BP_FWD
+#undef SVAE_CASE
 }
+
+extern "C" int svae_sampler_bp_fwd_factor_f32(int d, int B, int S, int T1,
+                                              const float* P2,
+                                              const float* P3,
+                                              const float* Jf,
+                                              const float* hf,
+                                              const float* eps, float* Q,
+                                              float* c, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SVAE_CASE(DIM)                                                 \
+  case DIM:                                                            \
+    return launch_sampler_bp_factor<DIM>(B, S, T1, P2, P3, Jf, hf, eps, \
+                                         Q, c, s);
+  switch (d) {
+    SVAE_DIMS(SVAE_CASE)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SVAE_CASE
+}
+
+extern "C" int svae_sampler_bp_fwd_chain_f32(int d, int B, int S, int T1,
+                                             const float* Q, const float* c,
+                                             const float* xT, float* x,
+                                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SVAE_CASE(DIM) \
+  case DIM:            \
+    return launch_sampler_bp_chain<DIM>(B, S * B, T1, Q, c, xT, x, s);
+  switch (d) {
+    SVAE_DIMS(SVAE_CASE)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SVAE_CASE
+}
+#undef SVAE_DIMS

@@ -23,6 +23,7 @@ batch:
 
 import functools
 import math
+import operator
 
 import torch
 
@@ -164,10 +165,19 @@ def _chain(pair_mats, nn_potentials, lengths=None):
 
 
 def _check_parallel(parallel):
-    """False, True or a chunk count; 0 is False, as in the JAX package."""
-    if not (isinstance(parallel, int) and parallel >= 0):
+    """False, True or a chunk count, which may be any integral value (a
+    NumPy integer too); 0 is False, as in the JAX package. Returns it as a
+    bool or a Python int."""
+    if isinstance(parallel, bool):
+        return parallel
+    try:
+        chunks = operator.index(parallel)
+    except TypeError:
+        chunks = -1
+    if chunks < 0:
         raise ValueError(f"parallel must be False, True or a chunk count "
                          f"(0 for False), got {parallel!r}")
+    return chunks
 
 
 def _route(parallel):
@@ -227,7 +237,7 @@ def run_inference(prior_natparam, global_natparam, nn_potentials, generator,
     :mod:`~svae_tpu_torch.ops.chunked` with C chunks. Raises
     ``FloatingPointError`` if a Cholesky factor failed (one host sync per
     call)."""
-    _check_parallel(parallel)
+    parallel = _check_parallel(parallel)
     J_diag, h, batched = _prepare(nn_potentials, mask, lengths)
     init, pair_mats = _expected_potentials(global_natparam, h.dtype)
     if lengths is None and not parallel:
@@ -257,7 +267,7 @@ def posterior_moments(global_natparam, nn_potentials, parallel=False,
     failure check as in :func:`run_inference`. With ``lengths`` the
     moments cover the pad frames too (the dummy chain there), as the JAX
     package's do."""
-    _check_parallel(parallel)
+    parallel = _check_parallel(parallel)
     J_diag, h, batched = _prepare(nn_potentials, mask, lengths)
     init, pair_mats = _expected_potentials(global_natparam, h.dtype)
     if lengths is None and not parallel:

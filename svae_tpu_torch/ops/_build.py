@@ -104,7 +104,9 @@ ENTRIES = (("svae_filter_fwd_f32", 3, 11),
            ("svae_sampler_adj_chain_f32", 4, 9),
            ("svae_sampler_adj_dJc_f32", 4, 10),
            ("svae_bidir_fwd_f32", 3, 12),
-           ("svae_sampler_bp_fwd_f32", 4, 8),
+           ("svae_sampler_bp_fwd_f32", 4, 10),
+           ("svae_sampler_bp_fwd_factor_f32", 4, 8),
+           ("svae_sampler_bp_fwd_chain_f32", 4, 5),
            ("svae_bidir_adj_f32", 3, 19),
            ("svae_bidir_adj_factor_f32", 3, 9),
            ("svae_bidir_adj_chain_f32", 3, 12),

@@ -19,7 +19,10 @@ pairs stream per step and per sequence instead of sitting still as in
   flipped in time with (A, C) and (e, f) swapped and D transposed
   (:func:`bidir_inputs` packs them);
 * :func:`sampler_bp_fwd` draws the S samples backward in time from the
-  forward filter's messages, on lane ``s*B + b``.
+  forward filter's messages, on lane ``s*B + b``; on a card as two
+  kernels from one C call, a pass over every (step, sequence) for the
+  step's matrix and offsets (:func:`sampler_bp_fwd_factor`) and the
+  serial chain of the samples (:func:`sampler_bp_fwd_chain`).
 
 :func:`bidir_adj` and :func:`sampler_bp_adj` are their adjoints, the
 backward of :class:`BidirFwd` and :class:`SamplerBp`. On a card
@@ -43,9 +46,8 @@ are ``torch.autograd``'s vector-Jacobian products of the twins.
 
 Streams keep the JAX package's packed layout with the lane innermost
 ((T-1, d*d, lanes) and (T-1, d, lanes)), without its 128-lane padding: on
-the card a lane is a warp in ``bidir_fwd``, a block in the adjoints'
-chains and a thread elsewhere. The
-packing, the smoothed-moment assembly
+the card a lane is a warp in ``bidir_fwd``, a block in the samplers'
+chains and a thread elsewhere. The packing, the smoothed-moment assembly
 (estep.smoother_assembly, shared with the stationary E-step) and the
 terminal sample are batched torch ops, differentiable by autograd.
 """
@@ -228,23 +230,89 @@ def sampler_bp_fwd(P2, P3, Jf, hf, eps, xT):
     ``Jf`` (T-1, d*d, B) and ``hf`` (T-1, d, B): forward-filter messages of
     frames 0..T-2. All four are shared by the S samples of a sequence.
     ``eps`` (T-1, d, S*B): standard normal noise; ``xT`` (d, S*B): the
-    terminal samples. Returns ``x`` (T-1, d, S*B), frames 0..T-2."""
+    terminal samples. Returns ``x`` (T-1, d, S*B), frames 0..T-2. On a
+    card one C call runs the two passes of :func:`sampler_bp_fwd_factor`
+    and :func:`sampler_bp_fwd_chain`."""
     if P2.device.type == "cpu":
         return sampler_bp_fwd_plain(P2, P3, Jf, hf, eps, xT)
     args = (P2, P3, Jf, hf, eps, xT)
     _check_sampler_shapes("sampler_bp_fwd", *args)
-    T1, _, B = Jf.shape
+    T1, dd, B = Jf.shape
     d, SB = xT.shape
     _check_kernel_args("sampler_bp_fwd", d, args)
+    kw = dict(dtype=xT.dtype, device=xT.device)
+    Q = torch.empty((T1, dd, B), **kw)
+    c = torch.empty((T1, d, SB), **kw)
     x = torch.empty_like(eps)
     lib = _build.load_library()
     _launch("sampler_bp_fwd", lib.svae_sampler_bp_fwd_f32, xT.device, d, B,
-            SB // B, T1, *args, x)
+            SB // B, T1, *args, Q, c, x)
     sampler_bp_fwd.launches += 1
     return x
 
 
 sampler_bp_fwd.launches = 0
+
+
+# The sampler's passes one by one, for holding each kernel against its own
+# plain version: x_t = c_t + Q_t x_{t+1} with Q_t = W_t P2_t^T, W_t =
+# Jc_t^-1 and c_t = W_t hf_t + L_t^-T eps_t (L_t = chol(Jc_t), Jc_t = Jf_t -
+# 2 P3_t), the first carry-free, the second the serial chain:
+# sampler_bp_fwd = sampler_bp_fwd_chain(*sampler_bp_fwd_factor(P2, P3, Jf,
+# hf, eps), xT). The model paths call sampler_bp_fwd, which launches the
+# same kernels from one C call.
+
+
+def sampler_bp_fwd_factor(P2, P3, Jf, hf, eps):
+    """Pass 1 of :func:`sampler_bp_fwd`, parallel over (step, sequence):
+    ``Q`` (T-1, d*d, B) = W_t P2_t^T per sequence, shared by its S samples,
+    in ``Jf``'s layout, and ``c`` (T-1, d, S*B) = W_t hf_t + L_t^-T eps_t per
+    lane. Arguments as :func:`sampler_bp_fwd`'s first five."""
+    if P2.device.type == "cpu":
+        return sampler_bp_fwd_factor_plain(P2, P3, Jf, hf, eps)
+    T1, dd, B = Jf.shape
+    d, SB = (hf.shape[1], eps.shape[2]) if eps.dim() == 3 else (0, 0)
+    if (T1 < 1 or dd != d * d or SB % B or P2.shape != Jf.shape
+            or P3.shape != Jf.shape or hf.shape != (T1, d, B)
+            or eps.shape != (T1, d, SB)):
+        raise ValueError("sampler_bp_fwd_factor: inconsistent shapes")
+    args = (P2, P3, Jf, hf, eps)
+    _check_kernel_args("sampler_bp_fwd_factor", d, args)
+    kw = dict(dtype=Jf.dtype, device=Jf.device)
+    Q = torch.empty((T1, dd, B), **kw)
+    c = torch.empty((T1, d, SB), **kw)
+    _launch("sampler_bp_fwd_factor",
+            _build.load_library().svae_sampler_bp_fwd_factor_f32, Jf.device,
+            d, B, SB // B, T1, *args, Q, c)
+    sampler_bp_fwd_factor.launches += 1
+    return Q, c
+
+
+sampler_bp_fwd_factor.launches = 0
+
+
+def sampler_bp_fwd_chain(Q, c, xT):
+    """Pass 2 of :func:`sampler_bp_fwd`, serial in time: per sample chain
+    x_t = c_t + Q_t x_{t+1} from the terminal ``xT`` (d, S*B) and
+    :func:`sampler_bp_fwd_factor`'s ``Q``, ``c``. Returns ``x`` (T-1, d,
+    S*B)."""
+    if Q.device.type == "cpu":
+        return sampler_bp_fwd_chain_plain(Q, c, xT)
+    T1, dd, B = Q.shape
+    d, SB = xT.shape if xT.dim() == 2 else (0, 0)
+    if T1 < 1 or dd != d * d or SB % B or c.shape != (T1, d, SB):
+        raise ValueError("sampler_bp_fwd_chain: inconsistent shapes")
+    args = (Q, c, xT)
+    _check_kernel_args("sampler_bp_fwd_chain", d, args)
+    x = torch.empty((T1, d, SB), dtype=xT.dtype, device=xT.device)
+    _launch("sampler_bp_fwd_chain",
+            _build.load_library().svae_sampler_bp_fwd_chain_f32, Q.device, d,
+            B, SB // B, T1, *args, x)
+    sampler_bp_fwd_chain.launches += 1
+    return x
+
+
+sampler_bp_fwd_chain.launches = 0
 
 
 def _sampler_adj_outputs(T1, d, B, **kw):
@@ -421,6 +489,41 @@ def sampler_bp_fwd_plain(P2, P3, Jf, hf, eps, xT):
 
 
 sampler_bp_fwd_plain.calls = 0
+
+
+def sampler_bp_fwd_factor_plain(P2, P3, Jf, hf, eps):
+    """Plain version of :func:`sampler_bp_fwd_factor` (same arguments, same
+    outputs), batched over steps and sequences."""
+    sampler_bp_fwd_factor_plain.calls += 1
+    d = hf.shape[1]
+    S = eps.shape[2] // Jf.shape[2]
+    L = smallchol.chol(_mats(Jf, d) - 2.0 * _mats(P3, d))  # (T1, B, d, d)
+    y = smallchol.solve_lower(L, hf.permute(0, 2, 1)).repeat(1, S, 1)
+    c = smallchol.solve_upper_from_lower(L.repeat(1, S, 1, 1),
+                                         y + eps.permute(0, 2, 1))
+    Q = smallchol.cho_solve_mat(L, _mats(P2, d).mT)
+    return _lane_minor(Q), _lane_minor(c)
+
+
+sampler_bp_fwd_factor_plain.calls = 0
+
+
+def sampler_bp_fwd_chain_plain(Q, c, xT):
+    """Plain version of :func:`sampler_bp_fwd_chain` (same arguments, same
+    output), one step at a time over all lanes."""
+    sampler_bp_fwd_chain_plain.calls += 1
+    T1, _, B = Q.shape
+    d, SB = xT.shape
+    Ql = _mats(Q, d).repeat(1, SB // B, 1, 1)           # lane s*B + b
+    x = xT.T
+    xs = [None] * T1
+    for t in reversed(range(T1)):
+        x = c[t].T + (Ql[t] @ x[..., None])[..., 0]
+        xs[t] = x.T
+    return torch.stack(xs)
+
+
+sampler_bp_fwd_chain_plain.calls = 0
 
 
 def bidir_adj_plain(J0, h0, A, C, D, E, F, Pc, J, h, dJ, dh, dln):

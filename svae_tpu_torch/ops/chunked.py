@@ -37,9 +37,9 @@ decoupled pad steps, the pad leaf (J11 = 0, J12 = 0, J22 = I, h = 0,
 c = -d/2 log 2 pi) appending an independent unit-Gaussian step whose
 marginalization adds exactly zero to the running constant, so the real
 steps' logZ, messages and moments are exact for any (T, C). The kernels
-take any lane count: a lane is a thread (the scan, the adjoint's factor
-pass) or a block (the adjoint's chain), so the JAX package's lane pad to
-128 has no counterpart.
+take any lane count: a lane is a warp (the scan), a thread (the adjoint's
+factor pass) or a block (the adjoint's chain), so the JAX package's lane
+pad to 128 has no counterpart.
 """
 
 import math

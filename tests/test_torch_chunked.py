@@ -250,11 +250,11 @@ def model():
 
 
 @pytest.mark.parametrize("case", MODEL_CASES)
-@pytest.mark.parametrize("par", [True, 4, 0])
+@pytest.mark.parametrize("par", [True, 4, 0, np.int64(4)])
 def test_model_parallel_routes_match_jax(model, par, case):
     """``parallel=0`` is the sequential route, as in the JAX package, whose
     ``kalman._total_element`` treats 0 as False: the reference's own
-    route."""
+    route. A NumPy integer is a chunk count, as there."""
     kw = dict(parallel=par)
     if case == "mask":
         kw["mask"] = torch.from_numpy(model["mask"])
@@ -270,7 +270,7 @@ def test_model_parallel_routes_match_jax(model, par, case):
     _close(lds.posterior_moments(glob, pots, **kw), pm_r)
 
 
-@pytest.mark.parametrize("par", [-1, 2.5, None])
+@pytest.mark.parametrize("par", [-1, 2.5, None, np.int64(-1)])
 def test_model_rejects_a_bad_parallel(model, par):
     pots = (torch.from_numpy(model["jd"]), torch.from_numpy(model["h"]))
     glob = convert.natparam(_np(model["glob"]), **F64)

@@ -549,3 +549,75 @@ def test_kalman_fwd_entry_points_launch_their_kernels(smoke):
 
 def test_one_direction_filters_and_gradients_on_card(smoke):
     smoke.one_direction_filters()
+
+
+@pytest.mark.parametrize("d", estep.KERNEL_DIMS)
+def test_sampler_bp_fwd_passes_match_plain_at_every_built_d(smoke, d):
+    """Each pass of the per-sequence sampler (bpairs.sampler_bp_fwd_factor,
+    sampler_bp_fwd_chain) against its own plain version, and the two in
+    one C call against sampler_bp_fwd_plain."""
+    sin = smoke.bpairs_problem(dict(B=5, T=9, d=d, S=3), seed=d)[1][:6]
+    errs = smoke.check_sampler_bp_fwd_passes(sin)
+    assert len(errs) == len(smoke.SAMPLER_BP_FWD_PASS_WRAPPERS)
+    x = bpairs.sampler_bp_fwd(*smoke._f32(sin))
+    torch.cuda.synchronize()
+    errs["sampler_bp_fwd"] = smoke._max_err(
+        (x,), (bpairs.sampler_bp_fwd_plain(*sin),))
+    assert all(e <= smoke.TOL_ABS for e in errs.values()), errs
+
+
+def test_sampler_bp_fwd_at_the_slds_lanes(smoke):
+    """The slds_synth x-step's 16 sequences of two samples (d=4, T=80)."""
+    errs = smoke.check_sampler_bp_fwd()
+    assert set(errs) == set(smoke.SAMPLER_BP_FWD_ERRS)
+
+
+def test_sampler_bp_fwd_pass_launch_counters(smoke):
+    sin = smoke.bpairs_problem(smoke.RAGGED_SHAPES["small"], 0)[1][:6]
+    smoke._reset_counters()
+    smoke.check_sampler_bp_fwd_passes(sin)
+    assert [w.launches for w in smoke.SAMPLER_BP_FWD_PASS_WRAPPERS] == [1, 1]
+    assert [p.calls for p in smoke.SAMPLER_BP_FWD_PASS_PLAINS] == [1, 1]
+    assert bpairs.sampler_bp_fwd.launches == 0
+    # sampler_bp_fwd launches both passes' kernels in one C call of its
+    # own, and counts that call alone
+    bpairs.sampler_bp_fwd(*smoke._f32(sin))
+    torch.cuda.synchronize()
+    assert [w.launches for w in smoke.SAMPLER_BP_FWD_PASS_WRAPPERS] == [1, 1]
+    assert bpairs.sampler_bp_fwd.launches == 1
+    assert bpairs.sampler_bp_fwd_plain.calls == 0
+
+
+@pytest.mark.parametrize("d", estep.KERNEL_DIMS)
+def test_elem_scan_short_chains_at_every_built_d(smoke, d):
+    """Chains of one element (passed through) and of two (one combine)."""
+    for T in (2, 3):
+        leaves = smoke.elem_problem(dict(B=4, T=T, d=d, C=1), seed=d)
+        got = chunked.elem_scan(leaves.float())
+        torch.cuda.synchronize()
+        errs = smoke._field_rel(got, chunked.elem_scan_plain(leaves), d)
+        assert max(errs.values()) <= smoke.TOL_LOGZ_REL, (T, errs)
+
+
+def test_redesigned_c_entries_reject_what_they_do_not_take(smoke):
+    """The C entries of sampler_bp_fwd and its passes and of elem_scan
+    refuse d=5 (cudaErrorInvalidValue) before they read a pointer, and the
+    pass wrappers refuse float64, mixed devices and d=5."""
+    from svae_tpu_torch.ops import _build
+    lib = _build.load_library()
+    for name in ("svae_sampler_bp_fwd_f32", "svae_sampler_bp_fwd_factor_f32",
+                 "svae_sampler_bp_fwd_chain_f32", "svae_elem_scan_f32"):
+        fn = getattr(lib, name)
+        ints = sum(t is ctypes.c_int for t in fn.argtypes)
+        assert fn(5, *[3] * (ints - 1),
+                  *[None] * (len(fn.argtypes) - ints)) != 0, name
+    P2, P3, Jf, hf, eps, xT = smoke.bpairs_problem(
+        smoke.RAGGED_SHAPES["small"], 0)[1][:6]
+    with pytest.raises(TypeError, match="float32"):
+        bpairs.sampler_bp_fwd_factor(P2, P3, Jf, hf, eps)
+    Q, c = bpairs.sampler_bp_fwd_factor(*smoke._f32((P2, P3, Jf, hf, eps)))
+    with pytest.raises(ValueError, match="CUDA"):
+        bpairs.sampler_bp_fwd_chain(Q, c, xT.float().cpu())
+    sin5 = smoke.bpairs_problem(dict(B=3, T=7, d=5, S=1), 0)[1][:6]
+    with pytest.raises(ValueError, match="d=5"):
+        bpairs.sampler_bp_fwd_factor(*smoke._f32(sin5[:5]))

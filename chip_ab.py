@@ -34,9 +34,15 @@ direction's 8 lanes of T=2048); the bidirectional filter alone
 slds_synth x-step's lanes and over one direction's lanes of T=2048) and
 the per-sequence sampler and its adjoint alone (``bpairs.sampler_bp_fwd``
 and ``bpairs.sampler_bp_adj`` at T=128 and T=512, S=1, and at the
-slds_synth shape, B=16, S=2); all on
+slds_synth shape, B=16, S=2); the four HMM kernels alone
+(``hmm_fb.hmm_fb_fwd``, ``hmm_fb_adj``, ``hmm_fb_stat_fwd`` and
+``hmm_fb_stat_adj`` at the slds_synth z-step's shape, B=16, T=80, K=4,
+and at bench.py measure_hmm's, B=128, T=100, K=8, the adjoints on the
+plain forward's messages and cotangents drawn from one seed); all on
 float32 copies of chip_smoke.py's float64 problems, where the checkout has
-them; and, where the checkout has the training loop, one train step
+them; an empty kernel (``torch.cuda._sleep(0)``), the floor under any
+launch's device time; and, where the checkout has the training loop, one
+train step
 (``make_train_step``), one chunked config-2 train step
 (``run_inference(parallel=8)``), one ragged train step at the T=512
 bucket of ``benchmarks/ragged_throughput.py``'s corpus (S=1) and one
@@ -47,7 +53,8 @@ first checkout, how many of the A B / B A pairs each side was faster in
 (by event time); for the kernel stages alone (DEVICE_STAGES) the same by
 their device time under torch.profiler (every kernel of the call
 summed), taken after the event times; and last a JSON object of every
-reading. There is no CPU path.
+reading. ``--stages P [P ...]`` times only the stages whose names start
+with one of the prefixes P. There is no CPU path.
 """
 
 import argparse
@@ -64,7 +71,7 @@ import time
 B, T, S, D, D_OBS = 64, 100, 2, 10, 20
 # the stages whose device time is taken too
 DEVICE_STAGES = ("bidir_fwd", "sampler_bp_fwd", "sampler_bp_adj", "bidir_adj",
-                 "elem_scan")
+                 "elem_scan", "hmm_fb", "empty_kernel")
 
 
 def _median_ms(fn, calls):
@@ -168,6 +175,31 @@ def _scan_bidir_adj_stages(torch, dev):
     return stages
 
 
+def _hmm_stages(torch, dev):
+    """The four HMM kernels alone at the slds_synth z-step's shape and at
+    measure_hmm's, on float32 copies of the checkout's chip_smoke.py
+    problems: the adjoints on the plain forward's messages and cotangents
+    drawn from one seed."""
+    import chip_smoke
+    from svae_tpu_torch.ops import hmm_fb
+    f32 = lambda xs: tuple(x.float().contiguous() for x in xs)
+    stages = {}
+    for name in ("slds", "measure_hmm"):
+        li, lt, lo, _ = chip_smoke.hmm_problem(chip_smoke.HMM_SHAPES[name],
+                                               0, dev)
+        g = torch.Generator(device=dev).manual_seed(3)
+        for fwd, adj in chip_smoke.HMM_RUNS:
+            args = chip_smoke.hmm_kernel_args(li, lt, lo)[fwd]
+            outs = getattr(hmm_fb, fwd + "_plain")(*args)
+            cots = tuple(torch.randn(o.shape, generator=g, dtype=o.dtype,
+                                     device=dev) for o in outs)
+            stages[f"{fwd}_{name}"] = functools.partial(
+                getattr(hmm_fb, fwd), *f32(args))
+            stages[f"{adj}_{name}"] = functools.partial(
+                getattr(hmm_fb, adj), *f32((*args, *outs, *cots)))
+    return stages
+
+
 def _train_stages(torch, loop, lds, parts, glob, rec, dec, batch, gen):
     """One chunked config-2 train step, one ragged train step at the T=512
     bucket, each on its own copy of the models, and one slds_synth train
@@ -217,8 +249,9 @@ def _train_stages(torch, loop, lds, parts, glob, rec, dec, batch, gen):
             "slds_train_step": slds_step}
 
 
-def worker(root, calls):
-    """Time every stage of the checkout at ``root``; returns the readings."""
+def worker(root, calls, only=None):
+    """Time every stage of the checkout at ``root`` (those whose names
+    start with a prefix in ``only``, if given); returns the readings."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
@@ -266,9 +299,19 @@ def worker(root, calls):
         "objective_no_grad": value,
     }
     stages.update(_kernel_stages(torch, estep, init, mats, nodes))
+    wanted = lambda k: only is None or k.startswith(tuple(only))
+    # whether a stage of a family (a name prefix) may be wanted
+    family = lambda f: only is None or any(
+        f.startswith(p) or p.startswith(f) for p in only)
     if all(importlib.util.find_spec(f"svae_tpu_torch.ops.{m}")
-           for m in ("bpairs", "chunked")):
+           for m in ("bpairs", "chunked")) and any(
+               map(family, ("elem_scan", "bidir", "sampler_bp"))):
         stages.update(_scan_bidir_adj_stages(torch, dev))
+    if importlib.util.find_spec("svae_tpu_torch.ops.hmm_fb") and family(
+            "hmm_fb"):
+        stages.update(_hmm_stages(torch, dev))
+    stages["empty_kernel"] = lambda: torch.cuda._sleep(0)
+    stages = {k: fn for k, fn in stages.items() if wanted(k)}
     readings = {k: _median_ms(fn, calls) for k, fn in stages.items()}
     # the device time of the kernel stages alone, whose event time can be
     # the host's time to issue them (chip_smoke._device_ms: every kernel
@@ -285,7 +328,7 @@ def worker(root, calls):
         loop = importlib.import_module("svae_tpu_torch.train.loop")
     except ModuleNotFoundError:
         loop = None
-    if loop is not None:
+    if loop is not None and wanted("train_step"):
         opt_init, step = loop.make_train_step(*parts, num_samples=S)
         state = [glob, (rec, dec), opt_init(glob, (rec, dec))]
 
@@ -293,9 +336,13 @@ def worker(root, calls):
             state[0], state[1], state[2], _, _ = step(*state, batch, gen)
 
         readings["train_step"] = _median_ms(train_step, calls)
+    if loop is not None and any(wanted(k) for k in (
+            "train_step_chunked", "ragged_train_step_T512",
+            "slds_train_step")):
         for k, fn in _train_stages(torch, loop, lds, parts, glob, rec, dec,
                                    batch, gen).items():
-            readings[k] = _median_ms(fn, calls)
+            if wanted(k):
+                readings[k] = _median_ms(fn, calls)
     return {"root": root, "build_s": build_s, "stages": readings,
             "device": device}
 
@@ -347,10 +394,13 @@ def main():
     ap.add_argument("dirs", nargs="+", help="checkout roots to compare")
     ap.add_argument("--calls", type=int, default=25)
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--stages", nargs="+", metavar="PREFIX",
+                    help="time only the stages whose names start with one "
+                    "of these")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(args.dirs[0], args.calls)))
+        print(json.dumps(worker(args.dirs[0], args.calls, args.stages)))
         return
     import torch
     if not torch.cuda.is_available():
@@ -364,7 +414,9 @@ def main():
     for root in (args.dirs + args.dirs[::-1]) * args.rounds:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker",
-             "--calls", str(args.calls), root], capture_output=True,
+             "--calls", str(args.calls), root]
+            + (["--stages", *args.stages] if args.stages else []),
+            capture_output=True,
             text=True)
         if proc.returncode != 0:
             raise SystemExit(f"chip_ab: the run of {root} failed:\n"

@@ -64,7 +64,9 @@ exits non-zero:
    on one batch, and the padded-batch theorem on the card (two sequences:
    stats and local KL of the padded batch against the two alone);
 3h. each HMM forward-backward kernel (``ops/hmm_fb.py``: streamed and
-   stationary, forward and adjoint) in float32 against its plain version
+   stationary, forward and adjoint) and each pass of the streamed adjoint
+   (``hmm_fb.hmm_fb_adj_weights``, ``hmm_fb_adj_chain``,
+   ``hmm_fb_adj_dM``) in float32 against its plain version
    in float64 on the same inputs and random cotangents, and
    ``hmm_posterior`` on the card against the float64 CPU path: at a small
    odd shape, at the slds_synth sweep shape (B=16, T=80, K=4; stationary,
@@ -91,7 +93,8 @@ exits non-zero:
    8-step call; of the bpairs kernels at B=64, T=128 and T=512, of one
    ragged train step per length bucket, and of the bucketed epoch against
    the same corpus padded to T=512; of the HMM kernels and their plain
-   versions at the slds_synth and measure_hmm shapes, of
+   versions at the slds_synth and measure_hmm shapes (device time too,
+   and the streamed adjoint's passes alone and within the whole), of
    ``slds.run_inference`` at bench.py measure_slds's shape (B=16, T=50,
    K=4, d=3, 10 sweeps, S=2) on the kernels and on the twins, of one
    slds_synth train step and of its epoch (host clock); of the two
@@ -144,7 +147,7 @@ exits non-zero:
 
 The line before the last is a JSON object with one entry per kernel (the
 passes of ``sampler_fwd``, ``sampler_bp_fwd``, ``elem_scan_adj``,
-``bidir_adj`` and ``sampler_bp_adj`` too, each
+``bidir_adj``, ``sampler_bp_adj`` and ``hmm_fb_adj`` too, each
 with its adjoint's launches, since one C call launches each pass once;
 its launches on the path that runs it: the training paths, phase 3h's
 stationary ``hmm_posterior`` for the stationary HMM kernels and phase 4k's
@@ -214,6 +217,9 @@ KERNELS = {
     "sampler_bp_adj_dJc": "svae_tpu/ops/pallas_vjp.py:417",
     "hmm_fb_fwd": "svae_tpu/ops/pallas_hmm.py:51",
     "hmm_fb_adj": "svae_tpu/ops/pallas_hmm.py:257",
+    "hmm_fb_adj_weights": "svae_tpu/ops/pallas_hmm.py:257",
+    "hmm_fb_adj_chain": "svae_tpu/ops/pallas_hmm.py:257",
+    "hmm_fb_adj_dM": "svae_tpu/ops/pallas_hmm.py:257",
     "hmm_fb_stat_fwd": "svae_tpu/ops/pallas_hmm.py:110",
     "hmm_fb_stat_adj": "svae_tpu/ops/pallas_hmm.py:173",
     "elem_scan": "svae_tpu/ops/pallas_chunked.py:192",
@@ -256,6 +262,9 @@ SOURCES = {
     "sampler_bp_adj_dJc": "svae_tpu_torch/csrc/sampler_bp_adj.cu",
     "hmm_fb_fwd": "svae_tpu_torch/csrc/hmm_fb.cu",
     "hmm_fb_adj": "svae_tpu_torch/csrc/hmm_fb_adj.cu",
+    "hmm_fb_adj_weights": "svae_tpu_torch/csrc/hmm_fb_adj.cu",
+    "hmm_fb_adj_chain": "svae_tpu_torch/csrc/hmm_fb_adj.cu",
+    "hmm_fb_adj_dM": "svae_tpu_torch/csrc/hmm_fb_adj.cu",
     "hmm_fb_stat_fwd": "svae_tpu_torch/csrc/hmm_fb.cu",
     "hmm_fb_stat_adj": "svae_tpu_torch/csrc/hmm_fb_adj.cu",
     "elem_scan": "svae_tpu_torch/csrc/elem_scan.cu",
@@ -961,6 +970,8 @@ def hmm_problem(shape, seed=0, device="cuda", case="stationary"):
 
 HMM_RUNS = (("hmm_fb_fwd", "hmm_fb_adj"),
             ("hmm_fb_stat_fwd", "hmm_fb_stat_adj"))
+# the passes of hmm_fb_adj, which its one C call launches in this order
+HMM_ADJ_PASSES = ("hmm_fb_adj_weights", "hmm_fb_adj_chain", "hmm_fb_adj_dM")
 
 
 def hmm_kernel_args(li, lt, lo):
@@ -974,14 +985,39 @@ def hmm_kernel_args(li, lt, lo):
     return args
 
 
+def check_hmm_adj_passes(adj_args):
+    """Each pass of ``hmm_fb_adj`` (float32 kernel) against its own plain
+    version (float64) on ``adj_args`` (``hmm_fb_adj``'s float64
+    arguments), each pass fed the plain output of the pass before it.
+    Returns ``{pass: (normwise rel, max abs)}``; check_hmm holds them to
+    TOL_ADJ_REL."""
+    a0, M, alpha, beta, dalpha, dbeta = adj_args
+    errs = {}
+    W, V = hmm_fb.hmm_fb_adj_weights_plain(a0, M, alpha, beta)
+    got = hmm_fb.hmm_fb_adj_weights(*_f32((a0, M, alpha, beta)))
+    torch.cuda.synchronize()
+    errs["hmm_fb_adj_weights"] = _rel_err(got, (W, V))
+    g, h, da0 = hmm_fb.hmm_fb_adj_chain_plain(W, V, dalpha, dbeta)
+    got = hmm_fb.hmm_fb_adj_chain(*_f32((W, V, dalpha, dbeta)))
+    torch.cuda.synchronize()
+    errs["hmm_fb_adj_chain"] = _rel_err(got, (g, h, da0))
+    got = hmm_fb.hmm_fb_adj_dM(*_f32((W, V, g, h)))
+    torch.cuda.synchronize()
+    errs["hmm_fb_adj_dM"] = _rel_err(
+        (got,), (hmm_fb.hmm_fb_adj_dM_plain(W, V, g, h),))
+    return errs
+
+
 def check_hmm(shape, case="stationary", seed=0, device="cuda"):
     """The HMM kernels (float32) against their plain versions (float64) on
     the same inputs and random cotangents at ``shape`` and ``case`` (see
-    :func:`hmm_problem`), and ``hmm_posterior`` on the card (float32, every
-    kernel choice) against the float64 CPU path; raises past
-    TOL_MSG_REL, TOL_ADJ_REL and TOL_ABS (node marginals), or if a forced
-    switch's pair count leaves (0.9, 1.1). Returns ``{kernel: (normwise
-    rel, max abs)}`` and the node marginals' max abs error."""
+    :func:`hmm_problem`), each pass of ``hmm_fb_adj`` against its own
+    (check_hmm_adj_passes), and ``hmm_posterior`` on the card (float32,
+    every kernel choice) against the float64 CPU path; raises past
+    TOL_MSG_REL, TOL_ADJ_REL (the adjoints and the passes) and TOL_ABS
+    (node marginals), or if a forced switch's pair count leaves (0.9,
+    1.1). Returns ``{kernel or pass: (normwise rel, max abs)}`` and the
+    node marginals' max abs error."""
     li, lt, lo, w = hmm_problem(shape, seed, device, case)
     g = torch.Generator(device=device).manual_seed(seed + 1000)
     cot = lambda x: torch.randn(x.shape, generator=g, dtype=x.dtype,
@@ -999,6 +1035,8 @@ def check_hmm(shape, case="stationary", seed=0, device="cuda"):
         got = getattr(hmm_fb, adj)(*_f32(adj_args))
         torch.cuda.synchronize()
         errs[adj] = _rel_err(got, getattr(hmm_fb, adj + "_plain")(*adj_args))
+        if adj == "hmm_fb_adj":
+            errs.update(check_hmm_adj_passes(adj_args))
 
     cpu = lambda x: None if x is None else x.cpu()
     f32 = lambda x: None if x is None else x.float()
@@ -1014,7 +1052,9 @@ def check_hmm(shape, case="stationary", seed=0, device="cuda"):
             forced += out[2][:, 0, 1].tolist()
     errs["node"] = node_err
     ok = (all(errs[f][0] <= TOL_MSG_REL and errs[a][0] <= TOL_ADJ_REL
-              for f, a in HMM_RUNS if f in errs) and node_err <= TOL_ABS)
+              for f, a in HMM_RUNS if f in errs)
+          and all(errs[k][0] <= TOL_ADJ_REL for k in HMM_ADJ_PASSES)
+          and node_err <= TOL_ABS)
     if case == "forced":
         errs["forced_pair_count"] = (min(forced), max(forced))
         ok = ok and 0.9 < min(forced) and max(forced) < 1.1
@@ -1218,6 +1258,11 @@ HMM_WRAPPERS = (hmm_fb.hmm_fb_fwd, hmm_fb.hmm_fb_adj, hmm_fb.hmm_fb_stat_fwd,
                 hmm_fb.hmm_fb_stat_adj)
 HMM_PLAINS = (hmm_fb.hmm_fb_fwd_plain, hmm_fb.hmm_fb_adj_plain,
               hmm_fb.hmm_fb_stat_fwd_plain, hmm_fb.hmm_fb_stat_adj_plain)
+# the HMM adjoint's passes one by one (check_hmm_adj_passes, phase 5); the
+# model paths launch the three kernels through hmm_fb_adj's one C call
+HMM_PASS_WRAPPERS = tuple(getattr(hmm_fb, k) for k in HMM_ADJ_PASSES)
+HMM_PASS_PLAINS = tuple(getattr(hmm_fb, k + "_plain")
+                        for k in HMM_ADJ_PASSES)
 CHUNK_WRAPPERS = (chunked.elem_scan, chunked.elem_scan_adj)
 CHUNK_PLAINS = (chunked.elem_scan_plain, chunked.elem_scan_adj_plain)
 KFWD_WRAPPERS = (kalman_fwd.filter_shared, kalman_fwd.backward_shared,
@@ -1272,15 +1317,17 @@ LAUNCHED_BY = {**{w.__name__: estep.sampler_fwd.__name__
                **{w.__name__: bpairs.sampler_bp_adj.__name__
                   for w in SAMPLER_BP_PASS_WRAPPERS},
                **{w.__name__: bpairs.sampler_bp_fwd.__name__
-                  for w in SAMPLER_BP_FWD_PASS_WRAPPERS}}
+                  for w in SAMPLER_BP_FWD_PASS_WRAPPERS},
+               **{w.__name__: hmm_fb.hmm_fb_adj.__name__
+                  for w in HMM_PASS_WRAPPERS}}
 ALL_WRAPPERS = (WRAPPERS + PASS_WRAPPERS + FWD_PASS_WRAPPERS
                 + RAGGED_WRAPPERS + RAGGED_PASS_WRAPPERS
                 + SAMPLER_BP_PASS_WRAPPERS + SAMPLER_BP_FWD_PASS_WRAPPERS
-                + HMM_WRAPPERS + CHUNK_WRAPPERS + CHUNK_PASS_WRAPPERS
-                + KFWD_WRAPPERS)
+                + HMM_WRAPPERS + HMM_PASS_WRAPPERS + CHUNK_WRAPPERS
+                + CHUNK_PASS_WRAPPERS + KFWD_WRAPPERS)
 ALL_PLAINS = (PLAINS + PASS_PLAINS + FWD_PASS_PLAINS + RAGGED_PLAINS
               + RAGGED_PASS_PLAINS + SAMPLER_BP_PASS_PLAINS
-              + SAMPLER_BP_FWD_PASS_PLAINS + HMM_PLAINS
+              + SAMPLER_BP_FWD_PASS_PLAINS + HMM_PLAINS + HMM_PASS_PLAINS
               + CHUNK_PLAINS
               + CHUNK_PASS_PLAINS + KFWD_PLAINS)
 TRAIN_K = 8
@@ -2123,7 +2170,8 @@ def _twins_on_card():
 
 def slds_timings(device="cuda", cfg=SLDS_CONFIG, epochs=2):
     """Phase 5, SLDS path: each HMM kernel and its plain version at the
-    slds_synth sweep shape and at measure_hmm's; ``bidir_fwd`` and
+    slds_synth sweep shape and at measure_hmm's, event and device time,
+    and the passes of ``hmm_fb_adj`` alone (_pass_times); ``bidir_fwd`` and
     ``sampler_bp_adj`` (with its passes) at the slds_synth x-step's shape
     (BIDIR_ADJ_SHAPES["slds"]: 2B = 32 lanes, T=80, d=4, S=2), event and
     device time; ``slds.run_inference`` at
@@ -2143,12 +2191,33 @@ def slds_timings(device="cuda", cfg=SLDS_CONFIG, epochs=2):
                 torch.randn(o.shape, generator=g, dtype=o.dtype,
                             device=device) for o in outs))
             args = _f32(args)
+            if adj == "hmm_fb_adj":
+                streamed = adj_args
             for name, a, runs in ((fwd, args, TIMING_RUNS),
                                   (adj, adj_args, TIMING_RUNS),
                                   (fwd + "_plain", args, 10),
                                   (adj + "_plain", adj_args, 10)):
                 fn = getattr(hmm_fb, name)
                 t[name + tag] = _time_ms(lambda: fn(*a), runs=runs)
+            for name, a in ((fwd, args), (adj, adj_args)):
+                fn = getattr(hmm_fb, name)
+                dev = _device_ms(lambda: fn(*a))
+                t[name + "_device" + tag] = (sum(dev.values()) if dev
+                                             else math.nan)
+        # the streamed adjoint's passes alone, with their plain versions,
+        # and the device time of each within the whole
+        a0, M, alpha, beta, dalpha, dbeta = streamed
+        W, V = hmm_fb.hmm_fb_adj_weights(a0, M, alpha, beta)
+        g, h, _ = hmm_fb.hmm_fb_adj_chain(W, V, dalpha, dbeta)
+        passes = {"hmm_fb_adj_weights": (a0, M, alpha, beta),
+                  "hmm_fb_adj_chain": (W, V, dalpha, dbeta),
+                  "hmm_fb_adj_dM": (W, V, g, h)}
+        _pass_times(
+            t, tag, "hmm_fb_adj", lambda: hmm_fb.hmm_fb_adj(*streamed),
+            {k: functools.partial(getattr(hmm_fb, k), *a)
+             for k, a in passes.items()},
+            {k: functools.partial(getattr(hmm_fb, k + "_plain"), *a)
+             for k, a in passes.items()})
 
     filt, samp, _ = bpairs_problem(BIDIR_ADJ_SHAPES["slds"], 0, device)
     _bpairs_kernel_times(t, "_slds", _f32(filt), _f32(samp))
@@ -2778,7 +2847,24 @@ def bound(name, B, T, d, S, NL=None):
         # the chain elements: K*K a step and sequence, or the stationary
         # (K, K) matrix once beside K observations a step and sequence
         elements = KK + T1 * K * B if stat else T1 * KK * B
-        if name.endswith("_fwd"):
+        if name == "hmm_fb_adj_weights":
+            # one (step, entry, sequence) a thread: w and v, an add, a
+            # subtraction and an exp each
+            chains, step = B, 6 * KK
+            # in: a0, M, alpha, beta; out: W, V
+            floats = K * B + T1 * KK * B + 2 * T1 * K * B + 2 * T1 * KK * B
+        elif name == "hmm_fb_adj_chain":
+            # per step and chain: K adds of the direct cotangent, K^2
+            # multiply-adds
+            step = K + 2 * KK
+            # in: W, V, dalpha, dbeta; out: g, h, da0
+            floats = 2 * T1 * KK * B + 4 * T1 * K * B + K * B
+        elif name == "hmm_fb_adj_dM":
+            # one (step, entry, sequence) a thread: two multiplies, an add
+            chains, step = B, 3 * KK
+            # in: W, V, g, h; out: dM
+            floats = 3 * T1 * KK * B + 2 * T1 * K * B
+        elif name.endswith("_fwd"):
             # per step K logsumexps of K terms: K adds (carry + element;
             # K more for lt + lo in the stationary kernel), K-1 maxes, K
             # subtractions, K exps, K adds, a log and an add
@@ -2905,7 +2991,7 @@ def main():
             e = check_hmm(shape, case)
             print(f"hmm kernels vs plain versions [{name} {shape} {case}] "
                   f"(normwise rel, max abs; node marginals max abs): {e}")
-            for k in sum(HMM_RUNS, ()):
+            for k in sum(HMM_RUNS, HMM_ADJ_PASSES):
                 if k in e:
                     errs[k] = max(errs.get(k, 0.0), e[k][1])
     stat_launches = hmm_stationary_path()

@@ -2,11 +2,15 @@
 CUDA card: ``bidir_fwd``'s chains (warps) a block (``kBidirChains``,
 svae_tpu_torch/csrc/bpairs.cu), the ring depth of ``sampler_bp_adj``'s
 chain pass (``kBpRing``, csrc/sampler_bp_adj.cu) or of ``sampler_bp_fwd``'s
-(``kBpFwdRing``, csrc/bpairs.cu).
+(``kBpFwdRing``, csrc/bpairs.cu); the ring depth of ``hmm_fb_fwd``
+(``kHmmRing``, csrc/hmm_fb.cu) and of ``hmm_fb_adj``'s chain pass
+(``kHmmAdjRing``, csrc/hmm_fb_adj.cu).
 
     python3 chip_variants.py bidir_fwd [--values 1 2 4] [--rounds R]
     python3 chip_variants.py sampler_bp_adj --values 2 3 4
     python3 chip_variants.py sampler_bp_fwd --values 2 3 4
+    python3 chip_variants.py hmm_fb_fwd --values 2 4 8
+    python3 chip_variants.py hmm_fb_adj --values 2 4 8
 
 Each value rewrites the constant's definition (``constexpr int NAME =
 N;``) in a copy of svae_tpu_torch/csrc/ under the build directory,
@@ -17,7 +21,10 @@ of 25 CUDA-event timings, and the device time of its kernels under
 torch.profiler) on chip_smoke.py's float32 problems at the shapes it runs
 at: ragged B=64 batches of T=128 and T=512, the slds_synth x-step's (B=16,
 T=80, d=4, S=2) and, for ``bidir_fwd``, one direction's 8 lanes of
-T=2048. Each variant is first held to the float64 plain version. The
+T=2048; the HMM kernels at the slds_synth z-step's shape (B=16, T=80,
+K=4) and measure_hmm's (B=128, T=100, K=8), the adjoint on the plain
+forward's messages and seeded cotangents. Each variant is first held to
+the float64 plain version. The
 variants run in turns (A B C C B A), ``R`` times over, in one process.
 Prints the card's name and power limit, one line per reading and a JSON
 object of all of them. There is no CPU path.
@@ -36,9 +43,13 @@ import numpy as np
 import torch
 
 import chip_smoke
-from svae_tpu_torch.ops import _build, bpairs
+from svae_tpu_torch.ops import _build, bpairs, hmm_fb
 
 OUT = os.path.join(_build.BUILD_DIR, "variants")
+_HMM_ADJ = ("svae_hmm_fb_adj_f32", "svae_hmm_fb_adj_weights_f32",
+            "svae_hmm_fb_adj_chain_f32", "svae_hmm_fb_adj_dM_f32")
+_HMM_ADJ_KERNELS = ("hmm_fb_adj_weights_kernel", "hmm_fb_adj_chain_kernel",
+                    "hmm_fb_adj_dM_kernel")
 # kernel: (constant, source, C entries, ptxas functions, the wrapper's
 # kernels under the profiler)
 KERNELS = {
@@ -54,6 +65,10 @@ KERNELS = {
                         if n.startswith("svae_sampler_bp_fwd")],
                        ("sampler_bp_fwd_factor_kernel",
                         "sampler_bp_fwd_chain_kernel"), "sampler_bp_fwd"),
+    "hmm_fb_fwd": ("kHmmRing", "hmm_fb.cu", ("svae_hmm_fb_fwd_f32",),
+                   ("hmm_fb_fwd_kernel",), "hmm_fb_fwd"),
+    "hmm_fb_adj": ("kHmmAdjRing", "hmm_fb_adj.cu", _HMM_ADJ,
+                   _HMM_ADJ_KERNELS, "hmm_fb_adj"),
 }
 
 
@@ -103,8 +118,29 @@ def ptxas_lines(log, functions):
     return out
 
 
+def _wrapper(kernel):
+    """The wrapper a variant of ``kernel`` is timed through, and its plain
+    version."""
+    mod = hmm_fb if kernel.startswith("hmm_fb") else bpairs
+    return getattr(mod, kernel), getattr(mod, kernel + "_plain")
+
+
 def problems(kernel, device="cuda"):
     """``{shape: the wrapper's float64 arguments}``."""
+    if kernel.startswith("hmm_fb"):
+        probs = {}
+        for name in ("slds", "measure_hmm"):
+            li, lt, lo, _ = chip_smoke.hmm_problem(
+                chip_smoke.HMM_SHAPES[name], 0, device)
+            args = chip_smoke.hmm_kernel_args(li, lt, lo)["hmm_fb_fwd"]
+            if kernel == "hmm_fb_adj":
+                outs = hmm_fb.hmm_fb_fwd_plain(*args)
+                g = torch.Generator(device=device).manual_seed(3)
+                args = (*args, *outs, *(
+                    torch.randn(o.shape, generator=g, dtype=o.dtype,
+                                device=device) for o in outs))
+            probs[name] = args
+        return probs
     shapes = {"T128": chip_smoke.RAGGED_SHAPES["ragged"],
               "T512": chip_smoke.RAGGED_LONG,
               "slds": chip_smoke.BIDIR_ADJ_SHAPES["slds"]}
@@ -140,8 +176,7 @@ def main():
     for v, (so, log) in built.items():
         print(f"{constant}={v}: " + "; ".join(ptxas_lines(log, functions)))
         libs[v] = _build.bind(ctypes.CDLL(so), entries)
-    wrapper = getattr(bpairs, args.kernel)
-    plain = getattr(bpairs, args.kernel + "_plain")
+    wrapper, plain = _wrapper(args.kernel)
     probs = problems(args.kernel)
     f32 = {k: chip_smoke._f32(a) for k, a in probs.items()}
     for v, lib in libs.items():
@@ -150,7 +185,10 @@ def main():
             got = wrapper(*f32[k])
             torch.cuda.synchronize()
             want = plain(*a)
-            if args.kernel == "bidir_fwd":
+            if args.kernel == "hmm_fb_fwd":
+                err = chip_smoke._rel_err(got, want)[0]
+                ok = err <= chip_smoke.TOL_MSG_REL
+            elif args.kernel == "bidir_fwd":
                 err = chip_smoke._max_err(got[:2], want[:2])
                 ok = err <= chip_smoke.TOL_ABS
             elif args.kernel == "sampler_bp_fwd":

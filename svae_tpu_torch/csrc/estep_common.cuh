@@ -1,8 +1,10 @@
 // Shared pieces of the port's kernels (estep.cu, filter_adj.cu,
 // sampler_adj.cu, elem_scan.cu, elem_scan_adj.cu and the rest): the block
 // width, the unrolled small-matrix Cholesky factor and triangular solves
-// every kernel runs on one thread's registers, and the pieces of the
-// warp-per-chain filters' Gauss-Jordan step (estep.cu, bpairs.cu).
+// every kernel runs on one thread's registers, the pieces of the
+// warp-per-chain filters' Gauss-Jordan step (estep.cu, bpairs.cu), and
+// the lane segment and the shared-memory prefetch ring of the HMM chains
+// (hmm_fb.cu, hmm_fb_adj.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -11,6 +13,44 @@ namespace {
 
 constexpr int kThreads = 32;
 constexpr float kLog2Pi = 1.8378770664093453f;
+
+// The lanes of a warp that one chain of k states takes, one state a lane:
+// the least power of two >= k, the `width` of the chain's shuffles.
+__host__ __device__ constexpr int segment_lanes(int k) {
+  int w = 1;
+  while (w < k) w *= 2;
+  return w;
+}
+
+// A 4-byte asynchronous copy from global to shared memory (cp.async), the
+// commit of the copies issued so far as a group, and the wait until at most
+// n groups are pending: a prefetch ring in shared memory whose wait counts
+// groups, so a chain step waits only on the copies it reads (the HMM chain
+// kernels). Compiled for the host (nvcc's host pass, a host build of the
+// source), the copy is a plain load and store and the rest do nothing.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
 
 // How far the element-scan kernels' loops over rows unroll: fully up to
 // d=10, not at all beyond (which bounds their build time at d=16).

@@ -1,9 +1,9 @@
 // Hopper kernels of the adjoint of the HMM forward-backward pass (the
 // backward of ops/hmm_fb.py's HmmFb and HmmFbStat).
 //
-// hmm_fb_adj_kernel<K> replaces svae_tpu/ops/pallas_hmm.py:_hmm_fb_adj_kernel.
-// hmm_fb_stat_adj_kernel<K> replaces
-// svae_tpu/ops/pallas_hmm.py:_hmm_fb_stat_adj_kernel.
+// The three kernels of the streamed adjoint together replace
+// svae_tpu/ops/pallas_hmm.py:_hmm_fb_adj_kernel. hmm_fb_stat_adj_kernel<K>
+// replaces svae_tpu/ops/pallas_hmm.py:_hmm_fb_stat_adj_kernel.
 //
 // The adjoint keeps the bounded softmax-weight form. With g the alpha
 // cotangent carried down from step t+1 plus its direct cotangent,
@@ -17,105 +17,167 @@
 // forms 1/sum that overflow once the messages sharpen.
 //
 // What bounds them on an H100: as the forward kernels (csrc/hmm_fb.cu),
-// the latency of each lane's serial chain of K^2 expf a step, with far
-// fewer chains than the card has threads; the bytes (about 0.3 MB at B=16,
-// T=80, K=4) are far below what the card moves in that time.
+// the latency of each chain's serial steps, with far fewer chains than
+// the card has threads; the bytes (about 0.3 MB at B=16, T=80, K=4) are
+// far below what the card moves in that time.
 //
-// What the design does about it. One thread per (sequence, direction):
-// lanes [0, B) run the alpha adjoint descending in t, lanes [B, 2B) the
-// beta adjoint ascending. Each reads the forward's messages at its own
-// step and the step beside it (alpha_t is a0 at t = 0, beta_{t+1} is 0 at
-// the last step), so the wrapper builds no shifted copies, and carries its
-// K-vector cotangent in registers. The streamed adjoint writes each
-// direction's dM to its own stream (dMf, dMb); the stationary adjoint
-// writes each direction's observation cotangent to its own stream (the
-// alpha half's is g itself, since sum_i w_ij = 1; the beta half's is the
-// new carry) and keeps its own (K, K) transition partial in registers,
-// written once per lane at the end. The wrappers sum these: no two threads
-// write one address and there are no atomics. T and B are runtime
-// arguments, K a template parameter; streams keep the lane innermost.
+// What the design does about it. The weights w and v depend only on M and
+// the forward's messages, not on the carried cotangent, so they leave the
+// chain (the rule of the other adjoints' factor passes, adj_passes.cuh):
+// 1. hmm_fb_adj_weights_kernel runs one thread per (step, entry i*K + j,
+//    sequence), the sequence fastest, and writes W_t = [w_ij] and V_t =
+//    [v_ij] lane-minor in M's layout: every expf of the adjoint is here.
+//    It reads alpha_t at step t and the step before (a0 at t = 0), beta_t
+//    and beta_{t+1} (0 at the last step), so no shifted copies are built.
+// 2. hmm_fb_adj_chain_kernel runs each chain on segment_lanes(K) lanes of
+//    a warp, as hmm_fb_fwd_kernel does, lane i owning state i of the
+//    carry: the alpha chains (lanes [0, B) of 2B) descending, g = c +
+//    dalpha_t, c'(i) = sum_j g_j w_t(i, j); the beta chains ascending, h =
+//    c + dbeta_t, c'(j) = sum_i h_i v_t(i, j). A step is K shuffles and K
+//    multiply-adds in the index order of the thread-per-chain kernel; the
+//    lane's row of W_t (column of V_t) and direct cotangent for the next
+//    kHmmAdjRing - 1 steps are in flight in a ring in shared memory, as
+//    in hmm_fb_fwd_kernel. It writes g_t and h_t (T-1, K, B) and da0.
+// 3. hmm_fb_adj_dM_kernel, one thread per (step, entry, sequence), writes
+//    dM_t(i, j) = g_t(j) w_ij + h_t(i) v_ij once: both directions' parts,
+//    summed in the kernel.
+// svae_hmm_fb_adj_f32 launches the three, one after the other, with W, V,
+// g and h as the caller's scratch. The stationary adjoint still runs one
+// thread per (sequence, direction), writes each direction's observation
+// cotangent to its own stream (the alpha half's is g itself, since sum_i
+// w_ij = 1; the beta half's is the new carry) and keeps its own (K, K)
+// transition partial in registers, written once per lane at the end; its
+// wrapper sums these. No two threads write one address and there are no
+// atomics. T and B are runtime arguments, K a template parameter; streams
+// keep the lane innermost.
 
-#include "estep_common.cuh"
+#include "adj_passes.cuh"
 
 namespace {
 
-// Layouts: a0 (K, B); M (T1, K*K, B); alpha, beta, dalpha, dbeta
-// (T1, K, B) as hmm_fb_fwd_kernel returns them and their cotangents; out
-// dMf, dMb (T1, K*K, B), da0 (K, B).
+// How many steps ahead a lane of the chain pass loads (chip_variants.py;
+// the chain pass runs one warp a block: four ran slower).
+constexpr int kHmmAdjRing = 8;
+
+// One thread per (step t, entry e = i*K + j, sequence b), b fastest.
+// Inputs: a0 (K, B); M (T1, K*K, B); alpha, beta (T1, K, B) as
+// hmm_fb_fwd_kernel returns them. Outputs W, V (T1, K*K, B): w_ij from
+// alpha_t (a0 at t = 0) and alpha_{t+1}, v_ij from beta_t and beta_{t+1}
+// (0 at the last step).
+template <int K>
+__global__ void __launch_bounds__(kPassThreads)
+hmm_fb_adj_weights_kernel(int B, int T1, const float* __restrict__ a0,
+                          const float* __restrict__ M,
+                          const float* __restrict__ alpha,
+                          const float* __restrict__ beta,
+                          float* __restrict__ W, float* __restrict__ V) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)T1 * K * K * B) return;
+  const int b = (int)(idx % B);
+  const size_t r = idx / B;
+  const int e = (int)(r % (K * K)), t = (int)(r / (K * K));
+  const int i = e / K, j = e - i * K;
+  const size_t vec = (size_t)t * K * B + b;
+  const float m = M[idx];
+  const float p = t > 0 ? alpha[vec - (size_t)K * B + (size_t)i * B]
+                        : a0[(size_t)i * B + b];
+  W[idx] = expf(p + m - alpha[vec + (size_t)j * B]);
+  const float q = t < T1 - 1 ? beta[vec + (size_t)(K + j) * B] : 0.f;
+  V[idx] = expf(m + q - beta[vec + (size_t)i * B]);
+}
+
+// segment_lanes(K) lanes a chain, chain c = alpha lane c < B (descending
+// t) or beta lane c - B (ascending); one warp a block. Inputs: W, V from
+// the weight pass; dalpha, dbeta (T1, K, B), the cotangents of the
+// forward's outputs. Outputs: g (the alpha chains' g_t), h (the beta
+// chains' h_t), (T1, K, B) each; da0 (K, B).
 template <int K>
 __global__ void __launch_bounds__(kThreads)
-hmm_fb_adj_kernel(int B, int T1, const float* __restrict__ a0,
-                  const float* __restrict__ M,
-                  const float* __restrict__ alpha,
-                  const float* __restrict__ beta,
-                  const float* __restrict__ dalpha,
-                  const float* __restrict__ dbeta, float* __restrict__ dMf,
-                  float* __restrict__ dMb, float* __restrict__ da0) {
-  constexpr int KK = K * K;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= 2 * B) return;
-  const bool fwd = lane < B;
-  const int b = fwd ? lane : lane - B;
-  const size_t vstep = (size_t)K * B;
+hmm_fb_adj_chain_kernel(int B, int T1, const float* __restrict__ W,
+                        const float* __restrict__ V,
+                        const float* __restrict__ dalpha,
+                        const float* __restrict__ dbeta,
+                        float* __restrict__ g, float* __restrict__ h,
+                        float* __restrict__ da0) {
+  constexpr int S = segment_lanes(K), R = kHmmAdjRing;
+  // the ring: slot u holds the lane's K weights and its direct cotangent
+  // of a coming step
+  __shared__ float ring[R][K + 1][kThreads];
+  const int lane = threadIdx.x;
+  const int gid = blockIdx.x * kThreads + lane;
+  // as hmm_fb_fwd_kernel: a warp past the last chain leaves whole; lanes
+  // past it and K = 3's idle lane shadow a real lane and store nothing
+  if ((gid - lane) / S >= 2 * B) return;
+  const bool live = gid / S < 2 * B && gid % S < K;
+  const int chain = min(gid / S, 2 * B - 1);
+  const int i = min(gid % S, K - 1);  // the state this lane owns
+  const bool fwd = chain < B;
+  const int b = fwd ? chain : chain - B;
+  const long long KB = (long long)K * B, KKB = KB * K;
+  // chain step s is t = T1-1-s for alpha, t = s for beta; the lane's K
+  // weights (row i of W_t, column i of V_t) at X + src + k * stride, its
+  // direct cotangent at dX + vec; both step one row a load and stay at the
+  // chain's last
+  const float* X = fwd ? W : V;
+  const float* dX = fwd ? dalpha : dbeta;
+  const long long stride = fwd ? B : KB;
+  const long long step = fwd ? -KKB : KKB, vstep = fwd ? -KB : KB;
+  const long long t0 = fwd ? T1 - 1 : 0;
+  long long src = t0 * KKB + (fwd ? i * KB : (long long)i * B) + b;
+  long long vec = t0 * KB + (long long)i * B + b;
+  const long long last = src + (T1 - 1) * step;
+  auto load = [&](int u) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      cp_async4(&ring[u][k][lane], X + src + k * stride);
+    cp_async4(&ring[u][K][lane], dX + vec);
+    cp_async_commit();
+    const bool more = src != last;
+    src = more ? src + step : src;
+    vec = more ? vec + vstep : vec;
+  };
+#pragma unroll
+  for (int u = 0; u < R; ++u) load(u);
 
-  float c[K];  // the carried cotangent
+  float c = 0.f;  // the carried cotangent's state i
+  float* out = (fwd ? g : h) + t0 * KB + (long long)i * B + b;
+  for (int s0 = 0; s0 < T1; s0 += R) {
 #pragma unroll
-  for (int i = 0; i < K; ++i) c[i] = 0.f;
-
-  for (int s = 0; s < T1; ++s) {
-    const int t = fwd ? T1 - 1 - s : s;
-    const size_t mat = (size_t)t * KK * B + b;
-    const size_t vec = (size_t)t * vstep + b;
-    float m[KK];
+    for (int u = 0; u < R; ++u) {
+      if (s0 + u >= T1) break;
+      cp_async_wait<R - 1>();
+      const float gi = c + ring[u][K][lane];
+      if (live) *out = gi;
+      out += vstep;
+      float n = 0.f;
 #pragma unroll
-    for (int k = 0; k < KK; ++k) m[k] = M[mat + (size_t)k * B];
-    float g[K], p[K], q[K], n[K];
-    if (fwd) {
-      // g: cotangent of alpha_{t+1}; p = alpha_t; q = alpha_{t+1}
-#pragma unroll
-      for (int i = 0; i < K; ++i) {
-        g[i] = c[i] + dalpha[vec + (size_t)i * B];
-        p[i] = t > 0 ? alpha[vec - vstep + (size_t)i * B] : a0[i * B + b];
-        q[i] = alpha[vec + (size_t)i * B];
-        n[i] = 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < K; ++i) {
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          const float w = expf(p[i] + m[i * K + j] - q[j]);
-          const float r = g[j] * w;
-          dMf[mat + (size_t)(i * K + j) * B] = r;
-          n[i] += r;
-        }
-      }
-    } else {
-      // g: cotangent of beta_t; p = beta_t; q = beta_{t+1}
-#pragma unroll
-      for (int i = 0; i < K; ++i) {
-        g[i] = c[i] + dbeta[vec + (size_t)i * B];
-        p[i] = beta[vec + (size_t)i * B];
-        q[i] = t < T1 - 1 ? beta[vec + vstep + (size_t)i * B] : 0.f;
-        n[i] = 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < K; ++i) {
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          const float v = expf(m[i * K + j] + q[j] - p[i]);
-          const float r = g[i] * v;
-          dMb[mat + (size_t)(i * K + j) * B] = r;
-          n[j] += r;
-        }
-      }
+      for (int k = 0; k < K; ++k)
+        n += __shfl_sync(0xffffffffu, gi, k, S) * ring[u][k][lane];
+      c = n;
+      load(u);  // step s+R into the slot just read
     }
-#pragma unroll
-    for (int i = 0; i < K; ++i) c[i] = n[i];
   }
-  if (fwd) {
-#pragma unroll
-    for (int i = 0; i < K; ++i) da0[i * B + b] = c[i];
-  }
+  cp_async_wait<0>();
+  if (fwd && live) da0[(long long)i * B + b] = c;
+}
+
+// One thread per (step t, entry e = i*K + j, sequence b), b fastest:
+// dM_t(i, j) = g_t(j) w_ij + h_t(i) v_ij. Inputs: W, V from the weight
+// pass, g, h from the chain pass. Output dM (T1, K*K, B).
+template <int K>
+__global__ void __launch_bounds__(kPassThreads)
+hmm_fb_adj_dM_kernel(int B, int T1, const float* __restrict__ W,
+                     const float* __restrict__ V,
+                     const float* __restrict__ g,
+                     const float* __restrict__ h, float* __restrict__ dM) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)T1 * K * K * B) return;
+  const int b = (int)(idx % B);
+  const size_t r = idx / B;
+  const int e = (int)(r % (K * K)), t = (int)(r / (K * K));
+  const int i = e / K, j = e - i * K;
+  const size_t vec = (size_t)t * K * B + b;
+  dM[idx] = g[vec + (size_t)j * B] * W[idx] + h[vec + (size_t)i * B] * V[idx];
 }
 
 // The stationary adjoint, M_t(i, j) = LT(i, j) + lo_t(j). Layouts: a0
@@ -210,10 +272,59 @@ hmm_fb_stat_adj_kernel(int B, int T1, const float* __restrict__ a0,
 
 inline dim3 grid_of(int B) { return dim3((2 * B + kThreads - 1) / kThreads); }
 
+// The streamed adjoint's passes (n = (T-1) K^2 B threads for the weight
+// and dM passes, 2B chains of segment_lanes(K) lanes for the chain pass).
+template <int K>
+int launch_weights(int B, int T1, const float* a0, const float* M,
+                   const float* alpha, const float* beta, float* W, float* V,
+                   cudaStream_t st) {
+  const size_t n = (size_t)T1 * K * K * B;
+  hmm_fb_adj_weights_kernel<K><<<(unsigned)((n + kPassThreads - 1) /
+                                            kPassThreads),
+                                 kPassThreads, 0, st>>>(B, T1, a0, M, alpha,
+                                                        beta, W, V);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int launch_chain(int B, int T1, const float* W, const float* V,
+                 const float* dalpha, const float* dbeta, float* g, float* h,
+                 float* da0, cudaStream_t st) {
+  const int threads = 2 * B * segment_lanes(K);
+  hmm_fb_adj_chain_kernel<K><<<(threads + kThreads - 1) / kThreads, kThreads,
+                               0, st>>>(B, T1, W, V, dalpha, dbeta, g, h, da0);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int launch_dM(int B, int T1, const float* W, const float* V, const float* g,
+              const float* h, float* dM, cudaStream_t st) {
+  const size_t n = (size_t)T1 * K * K * B;
+  hmm_fb_adj_dM_kernel<K><<<(unsigned)((n + kPassThreads - 1) /
+                                       kPassThreads),
+                            kPassThreads, 0, st>>>(B, T1, W, V, g, h, dM);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int launch_adj(int B, int T1, const float* a0, const float* M,
+               const float* alpha, const float* beta, const float* dalpha,
+               const float* dbeta, float* W, float* V, float* g, float* h,
+               float* dM, float* da0, cudaStream_t st) {
+  int err = launch_weights<K>(B, T1, a0, M, alpha, beta, W, V, st);
+  if (err) return err;
+  err = launch_chain<K>(B, T1, W, V, dalpha, dbeta, g, h, da0, st);
+  if (err) return err;
+  return launch_dM<K>(B, T1, W, V, g, h, dM, st);
+}
+
 }  // namespace
 
-// Plain C entries for ctypes. Each returns cudaGetLastError() after the
-// launch (0 on success); an unsupported K returns cudaErrorInvalidValue.
+// Plain C entries for ctypes. Each returns cudaGetLastError() after its
+// launches (0 on success); an unsupported K returns cudaErrorInvalidValue.
+// T1 is the number of steps (T-1). svae_hmm_fb_adj_f32 runs the three
+// passes (W, V (T-1, K*K, B) and g, h (T-1, K, B) are its scratch); the
+// next three run one each.
 #define SVAE_HMM_SWITCH(CASE)            \
   switch (K) {                           \
     CASE(1)                              \
@@ -228,14 +339,52 @@ inline dim3 grid_of(int B) { return dim3((2 * B + kThreads - 1) / kThreads); }
 extern "C" int svae_hmm_fb_adj_f32(int K, int B, int T1, const float* a0,
                                    const float* M, const float* alpha,
                                    const float* beta, const float* dalpha,
-                                   const float* dbeta, float* dMf,
-                                   float* dMb, float* da0, void* stream) {
+                                   const float* dbeta, float* W, float* V,
+                                   float* g, float* h, float* dM, float* da0,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SVAE_CASE(KS)                                                     \
-  case KS:                                                                \
-    hmm_fb_adj_kernel<KS><<<grid_of(B), kThreads, 0, st>>>(               \
-        B, T1, a0, M, alpha, beta, dalpha, dbeta, dMf, dMb, da0);         \
-    return (int)cudaGetLastError();
+#define SVAE_CASE(KS)                                                      \
+  case KS:                                                                 \
+    return launch_adj<KS>(B, T1, a0, M, alpha, beta, dalpha, dbeta, W, V, \
+                          g, h, dM, da0, st);
+  SVAE_HMM_SWITCH(SVAE_CASE)
+#undef SVAE_CASE
+}
+
+extern "C" int svae_hmm_fb_adj_weights_f32(int K, int B, int T1,
+                                           const float* a0, const float* M,
+                                           const float* alpha,
+                                           const float* beta, float* W,
+                                           float* V, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SVAE_CASE(KS) \
+  case KS:            \
+    return launch_weights<KS>(B, T1, a0, M, alpha, beta, W, V, st);
+  SVAE_HMM_SWITCH(SVAE_CASE)
+#undef SVAE_CASE
+}
+
+extern "C" int svae_hmm_fb_adj_chain_f32(int K, int B, int T1,
+                                         const float* W, const float* V,
+                                         const float* dalpha,
+                                         const float* dbeta, float* g,
+                                         float* h, float* da0, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SVAE_CASE(KS) \
+  case KS:            \
+    return launch_chain<KS>(B, T1, W, V, dalpha, dbeta, g, h, da0, st);
+  SVAE_HMM_SWITCH(SVAE_CASE)
+#undef SVAE_CASE
+}
+
+extern "C" int svae_hmm_fb_adj_dM_f32(int K, int B, int T1, const float* W,
+                                      const float* V, const float* g,
+                                      const float* h, float* dM,
+                                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SVAE_CASE(KS) \
+  case KS:            \
+    return launch_dM<KS>(B, T1, W, V, g, h, dM, st);
   SVAE_HMM_SWITCH(SVAE_CASE)
 #undef SVAE_CASE
 }

@@ -116,7 +116,10 @@ ENTRIES = (("svae_filter_fwd_f32", 3, 11),
            ("svae_sampler_bp_adj_dJc_f32", 4, 13),
            ("svae_hmm_fb_fwd_f32", 3, 5),
            ("svae_hmm_fb_stat_fwd_f32", 3, 6),
-           ("svae_hmm_fb_adj_f32", 3, 10),
+           ("svae_hmm_fb_adj_f32", 3, 13),
+           ("svae_hmm_fb_adj_weights_f32", 3, 7),
+           ("svae_hmm_fb_adj_chain_f32", 3, 8),
+           ("svae_hmm_fb_adj_dM_f32", 3, 6),
            ("svae_hmm_fb_stat_adj_f32", 3, 12),
            ("svae_elem_scan_f32", 3, 3),
            ("svae_elem_scan_adj_f32", 3, 6),

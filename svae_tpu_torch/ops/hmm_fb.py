@@ -18,17 +18,24 @@ from alpha_0 = log_init + log_obs_0 and beta_{T-1} = 0.
   and v_ij = exp(M_t(i,j) + beta_{t+1}(j) - beta_t(i)) lie in [0, 1], so
   no intermediate can overflow (the form derived by automatic
   differentiation of log-of-sums gives NaN once messages sharpen).
+  :func:`hmm_fb_adj` runs as three passes: the weights, which do not
+  depend on the carried cotangent (:func:`hmm_fb_adj_weights`), the two
+  serial chains of cotangents, products only (:func:`hmm_fb_adj_chain`),
+  and dM from both (:func:`hmm_fb_adj_dM`).
 
-Each of the four is a CUDA kernel (``csrc/hmm_fb.cu``,
+Each of the four, and each pass, is a CUDA kernel (``csrc/hmm_fb.cu``,
 ``csrc/hmm_fb_adj.cu``) for tensors on a card and a plain PyTorch version
 (``*_plain``) for tensors on the CPU, with the launch counters and the
 no-fallback rule of :mod:`~svae_tpu_torch.ops.estep`: the forward twins
 step batched ``torch.logsumexp`` over the lanes, the plain adjoints are
-``torch.autograd``'s vector-Jacobian products of the twins. Streams keep
-the JAX package's packed layout with the lane innermost ((T-1, K*K, B)
-and (T-1, K, B)), without its 128-lane padding. :func:`hmm_posterior`
-assembles the marginals around them with batched torch ops.
+``torch.autograd``'s vector-Jacobian products of the twins, and each pass
+has a plain version of its own. Streams keep the JAX package's packed
+layout with the lane innermost ((T-1, K*K, B) and (T-1, K, B)), without
+its 128-lane padding. :func:`hmm_posterior` assembles the marginals
+around them with batched torch ops.
 """
+
+import math
 
 import torch
 
@@ -107,23 +114,110 @@ hmm_fb_stat_fwd.launches = 0
 
 def hmm_fb_adj(a0, M, alpha, beta, dalpha, dbeta):
     """Adjoint of :func:`hmm_fb_fwd`: its inputs, its outputs and their
-    cotangents -> ``(da0, dM)``, shaped as the inputs. The kernel writes
-    the alpha chain's and the beta chain's parts of dM apart (each
-    direction runs on its own thread); they are summed here."""
+    cotangents -> ``(da0, dM)``, shaped as the inputs. On a card one C
+    call runs the three passes of :func:`hmm_fb_adj_weights`,
+    :func:`hmm_fb_adj_chain` and :func:`hmm_fb_adj_dM`."""
     if a0.device.type == "cpu":
         return hmm_fb_adj_plain(a0, M, alpha, beta, dalpha, dbeta)
     outs = (alpha, beta, dalpha, dbeta)
     K, B, T1 = _check_shapes("hmm_fb_adj", a0, M, outs=outs)
     _check("hmm_fb_adj", K, (a0, M) + outs)
-    dMf, dMb = torch.empty_like(M), torch.empty_like(M)
-    da0 = torch.empty_like(a0)
+    # the passes' scratch: W and V, g and h, one allocation each
+    W, V = torch.empty((2,) + M.shape, dtype=M.dtype, device=M.device)
+    g, h = torch.empty((2,) + alpha.shape, dtype=M.dtype, device=M.device)
+    dM, da0 = torch.empty_like(M), torch.empty_like(a0)
     _launch("hmm_fb_adj", _build.load_library().svae_hmm_fb_adj_f32,
-            a0.device, K, B, T1, a0, M, *outs, dMf, dMb, da0)
+            a0.device, K, B, T1, a0, M, *outs, W, V, g, h, dM, da0)
     hmm_fb_adj.launches += 1
-    return da0, dMf + dMb
+    return da0, dM
 
 
 hmm_fb_adj.launches = 0
+
+
+# The adjoint's passes one by one, for holding each kernel against its own
+# plain version: hmm_fb_adj = (da0, hmm_fb_adj_dM(W, V, g, h)) with (W, V)
+# = hmm_fb_adj_weights(a0, M, alpha, beta) and (g, h, da0) =
+# hmm_fb_adj_chain(W, V, dalpha, dbeta). The model paths call hmm_fb_adj,
+# which launches the same kernels from one C call.
+
+
+def hmm_fb_adj_weights(a0, M, alpha, beta):
+    """Pass 1 of :func:`hmm_fb_adj`, parallel over (step, entry,
+    sequence): the alpha chains' weights ``W`` and the beta chains' ``V``
+    (T-1, K*K, B), entry i*K + j, w_ij = exp(alpha_t(i) + M_t(i,j) -
+    alpha_{t+1}(j)) and v_ij = exp(M_t(i,j) + beta_{t+1}(j) - beta_t(i)).
+    Arguments as :func:`hmm_fb_adj`'s first four."""
+    if a0.device.type == "cpu":
+        return hmm_fb_adj_weights_plain(a0, M, alpha, beta)
+    K, B, T1 = _check_shapes("hmm_fb_adj_weights", a0, M,
+                             outs=(alpha, beta))
+    _check("hmm_fb_adj_weights", K, (a0, M, alpha, beta))
+    W, V = torch.empty_like(M), torch.empty_like(M)
+    _launch("hmm_fb_adj_weights",
+            _build.load_library().svae_hmm_fb_adj_weights_f32, a0.device, K,
+            B, T1, a0, M, alpha, beta, W, V)
+    hmm_fb_adj_weights.launches += 1
+    return W, V
+
+
+hmm_fb_adj_weights.launches = 0
+
+
+def _check_pass_shapes(name, W, V, vecs):
+    """``W``, ``V`` (T-1, K*K, B) and ``vecs`` (T-1, K, B) each; returns
+    ``(K, B, T-1)``."""
+    T1, KK, B = W.shape if W.dim() == 3 else (0, 0, 0)
+    K = math.isqrt(KK)
+    if (T1 < 1 or K * K != KK or V.shape != W.shape
+            or any(x.shape != (T1, K, B) for x in vecs)):
+        raise ValueError(f"{name}: inconsistent shapes")
+    return K, B, T1
+
+
+def hmm_fb_adj_chain(W, V, dalpha, dbeta):
+    """Pass 2 of :func:`hmm_fb_adj`, serial in the steps, products only:
+    from :func:`hmm_fb_adj_weights`' ``W`` and ``V`` and the cotangents
+    ``dalpha``, ``dbeta`` (T-1, K, B) of the forward's outputs, the alpha
+    chains' g_t = c + dalpha_t, c <- sum_j g_j w_t(i, j) (t descending) and
+    the beta chains' h_t = c + dbeta_t, c <- sum_i h_i v_t(i, j) (t
+    ascending). Returns ``(g, h (T-1, K, B), da0 (K, B))``."""
+    if W.device.type == "cpu":
+        return hmm_fb_adj_chain_plain(W, V, dalpha, dbeta)
+    K, B, T1 = _check_pass_shapes("hmm_fb_adj_chain", W, V, (dalpha, dbeta))
+    args = (W, V, dalpha, dbeta)
+    _check("hmm_fb_adj_chain", K, args)
+    g, h = torch.empty_like(dalpha), torch.empty_like(dalpha)
+    da0 = torch.empty((K, B), dtype=W.dtype, device=W.device)
+    _launch("hmm_fb_adj_chain",
+            _build.load_library().svae_hmm_fb_adj_chain_f32, W.device, K, B,
+            T1, *args, g, h, da0)
+    hmm_fb_adj_chain.launches += 1
+    return g, h, da0
+
+
+hmm_fb_adj_chain.launches = 0
+
+
+def hmm_fb_adj_dM(W, V, g, h):
+    """Pass 3 of :func:`hmm_fb_adj`, parallel over (step, entry,
+    sequence): dM_t(i, j) = g_t(j) w_ij + h_t(i) v_ij (T-1, K*K, B), both
+    directions' parts of the chain elements' cotangent, from
+    :func:`hmm_fb_adj_weights`' ``W``, ``V`` and
+    :func:`hmm_fb_adj_chain`'s ``g``, ``h``."""
+    if W.device.type == "cpu":
+        return hmm_fb_adj_dM_plain(W, V, g, h)
+    K, B, T1 = _check_pass_shapes("hmm_fb_adj_dM", W, V, (g, h))
+    args = (W, V, g, h)
+    _check("hmm_fb_adj_dM", K, args)
+    dM = torch.empty_like(W)
+    _launch("hmm_fb_adj_dM", _build.load_library().svae_hmm_fb_adj_dM_f32,
+            W.device, K, B, T1, *args, dM)
+    hmm_fb_adj_dM.launches += 1
+    return dM
+
+
+hmm_fb_adj_dM.launches = 0
 
 
 def hmm_fb_stat_adj(a0, LT, lo, alpha, beta, dalpha, dbeta):
@@ -201,6 +295,60 @@ def hmm_fb_adj_plain(a0, M, alpha, beta, dalpha, dbeta):
 
 
 hmm_fb_adj_plain.calls = 0
+
+
+def hmm_fb_adj_weights_plain(a0, M, alpha, beta):
+    """Plain version of :func:`hmm_fb_adj_weights` (same arguments, same
+    outputs), batched over steps, entries and sequences in the kernel's op
+    order."""
+    hmm_fb_adj_weights_plain.calls += 1
+    T1, KK, B = M.shape
+    K = a0.shape[0]
+    Mm = M.reshape(T1, K, K, B)
+    prev = torch.cat([a0[None], alpha[:-1]])          # alpha_t, (T-1, K, B)
+    nxt = torch.cat([beta[1:], torch.zeros_like(beta[:1])])  # beta_{t+1}
+    W = torch.exp(prev[:, :, None] + Mm - alpha[:, None])
+    V = torch.exp(Mm + nxt[:, None] - beta[:, :, None])
+    return W.reshape(T1, KK, B), V.reshape(T1, KK, B)
+
+
+hmm_fb_adj_weights_plain.calls = 0
+
+
+def hmm_fb_adj_chain_plain(W, V, dalpha, dbeta):
+    """Plain version of :func:`hmm_fb_adj_chain` (same arguments, same
+    outputs): the two chains stepped over the lanes, the sums in the
+    kernel's index order."""
+    hmm_fb_adj_chain_plain.calls += 1
+    T1, K, B = dalpha.shape
+    Wm, Vm = W.reshape(T1, K, K, B), V.reshape(T1, K, K, B)
+    g, h = torch.empty_like(dalpha), torch.empty_like(dbeta)
+    c = torch.zeros_like(dalpha[0])
+    for t in reversed(range(T1)):
+        g[t] = c + dalpha[t]
+        c = (Wm[t] * g[t][None]).sum(1)      # c(i) = sum_j g_j w_t(i, j)
+    da0 = c
+    c = torch.zeros_like(dbeta[0])
+    for t in range(T1):
+        h[t] = c + dbeta[t]
+        c = (Vm[t] * h[t][:, None]).sum(0)   # c(j) = sum_i h_i v_t(i, j)
+    return g, h, da0
+
+
+hmm_fb_adj_chain_plain.calls = 0
+
+
+def hmm_fb_adj_dM_plain(W, V, g, h):
+    """Plain version of :func:`hmm_fb_adj_dM` (same arguments, same
+    output)."""
+    hmm_fb_adj_dM_plain.calls += 1
+    T1, K, B = g.shape
+    dM = (g[:, None] * W.reshape(T1, K, K, B)
+          + h[:, :, None] * V.reshape(T1, K, K, B))
+    return dM.reshape(T1, K * K, B)
+
+
+hmm_fb_adj_dM_plain.calls = 0
 
 
 def hmm_fb_stat_adj_plain(a0, LT, lo, alpha, beta, dalpha, dbeta):

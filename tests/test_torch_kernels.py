@@ -275,6 +275,9 @@ def test_hmm_kernels_match_plain(smoke, shape, case):
 
 @pytest.mark.parametrize("K", hmm_fb.KERNEL_STATES)
 def test_hmm_kernels_match_plain_at_every_built_K(smoke, K):
+    """Every kernel and each pass of ``hmm_fb_adj`` (check_hmm) at every
+    built K: B=5 leaves the last warp of the chain kernels part-full, and
+    K=3 a lane of each chain's segment idle."""
     smoke.check_hmm(dict(B=5, T=9, K=K), seed=K)
 
 
@@ -298,7 +301,9 @@ def _hazard(name):
 def test_hmm_hazards_on_card_in_float32(smoke, name):
     """The hazards on the kernels in float32: values and gradients finite,
     node marginals within the moments tier of the float64 CPU path, and
-    the forced switch counted once."""
+    the forced switch counted once; then each pass of ``hmm_fb_adj`` on the
+    hazard's packed inputs: finite, every weight in [0, 1], and together
+    the whole adjoint's outputs."""
     li, lt, lo = _hazard(name)
     lo32 = lo.float().cuda().requires_grad_()
     out = hmm_fb.hmm_posterior(li.float().cuda(), lt.float().cuda(), lo32)
@@ -309,6 +314,21 @@ def test_hmm_hazards_on_card_in_float32(smoke, name):
     assert float((node - ref[1]).abs().max()) <= smoke.TOL_ABS
     if name == "forced":
         assert 0.9 < float(out[2][0, 0, 1]) < 1.1
+
+    a0, M = smoke._f32(smoke.hmm_kernel_args(li, lt, lo)["hmm_fb_fwd"])
+    a0, M = a0.cuda(), M.cuda()
+    alpha, beta = hmm_fb.hmm_fb_fwd(a0, M)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dalpha, dbeta = (torch.randn(x.shape, generator=gen, device="cuda")
+                     for x in (alpha, beta))
+    W, V = hmm_fb.hmm_fb_adj_weights(a0, M, alpha, beta)
+    gg, hh, da0 = hmm_fb.hmm_fb_adj_chain(W, V, dalpha, dbeta)
+    dM = hmm_fb.hmm_fb_adj_dM(W, V, gg, hh)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in (W, V, gg, hh, da0, dM))
+    assert all(bool(((x >= 0) & (x <= 1)).all()) for x in (W, V))
+    whole = hmm_fb.hmm_fb_adj(a0, M, alpha, beta, dalpha, dbeta)
+    assert torch.equal(whole[0], da0) and torch.equal(whole[1], dM)
 
 
 def test_hmm_stationary_path(smoke):

@@ -38,10 +38,15 @@ slds_synth shape, B=16, S=2); the four HMM kernels alone
 (``hmm_fb.hmm_fb_fwd``, ``hmm_fb_adj``, ``hmm_fb_stat_fwd`` and
 ``hmm_fb_stat_adj`` at the slds_synth z-step's shape, B=16, T=80, K=4,
 and at bench.py measure_hmm's, B=128, T=100, K=8, the adjoints on the
-plain forward's messages and cotangents drawn from one seed); all on
-float32 copies of chip_smoke.py's float64 problems, where the checkout has
-them; an empty kernel (``torch.cuda._sleep(0)``), the floor under any
-launch's device time; and, where the checkout has the training loop, one
+plain forward's messages and cotangents drawn from one seed); the two
+shared-pair filters alone (``kalman_fwd.filter_shared`` and
+``backward_shared`` at chip_smoke.py's KFWD_SHAPES config-2 width and B=8,
+T=2048, and at config-2 width at the other built latent sizes) and
+``bpairs.bidir_fwd`` over the B forward and the B backward lanes of the
+same chains (``bidir_fwd_shared_*``); all on float32 copies of
+chip_smoke.py's float64 problems, where the checkout has them; an empty
+kernel (``torch.cuda._sleep(0)``), the floor under any launch's device
+time; and, where the checkout has the training loop, one
 train step
 (``make_train_step``), one chunked config-2 train step
 (``run_inference(parallel=8)``), one ragged train step at the T=512
@@ -71,7 +76,8 @@ import time
 B, T, S, D, D_OBS = 64, 100, 2, 10, 20
 # the stages whose device time is taken too
 DEVICE_STAGES = ("bidir_fwd", "sampler_bp_fwd", "sampler_bp_adj", "bidir_adj",
-                 "elem_scan", "hmm_fb", "empty_kernel")
+                 "elem_scan", "hmm_fb", "filter_shared", "backward_shared",
+                 "empty_kernel")
 
 
 def _median_ms(fn, calls):
@@ -200,6 +206,50 @@ def _hmm_stages(torch, dev):
     return stages
 
 
+def _kfwd_stages(torch, dev):
+    """The two shared-pair filters alone (``kalman_fwd.filter_shared`` and
+    ``backward_shared``) at chip_smoke.py's KFWD_SHAPES config-2 width and
+    long T and, at config-2 width, at the other built latent sizes
+    (``_d2`` ... ``_d16``), and on the same chains ``bpairs.bidir_fwd``
+    over the B forward
+    lanes and over the B backward lanes (the pairs expanded per sequence,
+    as ``chip_smoke.kalman_fwd_timings`` runs it), on float32 copies of the
+    checkout's chip_smoke.py problems."""
+    import chip_smoke
+    from svae_tpu_torch.ops import bpairs, kalman_fwd
+    f32 = lambda xs: tuple(x.float().contiguous() for x in xs)
+    stages = {}
+    for name in ("config2", "longT"):
+        init, pairs, nodes, _ = chip_smoke.kfwd_problem(
+            chip_smoke.KFWD_SHAPES[name], 0, dev)
+        stages[f"filter_shared_{name}"] = functools.partial(
+            kalman_fwd.filter_shared,
+            *f32(kalman_fwd.filter_inputs(init, pairs, nodes)))
+        stages[f"backward_shared_{name}"] = functools.partial(
+            kalman_fwd.backward_shared,
+            *f32(kalman_fwd.backward_inputs(pairs, nodes)))
+        J0, h0 = bpairs._initial(init, nodes)
+        streams = bpairs._streams(pairs, nodes)
+        lanes = {"fwd": bpairs._packed(J0, h0, streams),
+                 "bwd": bpairs._packed(torch.zeros_like(J0),
+                                       torch.zeros_like(h0),
+                                       bpairs._reversed(streams))}
+        for k, args in lanes.items():
+            stages[f"bidir_fwd_shared_{k}_{name}"] = functools.partial(
+                bpairs.bidir_fwd, *f32(args))
+    # the other built latent sizes at config-2 width
+    for d in (2, 3, 4, 8, 16):
+        init, pairs, nodes, _ = chip_smoke.kfwd_problem(
+            dict(B=B, T=T, d=d, S=1), d, dev)
+        stages[f"filter_shared_d{d}"] = functools.partial(
+            kalman_fwd.filter_shared,
+            *f32(kalman_fwd.filter_inputs(init, pairs, nodes)))
+        stages[f"backward_shared_d{d}"] = functools.partial(
+            kalman_fwd.backward_shared,
+            *f32(kalman_fwd.backward_inputs(pairs, nodes)))
+    return stages
+
+
 def _train_stages(torch, loop, lds, parts, glob, rec, dec, batch, gen):
     """One chunked config-2 train step, one ragged train step at the T=512
     bucket, each on its own copy of the models, and one slds_synth train
@@ -310,6 +360,10 @@ def worker(root, calls, only=None):
     if importlib.util.find_spec("svae_tpu_torch.ops.hmm_fb") and family(
             "hmm_fb"):
         stages.update(_hmm_stages(torch, dev))
+    if importlib.util.find_spec("svae_tpu_torch.ops.kalman_fwd") and any(
+            map(family, ("filter_shared", "backward_shared",
+                         "bidir_fwd_shared"))):
+        stages.update(_kfwd_stages(torch, dev))
     stages["empty_kernel"] = lambda: torch.cuda._sleep(0)
     stages = {k: fn for k, fn in stages.items() if wanted(k)}
     readings = {k: _median_ms(fn, calls) for k, fn in stages.items()}

@@ -132,7 +132,10 @@ exits non-zero:
    each step's pair row once for the batch) in float32 against their plain
    versions in float64 on the same inputs, at a small odd shape, at config-2
    width (B=64, T=100, d=10, S=2) and at B=8, T=2048, the config-2
-   expected pairs varied in time by a seeded factor;
+   expected pairs varied in time by a seeded factor; the two filters also
+   at B=37, at T=2 at every built d and with the pair and node blocks'
+   upper triangles perturbed (phase 3 holds them in the stiff and non-SPD
+   cases);
 4k. each entry point of ``ops/kalman_fwd.py`` at config-2 width, the
    counters set to 0 before it and read after it: ``lds_estep`` launches
    each of the three kernels once, ``lds_filter_bpairs`` the bpairs
@@ -474,13 +477,14 @@ def _lane_rel(ln, lnp):
 def check_stiff(shape=SHAPES["config2"], seed=12, device="cuda"):
     """The stiff case: node precisions over [1e-2, 1e3] at ``shape`` (the
     per-sequence sampler at RAGGED_SHAPES["ragged"], the element scan at
-    the config-2 fold of ELEM_SHAPES). The forward kernels' explicit
+    the config-2 fold of ELEM_SHAPES, the shared-pair filters at
+    KFWD_SHAPES["config2"]). The forward kernels' explicit
     eliminations and inverses against float64, beside the float32 plain
     versions' error on the same device: each kernel's error may be at most
     STIFF_FACTOR times the float32 plain version's. The errors are
-    normwise per step and lane (``_step_rel``) for the filter's J and h,
+    normwise per step and lane (``_step_rel``) for the filters' J and h,
     the samples and each element field but c, and per lane (``_lane_rel``)
-    for the filter's ln and, normwise over the steps, the elements' c
+    for the filters' ln and, normwise over the steps, the elements' c
     (``_elem_stiff``).
     Returns ``{name: (kernel error, float32 plain error)}``."""
     fin, mats, eps = stiff_problem(shape, seed, device)
@@ -509,10 +513,37 @@ def check_stiff(shape=SHAPES["config2"], seed=12, device="cuda"):
         bpairs.sampler_bp_fwd_plain(*_f32(samp)), xp))
     errs.update(_elem_stiff(elem_problem(ELEM_SHAPES["config2"], seed, device,
                                          stiff=True)))
+    errs.update(_kfwd_stiff(kfwd_problem(KFWD_SHAPES["config2"], seed, device,
+                                         stiff=True)[:3]))
     if not all(k <= STIFF_FACTOR * p for k, p in errs.values()):
         raise AssertionError(f"a forward kernel's error in the stiff case "
                              f"passes {STIFF_FACTOR}x the float32 plain "
                              f"version's: {errs}")
+    return errs
+
+
+def _kfwd_stiff(problem):
+    """``check_stiff``'s errors of the shared-pair filters on the float64
+    ``(init, pairs, nodes)``: ``{"<filter>_<output>": (kernel error,
+    float32 plain error)}``, J and h normwise per step and lane, the
+    forward's ln per lane."""
+    init, pairs, nodes = problem
+    errs = {}
+    for name, args in (("filter_shared",
+                        kalman_fwd.filter_inputs(init, pairs, nodes)),
+                       ("backward_shared",
+                        kalman_fwd.backward_inputs(pairs, nodes))):
+        kernel = getattr(kalman_fwd, name)
+        plain = getattr(kalman_fwd, name + "_plain")
+        want, plain32 = plain(*args), plain(*_f32(args))
+        got = kernel(*_f32(args))
+        torch.cuda.synchronize()
+        for i, out in enumerate(("J", "h")):
+            errs[f"{name}_{out}"] = (_step_rel(got[i], want[i]),
+                                     _step_rel(plain32[i], want[i]))
+        if name == "filter_shared":
+            errs["filter_shared_ln"] = (_lane_rel(got[2], want[2]),
+                                        _lane_rel(plain32[2], want[2]))
     return errs
 
 
@@ -543,8 +574,9 @@ def _elem_stiff(leaves):
 
 def check_non_spd(device="cuda", seed=13):
     """A step whose precision is not positive definite must come back
-    non-finite, in the lanes it reaches and no others: the filter with a
-    large negative node precision at one frame of one sequence, the two
+    non-finite, in the lanes it reaches and no others: the filter and the
+    two shared-pair filters with a large negative node precision at one
+    frame of one sequence, the two
     samplers with one step's Jf of one sequence made indefinite, the
     element scan with one combine's M of one lane made indefinite. Returns
     the count of non-finite outputs of each."""
@@ -609,6 +641,39 @@ def check_non_spd(device="cuda", seed=13):
                              "poison exactly its lane's elements from there "
                              "on")
     counts["elem_scan"] = int((~torch.isfinite(out)).sum())
+    counts.update(_kfwd_non_spd(shape, b0, f0, seed, device))
+    return counts
+
+
+def _kfwd_non_spd(shape, b0, f0, seed, device):
+    """``check_non_spd``'s case of the shared-pair filters: node f0 of
+    sequence b0 with a large negative precision (N1 += 5e3 I), whose step
+    poisons the forward's rows t >= f0 (frames f0+1 on, where the next M
+    is indefinite) and its ln, and the backward's rows t <= f0-1 (the step
+    that adds the node into M and every later one), of lane b0 alone.
+    Returns the count of non-finite outputs of each."""
+    init, pairs, (N1, N2), _ = kfwd_problem(shape, seed, device)
+    N1 = N1.clone()
+    N1[b0, f0] += 5e3 * torch.eye(shape["d"], dtype=N1.dtype, device=device)
+    T1, B = shape["T"] - 1, shape["B"]
+    rows = torch.arange(T1, device=device)[:, None]
+    lane = torch.arange(B, device=device)[None, :] == b0
+    counts = {}
+    for name, args, bad in (
+            ("filter_shared", kalman_fwd.filter_inputs(init, pairs, (N1, N2)),
+             (rows >= f0) & lane),
+            ("backward_shared", kalman_fwd.backward_inputs(pairs, (N1, N2)),
+             (rows <= f0 - 1) & lane)):
+        outs = getattr(kalman_fwd, name)(*_f32(args))
+        torch.cuda.synchronize()
+        got = [~torch.isfinite(X).all(1) for X in outs[:2]]
+        ok = all(bool((g == bad).all()) for g in got)
+        if name == "filter_shared":
+            ok = ok and bool((~torch.isfinite(outs[2]) == lane[0]).all())
+        if not ok:
+            raise AssertionError(f"{name}: a non-SPD step did not poison "
+                                 f"exactly the rows of its lane it reaches")
+        counts[name] = int(sum((~torch.isfinite(X)).sum() for X in outs))
     return counts
 
 
@@ -1872,11 +1937,14 @@ def long_t_moments(device="cuda", cfg=LONG_T):
     return out
 
 
-def kfwd_problem(shape, seed=0, device="cuda"):
+def kfwd_problem(shape, seed=0, device="cuda", stiff=False):
     """float64 inputs of the shared-pair E-step at ``shape``: ``(init,
     pairs, nodes, eps)``, the config-``shape`` expected pairs varied in
-    time (KFWD_SHAPES) and recognizer-like diagonal evidence."""
+    time (KFWD_SHAPES) and recognizer-like diagonal evidence (``stiff``:
+    its precisions spread over STIFF_JD)."""
     init, mats, (jd, h), eps = _problem(shape, seed, device)
+    if stiff:
+        jd = _stiff_jd(jd, seed)
     g = torch.Generator().manual_seed(seed + 500)
     T1 = shape["T"] - 1
     r, s = (1.0 + 0.1 * (2.0 * torch.rand(T1, generator=g,
@@ -1926,6 +1994,51 @@ def check_kalman_fwd(shape, seed=0, device="cuda"):
         raise AssertionError(f"a shared-pair kernel disagrees with its plain "
                              f"version at {shape}: {errs}")
     return errs
+
+
+def check_shared_filters(seed=0, device="cuda"):
+    """``filter_shared`` and ``backward_shared`` (float32 kernels) against
+    their plain versions (float64) where check_kalman_fwd does not hold
+    them: B=37 sequences (a multiple of no count of chains a block but
+    one), chains of one step (T=2) at every built d, and a small problem
+    whose pair rows P1, P3 and node blocks N1 have their upper triangles
+    perturbed (the kernels read A's lower triangle and C in full, and
+    carry C's lower triangle, as the plain versions do): J and h within
+    TOL_ABS, the forward's ln within TOL_LOGZ_REL normwise over the lanes.
+    Raises if not; returns ``{case: (max abs, ln rel)}``."""
+    out = {}
+
+    def held(name, init, pairs, nodes):
+        fin = kalman_fwd.filter_inputs(init, pairs, nodes)
+        bin_ = kalman_fwd.backward_inputs(pairs, nodes)
+        J, h, ln = kalman_fwd.filter_shared(*_f32(fin))
+        Jb, hb = kalman_fwd.backward_shared(*_f32(bin_))
+        torch.cuda.synchronize()
+        Jp, hp, lnp = kalman_fwd.filter_shared_plain(*fin)
+        err = max(_max_err((J, h), (Jp, hp)), _max_err(
+            (Jb, hb), kalman_fwd.backward_shared_plain(*bin_)))
+        ln_rel = float((ln.double() - lnp).norm() / lnp.norm())
+        if not (err <= TOL_ABS and ln_rel <= TOL_LOGZ_REL):
+            raise AssertionError(f"a shared-pair filter disagrees with its "
+                                 f"plain version [{name}]: max abs {err}, "
+                                 f"ln rel {ln_rel}")
+        out[name] = (err, ln_rel)
+
+    held("B37", *kfwd_problem(dict(B=37, T=40, d=10, S=1), seed,
+                              device)[:3])
+    for d in estep.KERNEL_DIMS:
+        held(f"T2_d{d}", *kfwd_problem(dict(B=5, T=2, d=d, S=1), seed + d,
+                                       device)[:3])
+    init, (P1, P2, P3, Pc), (N1, N2), _ = kfwd_problem(KFWD_SHAPES["small"],
+                                                       seed, device)
+    d = N2.shape[-1]
+    upper = torch.triu(torch.ones(d, d, dtype=N1.dtype, device=device), 1)
+    g = torch.Generator(device=device).manual_seed(seed + 7)
+    perturb = lambda X: X + 0.3 * upper * torch.randn(
+        X.shape, generator=g, dtype=X.dtype, device=device)
+    held("asymmetric", init, (perturb(P1), P2, perturb(P3), Pc),
+         (perturb(N1), N2))
+    return out
 
 
 # the kernels each entry point of ops/kalman_fwd.py launches, once each
@@ -2085,8 +2198,9 @@ def kalman_fwd_timings(device="cuda"):
     ``sampler_bp_fwd`` on the pairs expanded per sequence (the routes the
     shared-pair kernels could have been served by), at config-2 width and
     at the long T; both E-steps on the same chain (CUDA events; the plain
-    versions 10 runs at config 2, 3 at the long T; ``bidir_fwd``'s device
-    time too)."""
+    versions 10 runs at config 2, 3 at the long T; the device time of the
+    two shared-pair filters and of ``bidir_fwd`` on the same chains
+    too)."""
     t = {}
     for tag, name in (("", "config2"), ("_longT", "longT")):
         shape = KFWD_SHAPES[name]
@@ -2119,6 +2233,9 @@ def kalman_fwd_timings(device="cuda"):
         for k, (fn, plain, args) in kernels.items():
             args = _f32(args)
             t[k + tag] = _time_ms(lambda: fn(*args))
+            if k != "sampler_shared":
+                t[k + "_device" + tag] = _device_ms(lambda: fn(*args)).get(
+                    k + "_kernel", math.nan)
             t[k + "_plain" + tag] = _time_ms(lambda: plain(*args), runs=runs,
                                              warmup=1)
         # the served route of the sampler: sampler_bp_fwd on the pairs
@@ -2789,8 +2906,11 @@ def bound(name, B, T, d, S, NL=None):
                       + (2 * T1 - 1) * d * SB + 2 * d * SB)
     elif name in ("filter_shared", "backward_shared"):
         chains = B
-        # chol d^3/3, z d^2, Y = L^-1 P2^T d^3, J' d^2 (d+1), h' 2 d^2
-        step = d ** 3 / 3 + d ** 3 + d * d * (d + 1) + 3 * d * d
+        # bidir_fwd's step (filter_chain.cuh): the Gauss-Jordan elimination
+        # of [M | D^T | v], D X_D d^3, D X_v d^2, J' and h' d^2 + d, and
+        # the forward's v . X_v d
+        step = 2 * ((d - 1) * (3 * d * d + d) / 2 + d ** 3 + 2 * d * d + d
+                    + (d if name == "filter_shared" else 0))
         # in: the shared rows P1, P3 (lower triangle), P2, and pc (the
         # backward filter does not read pc), the node streams N1 (lower
         # triangle) and N2, the filter's J0, h0; out: J, h, and ln
@@ -3008,6 +3128,11 @@ def main():
               f"abs; the filter's summed log-normalizer rel): {e}")
         for k in ("filter_shared", "backward_shared", "sampler_shared"):
             errs[k] = max(errs.get(k, 0.0), e[k])
+    e = check_shared_filters()
+    print(f"shared-pair filters vs plain [B=37, T=2 at every built d, "
+          f"asymmetric pair and node blocks] (max abs, ln rel): {e}")
+    for k in ("filter_shared", "backward_shared"):
+        errs[k] = max([errs[k]] + [v[0] for v in e.values()])
 
     main_path()
     launches = train_path()

@@ -4,13 +4,18 @@ svae_tpu_torch/csrc/bpairs.cu), the ring depth of ``sampler_bp_adj``'s
 chain pass (``kBpRing``, csrc/sampler_bp_adj.cu) or of ``sampler_bp_fwd``'s
 (``kBpFwdRing``, csrc/bpairs.cu); the ring depth of ``hmm_fb_fwd``
 (``kHmmRing``, csrc/hmm_fb.cu) and of ``hmm_fb_adj``'s chain pass
-(``kHmmAdjRing``, csrc/hmm_fb_adj.cu).
+(``kHmmAdjRing``, csrc/hmm_fb_adj.cu); the shared-pair filters' chains a
+block (``kSharedChains``, csrc/kalman_fwd.cu) or, with ``--constant
+kSharedRing``, their ring depth.
 
     python3 chip_variants.py bidir_fwd [--values 1 2 4] [--rounds R]
     python3 chip_variants.py sampler_bp_adj --values 2 3 4
     python3 chip_variants.py sampler_bp_fwd --values 2 3 4
     python3 chip_variants.py hmm_fb_fwd --values 2 4 8
     python3 chip_variants.py hmm_fb_adj --values 2 4 8
+    python3 chip_variants.py shared_filters --values 1 2 4
+    python3 chip_variants.py shared_filters --constant kSharedRing \
+        --values 2 4 8
 
 Each value rewrites the constant's definition (``constexpr int NAME =
 N;``) in a copy of svae_tpu_torch/csrc/ under the build directory,
@@ -23,8 +28,10 @@ at: ragged B=64 batches of T=128 and T=512, the slds_synth x-step's (B=16,
 T=80, d=4, S=2) and, for ``bidir_fwd``, one direction's 8 lanes of
 T=2048; the HMM kernels at the slds_synth z-step's shape (B=16, T=80,
 K=4) and measure_hmm's (B=128, T=100, K=8), the adjoint on the plain
-forward's messages and seeded cotangents. Each variant is first held to
-the float64 plain version. The
+forward's messages and seeded cotangents; the shared-pair filters
+(``kalman_fwd.filter_shared`` and ``backward_shared``, both timed) at
+config-2 width (B=64, T=100, d=10) and at B=8, T=2048. Each variant is
+first held to the float64 plain version. The
 variants run in turns (A B C C B A), ``R`` times over, in one process.
 Prints the card's name and power limit, one line per reading and a JSON
 object of all of them. There is no CPU path.
@@ -33,6 +40,7 @@ object of all of them. There is no CPU path.
 import argparse
 import concurrent.futures
 import ctypes
+import functools
 import json
 import os
 import re
@@ -43,39 +51,43 @@ import numpy as np
 import torch
 
 import chip_smoke
-from svae_tpu_torch.ops import _build, bpairs, hmm_fb
+from svae_tpu_torch.ops import _build, bpairs, hmm_fb, kalman_fwd
 
 OUT = os.path.join(_build.BUILD_DIR, "variants")
 _HMM_ADJ = ("svae_hmm_fb_adj_f32", "svae_hmm_fb_adj_weights_f32",
             "svae_hmm_fb_adj_chain_f32", "svae_hmm_fb_adj_dM_f32")
 _HMM_ADJ_KERNELS = ("hmm_fb_adj_weights_kernel", "hmm_fb_adj_chain_kernel",
                     "hmm_fb_adj_dM_kernel")
-# kernel: (constant, source, C entries, ptxas functions, the wrapper's
-# kernels under the profiler)
+# kernel: (constants, the first the default; source, C entries, ptxas
+# functions, the wrappers' kernels under the profiler)
 KERNELS = {
-    "bidir_fwd": ("kBidirChains", "bpairs.cu", ("svae_bidir_fwd_f32",),
+    "bidir_fwd": (("kBidirChains",), "bpairs.cu", ("svae_bidir_fwd_f32",),
                   ("bidir_fwd_kernel",), "bidir_fwd_kernel"),
-    "sampler_bp_adj": ("kBpRing", "sampler_bp_adj.cu",
+    "sampler_bp_adj": (("kBpRing",), "sampler_bp_adj.cu",
                        [n for n, _, _ in _build.ENTRIES
                         if n.startswith("svae_sampler_bp_adj")],
                        ("sampler_bp_adj_chain_kernel",
                         "sampler_bp_adj_dJc_kernel"), "sampler_bp_adj"),
-    "sampler_bp_fwd": ("kBpFwdRing", "bpairs.cu",
+    "sampler_bp_fwd": (("kBpFwdRing",), "bpairs.cu",
                        [n for n, _, _ in _build.ENTRIES
                         if n.startswith("svae_sampler_bp_fwd")],
                        ("sampler_bp_fwd_factor_kernel",
                         "sampler_bp_fwd_chain_kernel"), "sampler_bp_fwd"),
-    "hmm_fb_fwd": ("kHmmRing", "hmm_fb.cu", ("svae_hmm_fb_fwd_f32",),
+    "hmm_fb_fwd": (("kHmmRing",), "hmm_fb.cu", ("svae_hmm_fb_fwd_f32",),
                    ("hmm_fb_fwd_kernel",), "hmm_fb_fwd"),
-    "hmm_fb_adj": ("kHmmAdjRing", "hmm_fb_adj.cu", _HMM_ADJ,
+    "hmm_fb_adj": (("kHmmAdjRing",), "hmm_fb_adj.cu", _HMM_ADJ,
                    _HMM_ADJ_KERNELS, "hmm_fb_adj"),
+    "shared_filters": (("kSharedChains", "kSharedRing"), "kalman_fwd.cu",
+                       ("svae_filter_shared_f32", "svae_backward_shared_f32"),
+                       ("filter_shared_kernel", "backward_shared_kernel"),
+                       ("filter_shared_kernel", "backward_shared_kernel")),
 }
 
 
-def build_variant(kernel, value):
+def build_variant(kernel, constant, value):
     """The library of the kernel's source with its constant = value, and
     nvcc's report."""
-    constant, source = KERNELS[kernel][:2]
+    source = KERNELS[kernel][1]
     root = os.path.join(OUT, f"{constant}_{value}")
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(_build.CSRC, root)
@@ -118,15 +130,29 @@ def ptxas_lines(log, functions):
     return out
 
 
-def _wrapper(kernel):
-    """The wrapper a variant of ``kernel`` is timed through, and its plain
-    version."""
-    mod = hmm_fb if kernel.startswith("hmm_fb") else bpairs
+def _wrapper(kernel, problem):
+    """The wrapper a variant of ``kernel`` is timed through at ``problem``
+    (a key of ``problems``), and its plain version."""
+    if kernel == "shared_filters":
+        mod = kalman_fwd
+        kernel = ("filter_shared" if problem.startswith("fwd")
+                  else "backward_shared")
+    else:
+        mod = hmm_fb if kernel.startswith("hmm_fb") else bpairs
     return getattr(mod, kernel), getattr(mod, kernel + "_plain")
 
 
 def problems(kernel, device="cuda"):
     """``{shape: the wrapper's float64 arguments}``."""
+    if kernel == "shared_filters":
+        probs = {}
+        for name in ("config2", "longT"):
+            init, pairs, nodes, _ = chip_smoke.kfwd_problem(
+                chip_smoke.KFWD_SHAPES[name], 0, device)
+            probs["fwd_" + name] = kalman_fwd.filter_inputs(init, pairs,
+                                                            nodes)
+            probs["bwd_" + name] = kalman_fwd.backward_inputs(pairs, nodes)
+        return probs
     if kernel.startswith("hmm_fb"):
         probs = {}
         for name in ("slds", "measure_hmm"):
@@ -158,6 +184,8 @@ def problems(kernel, device="cuda"):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("kernel", choices=sorted(KERNELS))
+    ap.add_argument("--constant", help="the constant to vary (default: the "
+                    "kernel's first)")
     ap.add_argument("--values", type=int, nargs="+", default=[1, 2, 4])
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
@@ -168,27 +196,30 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
-    constant, _, entries, functions, prefix = KERNELS[args.kernel]
+    constants, _, entries, functions, prefix = KERNELS[args.kernel]
+    constant = args.constant or constants[0]
+    if constant not in constants:
+        raise SystemExit(f"chip_variants: {args.kernel} varies {constants}")
     with concurrent.futures.ThreadPoolExecutor(len(args.values)) as pool:
         built = dict(zip(args.values, pool.map(
-            lambda v: build_variant(args.kernel, v), args.values)))
+            lambda v: build_variant(args.kernel, constant, v), args.values)))
     libs = {}
     for v, (so, log) in built.items():
         print(f"{constant}={v}: " + "; ".join(ptxas_lines(log, functions)))
         libs[v] = _build.bind(ctypes.CDLL(so), entries)
-    wrapper, plain = _wrapper(args.kernel)
     probs = problems(args.kernel)
     f32 = {k: chip_smoke._f32(a) for k, a in probs.items()}
     for v, lib in libs.items():
         _build._lib = lib
         for k, a in probs.items():
+            wrapper, plain = _wrapper(args.kernel, k)
             got = wrapper(*f32[k])
             torch.cuda.synchronize()
             want = plain(*a)
             if args.kernel == "hmm_fb_fwd":
                 err = chip_smoke._rel_err(got, want)[0]
                 ok = err <= chip_smoke.TOL_MSG_REL
-            elif args.kernel == "bidir_fwd":
+            elif args.kernel in ("bidir_fwd", "shared_filters"):
                 err = chip_smoke._max_err(got[:2], want[:2])
                 ok = err <= chip_smoke.TOL_ABS
             elif args.kernel == "sampler_bp_fwd":
@@ -204,7 +235,7 @@ def main():
         for v in args.values + args.values[::-1]:
             _build._lib = libs[v]
             for k, a in f32.items():
-                fn = lambda: wrapper(*a)
+                fn = functools.partial(_wrapper(args.kernel, k)[0], *a)
                 ev = chip_smoke._time_ms(fn)
                 dev = chip_smoke._device_ms(fn)
                 mine = {n: ms for n, ms in dev.items()

@@ -20,16 +20,10 @@
 //
 // The filter's factorization cannot leave its chain: the step's M = J + A_t
 // depends on the carried J. So bidir_fwd_kernel takes estep.cu's
-// filter_fwd design, one warp per chain: lane j < d holds column j of M and
-// row j of D_t (column j of D_t^T), lane d the vector v = h + f_t, and a
-// step is a Gauss-Jordan elimination of the tile [M | D_t^T | v] over d
-// rounds of pivot-column shuffles, which leaves X = M^-1 [D_t^T | v] on the
-// lanes. Then column j of J' = C_t - D_t X_D goes on lane j, which already
-// holds the column that the next step's M reads, h' = D_t X_v + e_t on lane
-// d, and ln gains d/2 log 2pi - 1/2 sum log p_k + 1/2 v . X_v + pc_t, the
-// log sum over the warp off the chain, summed in double on the vector
-// lane. A non-positive pivot gives a NaN reciprocal, which poisons the
-// step's J, h and the chain's ln.
+// filter_fwd design, one warp per chain, a Gauss-Jordan elimination of
+// [M | D_t^T | v] on its lanes a step: the step of filter_chain.cuh, which
+// the shared-pair filters of kalman_fwd.cu run too; this kernel is its
+// reader for per-lane streams.
 // What differs from the stationary filter: every block is a per-lane
 // stream ((T-1, d*d, lanes), the lane innermost, the layout bidir_adj's
 // passes and the packing glue read). D_t changes every step, so each lane
@@ -75,6 +69,7 @@
 // row is a real step.
 
 #include "adj_passes.cuh"
+#include "filter_chain.cuh"
 
 namespace {
 
@@ -84,9 +79,8 @@ constexpr int kBidirChains = 1;
 // How many steps ahead the sampler's chain pass loads.
 constexpr int kBpFwdRing = 4;
 
-// One warp per lane (chain) l of the NL lanes, kBidirChains a block. Per
-// stream row t: the Gauss-Jordan elimination of [M | D_t^T | v], M = J +
-// A_t, v = h + f_t, gives X = M^-1 [D_t^T | v]; then J' = C_t - D_t X_D,
+// One warp per lane (chain) l of the NL lanes, kBidirChains a block, on
+// filter_chain.cuh's step with M = J + A_t, v = h + f_t, J' = C_t - D_t X_D,
 // h' = D_t X_v + e_t, ln += d/2 log 2pi - 1/2 sum log p_k + 1/2 v . X_v +
 // pc_t. Layouts: J0 (d*d, NL), h0 (d, NL); A, C, D (T1, d*d, NL); E, F
 // (T1, d, NL); Pc (T1, NL); out J (T1, d*d, NL), h (T1, d, NL), ln (NL).
@@ -99,10 +93,8 @@ bidir_fwd_kernel(int NL, int T1, const float* __restrict__ J0,
                  const float* __restrict__ E, const float* __restrict__ F,
                  const float* __restrict__ Pc, float* __restrict__ Jout,
                  float* __restrict__ hout, float* __restrict__ ln) {
-  static_assert(D + 1 <= 32, "a chain's columns must fit one warp");
   constexpr int DD = D * D;
   constexpr int DP = (D + 3) & ~3;  // the D tile's row stride, for float4
-  constexpr unsigned kAll = 0xffffffffu;
   __shared__ __align__(16) float sDall[kBidirChains][2 * D * DP];
   const int lane = blockIdx.x * kBidirChains + threadIdx.x / 32;
   if (lane >= NL) return;  // the whole warp
@@ -141,89 +133,43 @@ bidir_fwd_kernel(int NL, int T1, const float* __restrict__ J0,
     }
   };
   load(0);
-  // the chain's ln, on the vector lane, summed in double: a float sum of
-  // T-1 terms would round at the sum's magnitude every step
-  double acc = 0.0;
-
-#pragma unroll 1
-  for (int t = 0; t < T1; ++t) {
-    float Ar[D], Dr[D];
+  // the reader: step t's column of A and row of D from the registers
+  // loaded the step before; what the step reads at its end, column jc of
+  // C_t in full (Cc), the row of C_t that holds the column's lower
+  // triangle above the diagonal (the vector lane: e_t) (Cr) and pc_t, from
+  // device memory; then the next step's loads; then the lane's row of D_t
+  // into the warp's tile of the step's parity
+  auto step = [&](int t, FilterOperands<D>& op) -> const float* {
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-      Ar[i] = nA[i];
-      Dr[i] = nR[i];
+      op.A[i] = nA[i];
+      op.Dr[i] = nR[i];
     }
-    // what the step reads at its end: column jc of C_t in full (Cc), the
-    // row of C_t that holds the column's lower triangle above the
-    // diagonal (the vector lane: e_t) (Cr), and pc_t
-    float Cc[D], Cr[D];
     const float* c = C + t * mstep + lane;
     const float* cr = Crow + t * rstep;
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-      Cc[i] = c[(size_t)(i * D + jc) * NL];
-      Cr[i] = cr[(size_t)i * NL];
+      op.Cc[i] = c[(size_t)(i * D + jc) * NL];
+      op.Cr[i] = cr[(size_t)i * NL];
     }
-    const float pc = Pc[(size_t)t * NL + lane];
+    op.pc = Pc[(size_t)t * NL + lane];
     load(t + 1);
     float* sDt = sD + (t & 1) * D * DP;
     if (j < D) {
 #pragma unroll
-      for (int i = 0; i < D; ++i) sDt[j * DP + i] = Dr[i];
+      for (int i = 0; i < D; ++i) sDt[j * DP + i] = op.Dr[i];
     }
     // (one barrier a step: the tile written here was last read two steps
     // ago, before every lane passed the previous step's barrier)
     __syncwarp();
-
-    float m[D], x[D], v[D];
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      m[i] = cj[i] + Ar[i];
-      v[i] = cj[i] + Dr[i];  // the vector lane's h + f
-      x[i] = vec ? v[i] : Dr[i];
-    }
-    float pj = 1.f;  // this lane's pivot
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      // the pivot column, from lane k
-      float col[D];
-#pragma unroll
-      for (int i = 0; i < D; ++i) col[i] = __shfl_sync(kAll, m[i], k);
-      const float p = col[k];
-      if (j == k) pj = p;
-      const float rp = p > 0.f ? __fdividef(1.f, p) : nan_f();
-      const float mk = m[k] * rp, xk = x[k] * rp;
-#pragma unroll
-      for (int i = 0; i < D; ++i) {
-        if (i == k) continue;
-        m[i] -= col[i] * mk;
-        x[i] -= col[i] * xk;
-      }
-      m[k] = mk;
-      x[k] = xk;
-    }
-
-    // y = D_t X, column j of it on lane j
-    float y[D], q = 0.f;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      y[i] = row_dot<D, DP>(sDt + i * DP, x);
-      q += v[i] * x[i];
-    }
-    acc += 0.5f * D * kLog2Pi - 0.5f * warp_log_sum(pj) + 0.5f * q + pc;
-
-    // lane j < D writes column j of J' in full and carries its lower
-    // triangle; the vector lane writes and carries h'
-    float* out = vec ? hout + (size_t)t * D * NL + lane
-                     : Jout + t * mstep + (size_t)jc * NL + lane;
-    const size_t ostep = vec ? (size_t)NL : (size_t)D * NL;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      const float o = vec ? y[i] + Cr[i] : Cc[i] - y[i];
-      cj[i] = vec || i >= jc ? o : Cr[i] - y[i];
-      if (j <= D) out[i * ostep] = o;
-    }
-  }
+    return sDt;
+  };
+  auto out = [&](int t) {
+    return vec ? hout + (size_t)t * D * NL + lane
+               : Jout + t * mstep + (size_t)jc * NL + lane;
+  };
+  const double acc = filter_chain<D, DP, true>(
+      T1, j, cj, step, out, vec ? (size_t)NL : (size_t)D * NL, j <= D);
   if (vec) ln[lane] = (float)acc;
 }
 

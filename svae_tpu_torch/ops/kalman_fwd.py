@@ -17,9 +17,13 @@ the CPU, with the launch counters and the no-fallback rule of
   on lane ``s*B + b``.
 
 The kernels read each step's pair row once for the whole batch (the
-layout of the Pallas kernels, without their 128-lane padding: a lane is a
-thread). The plain versions run :mod:`~svae_tpu_torch.ops.bpairs`'s twins
-on the pair rows broadcast over the lanes.
+layout of the Pallas kernels, without their 128-lane padding): the two
+filters run a chain on a warp, on the Gauss-Jordan step of
+:func:`~svae_tpu_torch.ops.bpairs.bidir_fwd`'s kernel, with the pair rows
+and each lane's node entries staged through a ring in shared memory; the
+sampler runs a chain on a thread. The plain versions run
+:mod:`~svae_tpu_torch.ops.bpairs`'s twins on the pair rows broadcast over
+the lanes.
 
 As in the JAX package, nothing here is differentiable: the Pallas kernels
 carry no ``custom_vjp``. The entry points raise if a gradient could be

@@ -641,3 +641,28 @@ def test_redesigned_c_entries_reject_what_they_do_not_take(smoke):
     sin5 = smoke.bpairs_problem(dict(B=3, T=7, d=5, S=1), 0)[1][:6]
     with pytest.raises(ValueError, match="d=5"):
         bpairs.sampler_bp_fwd_factor(*smoke._f32(sin5[:5]))
+
+
+def test_shared_filters_at_their_other_shapes_and_cases(smoke):
+    """The shared-pair filters (a warp per chain on filter_chain.cuh's
+    step) at B=37 (a multiple of no count of chains a block but one), on
+    chains of one step (T=2) at every built d, and with the upper triangles
+    of the pair rows P1, P3 and of the node blocks N1 perturbed."""
+    errs = smoke.check_shared_filters()
+    assert set(errs) == ({"B37", "asymmetric"}
+                         | {f"T2_d{d}" for d in estep.KERNEL_DIMS})
+
+
+@pytest.mark.parametrize("B,T,d,b0,f0",
+                         [(4, 9, 3, 1, 4), (37, 40, 10, 36, 20)])
+def test_shared_filters_poison_exactly_what_an_indefinite_step_reaches(
+        smoke, B, T, d, b0, f0):
+    """A node with a large negative precision makes the forward filter's
+    next step and the backward filter's step at that node indefinite: their
+    rows from there on (and the forward's ln) come back non-finite in that
+    sequence's lane, every other entry finite; also in the last lane of a
+    batch that is a multiple of no count of chains a block but one."""
+    counts = smoke._kfwd_non_spd(dict(B=B, T=T, d=d, S=1), b0, f0, seed=d,
+                                 device="cuda")
+    assert counts["filter_shared"] == (T - 1 - f0) * (d * d + d) + 1
+    assert counts["backward_shared"] == f0 * (d * d + d)

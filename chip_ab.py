@@ -43,7 +43,12 @@ shared-pair filters alone (``kalman_fwd.filter_shared`` and
 ``backward_shared`` at chip_smoke.py's KFWD_SHAPES config-2 width and B=8,
 T=2048, and at config-2 width at the other built latent sizes) and
 ``bpairs.bidir_fwd`` over the B forward and the B backward lanes of the
-same chains (``bidir_fwd_shared_*``); all on float32 copies of
+same chains (``bidir_fwd_shared_*``); the shared-pair sampler
+(``kalman_fwd.sampler_shared`` and, where the checkout has it, its factor
+pass ``sampler_shared_factor``) at the same two shapes on the float64
+filter's messages, and ``bpairs.sampler_bp_fwd`` and each of its passes on
+the same chains with the pairs expanded per sequence
+(``sampler_bp_fwd_shared_*``); all on float32 copies of
 chip_smoke.py's float64 problems, where the checkout has them; an empty
 kernel (``torch.cuda._sleep(0)``), the floor under any launch's device
 time; and, where the checkout has the training loop, one
@@ -58,7 +63,7 @@ first checkout, how many of the A B / B A pairs each side was faster in
 (by event time); for the kernel stages alone (DEVICE_STAGES) the same by
 their device time under torch.profiler (every kernel of the call
 summed), taken after the event times; and last a JSON object of every
-reading. ``--stages P [P ...]`` times only the stages whose names start
+reading, each kernel stage's device time by kernel too (``device_parts``). ``--stages P [P ...]`` times only the stages whose names start
 with one of the prefixes P. There is no CPU path.
 """
 
@@ -77,7 +82,7 @@ B, T, S, D, D_OBS = 64, 100, 2, 10, 20
 # the stages whose device time is taken too
 DEVICE_STAGES = ("bidir_fwd", "sampler_bp_fwd", "sampler_bp_adj", "bidir_adj",
                  "elem_scan", "hmm_fb", "filter_shared", "backward_shared",
-                 "empty_kernel")
+                 "sampler_shared", "empty_kernel")
 
 
 def _median_ms(fn, calls):
@@ -213,15 +218,38 @@ def _kfwd_stages(torch, dev):
     (``_d2`` ... ``_d16``), and on the same chains ``bpairs.bidir_fwd``
     over the B forward
     lanes and over the B backward lanes (the pairs expanded per sequence,
-    as ``chip_smoke.kalman_fwd_timings`` runs it), on float32 copies of the
-    checkout's chip_smoke.py problems."""
+    as ``chip_smoke.kalman_fwd_timings`` runs it); at the two KFWD shapes
+    the sampler ``kalman_fwd.sampler_shared`` (and its factor pass, where
+    the checkout has one) and ``bpairs.sampler_bp_fwd`` with each of its
+    passes on the same chains; on float32 copies of the checkout's
+    chip_smoke.py problems."""
     import chip_smoke
     from svae_tpu_torch.ops import bpairs, kalman_fwd
     f32 = lambda xs: tuple(x.float().contiguous() for x in xs)
     stages = {}
     for name in ("config2", "longT"):
-        init, pairs, nodes, _ = chip_smoke.kfwd_problem(
+        init, pairs, nodes, eps = chip_smoke.kfwd_problem(
             chip_smoke.KFWD_SHAPES[name], 0, dev)
+        # the sampler on the float64 filter's messages, and sampler_bp_fwd
+        # and each of its passes on the same chains with the pairs expanded
+        # per sequence
+        _, Jf, hf = kalman_fwd.lds_filter(*chip_smoke._cpu64((init, pairs,
+                                                              nodes)))
+        Jf, hf = Jf.to(dev), hf.to(dev)
+        sin = f32(kalman_fwd.sampler_inputs(pairs, Jf, hf, eps)[0])
+        stages[f"sampler_shared_{name}"] = functools.partial(
+            kalman_fwd.sampler_shared, *sin)
+        if hasattr(kalman_fwd, "sampler_shared_factor"):
+            stages[f"sampler_shared_factor_{name}"] = functools.partial(
+                kalman_fwd.sampler_shared_factor, *sin[:5])
+        bp = f32(bpairs.sampler_inputs(pairs, Jf, hf, eps)[0])
+        Q, c = bpairs.sampler_bp_fwd_factor(*bp[:5])
+        stages[f"sampler_bp_fwd_shared_{name}"] = functools.partial(
+            bpairs.sampler_bp_fwd, *bp)
+        stages[f"sampler_bp_fwd_shared_factor_{name}"] = functools.partial(
+            bpairs.sampler_bp_fwd_factor, *bp[:5])
+        stages[f"sampler_bp_fwd_shared_chain_{name}"] = functools.partial(
+            bpairs.sampler_bp_fwd_chain, Q, c, bp[5])
         stages[f"filter_shared_{name}"] = functools.partial(
             kalman_fwd.filter_shared,
             *f32(kalman_fwd.filter_inputs(init, pairs, nodes)))
@@ -362,7 +390,8 @@ def worker(root, calls, only=None):
         stages.update(_hmm_stages(torch, dev))
     if importlib.util.find_spec("svae_tpu_torch.ops.kalman_fwd") and any(
             map(family, ("filter_shared", "backward_shared",
-                         "bidir_fwd_shared"))):
+                         "bidir_fwd_shared", "sampler_shared",
+                         "sampler_bp_fwd_shared"))):
         stages.update(_kfwd_stages(torch, dev))
     stages["empty_kernel"] = lambda: torch.cuda._sleep(0)
     stages = {k: fn for k, fn in stages.items() if wanted(k)}
@@ -371,11 +400,12 @@ def worker(root, calls, only=None):
     # the host's time to issue them (chip_smoke._device_ms: every kernel
     # the call runs, summed)
     import chip_smoke
-    device = {}
+    device, parts = {}, {}
     for k, fn in stages.items():
         if k.startswith(DEVICE_STAGES):
             ms = chip_smoke._device_ms(fn)
             device[k] = sum(ms.values()) if ms else float("nan")
+            parts[k] = ms
     # the training loop is imported and built only now, so that every
     # checkout has done the same work when its inference stages are timed
     try:
@@ -398,7 +428,7 @@ def worker(root, calls, only=None):
             if wanted(k):
                 readings[k] = _median_ms(fn, calls)
     return {"root": root, "build_s": build_s, "stages": readings,
-            "device": device}
+            "device": device, "device_parts": parts}
 
 
 def _summary_line(stage, root, ev, issue, base, root0):
@@ -423,7 +453,7 @@ def summarize(runs):
     device time. Returns the lines."""
     roots = list(dict.fromkeys(r["root"] for r in runs))
     lines = []
-    for stage in runs[-1]["stages"]:
+    for stage in dict.fromkeys(s for r in runs for s in r["stages"]):
         by = {root: [r["stages"][stage] for r in runs
                      if r["root"] == root and stage in r["stages"]]
               for root in roots}

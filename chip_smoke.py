@@ -64,9 +64,12 @@ exits non-zero:
    on one batch, and the padded-batch theorem on the card (two sequences:
    stats and local KL of the padded batch against the two alone);
 3h. each HMM forward-backward kernel (``ops/hmm_fb.py``: streamed and
-   stationary, forward and adjoint) and each pass of the streamed adjoint
+   stationary, forward and adjoint), each pass of the streamed adjoint
    (``hmm_fb.hmm_fb_adj_weights``, ``hmm_fb_adj_chain``,
-   ``hmm_fb_adj_dM``) in float32 against its plain version
+   ``hmm_fb_adj_dM``) and of the stationary one
+   (``hmm_fb.hmm_fb_stat_adj_weights``, whose weights must equal the
+   streamed pass's on LT + lo bit for bit, ``hmm_fb_adj_chain``,
+   ``hmm_fb_stat_adj_sums``) in float32 against its plain version
    in float64 on the same inputs and random cotangents, and
    ``hmm_posterior`` on the card against the float64 CPU path: at a small
    odd shape, at the slds_synth sweep shape (B=16, T=80, K=4; stationary,
@@ -102,7 +105,8 @@ exits non-zero:
    (``parallel=8``) config-2 train step against the sequential one, and of
    ``posterior_moments(parallel=C)`` at bench_longT's shape against
    ``parallel=False``; the passes of ``sampler_bp_fwd``,
-   ``elem_scan_adj``, ``bidir_adj`` and ``sampler_bp_adj`` alone, and
+   ``elem_scan_adj``, ``bidir_adj``, ``sampler_bp_adj``,
+   ``hmm_fb_stat_adj`` and ``sampler_shared`` alone, and
    each one's device time within the whole; ``elem_scan``'s device time at
    its three shapes; ``bidir_fwd``'s, ``sampler_bp_fwd``'s and
    ``sampler_bp_adj``'s device time at the
@@ -129,13 +133,14 @@ exits non-zero:
    twice the plain path's), and against ``parallel=False``;
 3k. the three forward-only shared-pair kernels (``ops/kalman_fwd.py``:
    the forward and backward information filters and the sampler, reading
-   each step's pair row once for the batch) in float32 against their plain
-   versions in float64 on the same inputs, at a small odd shape, at config-2
-   width (B=64, T=100, d=10, S=2) and at B=8, T=2048, the config-2
-   expected pairs varied in time by a seeded factor; the two filters also
-   at B=37, at T=2 at every built d and with the pair and node blocks'
-   upper triangles perturbed (phase 3 holds them in the stiff and non-SPD
-   cases);
+   each step's pair row once for the batch) and each pass of the sampler
+   (``kalman_fwd.sampler_shared_factor``, ``bpairs.sampler_bp_fwd_chain``)
+   in float32 against their plain versions in float64 on the same inputs,
+   at a small odd shape, at config-2 width (B=64, T=100, d=10, S=2) and at
+   B=8, T=2048, the config-2 expected pairs varied in time by a seeded
+   factor; the two filters also at B=37, at T=2 at every built d and with
+   the pair and node blocks' upper triangles perturbed (phase 3 holds the
+   three in the stiff and non-SPD cases);
 4k. each entry point of ``ops/kalman_fwd.py`` at config-2 width, the
    counters set to 0 before it and read after it: ``lds_estep`` launches
    each of the three kernels once, ``lds_filter_bpairs`` the bpairs
@@ -150,8 +155,10 @@ exits non-zero:
 
 The line before the last is a JSON object with one entry per kernel (the
 passes of ``sampler_fwd``, ``sampler_bp_fwd``, ``elem_scan_adj``,
-``bidir_adj``, ``sampler_bp_adj`` and ``hmm_fb_adj`` too, each
-with its adjoint's launches, since one C call launches each pass once;
+``bidir_adj``, ``sampler_bp_adj``, ``hmm_fb_adj``, ``hmm_fb_stat_adj``
+and ``sampler_shared`` too, each with its function's launches, since one
+C call launches each pass once; the two chain passes that a second
+function shares count the first's;
 its launches on the path that runs it: the training paths, phase 3h's
 stationary ``hmm_posterior`` for the stationary HMM kernels and phase 4k's
 ``kalman_fwd.lds_estep`` for the shared-pair kernels; error, times and
@@ -225,6 +232,8 @@ KERNELS = {
     "hmm_fb_adj_dM": "svae_tpu/ops/pallas_hmm.py:257",
     "hmm_fb_stat_fwd": "svae_tpu/ops/pallas_hmm.py:110",
     "hmm_fb_stat_adj": "svae_tpu/ops/pallas_hmm.py:173",
+    "hmm_fb_stat_adj_weights": "svae_tpu/ops/pallas_hmm.py:173",
+    "hmm_fb_stat_adj_sums": "svae_tpu/ops/pallas_hmm.py:173",
     "elem_scan": "svae_tpu/ops/pallas_chunked.py:192",
     "elem_scan_adj": "svae_tpu/ops/pallas_chunked.py:208",
     "elem_scan_adj_factor": "svae_tpu/ops/pallas_chunked.py:208",
@@ -232,6 +241,7 @@ KERNELS = {
     "filter_shared": "svae_tpu/ops/pallas_kalman.py:76",
     "backward_shared": "svae_tpu/ops/pallas_kalman.py:242",
     "sampler_shared": "svae_tpu/ops/pallas_kalman.py:415",
+    "sampler_shared_factor": "svae_tpu/ops/pallas_kalman.py:415",
 }
 # the Pallas kernels that a ported kernel serves beside its own: their
 # functions, over one direction's lanes or both (ROADMAP Queue 2)
@@ -245,6 +255,10 @@ SERVES = {
                   "svae_tpu/ops/pallas_vjp.py:470"),
 }
 SERVES["bidir_adj_factor"] = SERVES["bidir_adj_chain"] = SERVES["bidir_adj"]
+# the chain passes that a second function's C call launches too: the
+# shared-pair sampler's (#23) and the stationary HMM adjoint's (#17)
+SERVES["sampler_bp_fwd_chain"] = ("svae_tpu/ops/pallas_kalman.py:415",)
+SERVES["hmm_fb_adj_chain"] = ("svae_tpu/ops/pallas_hmm.py:173",)
 SOURCES = {
     "filter_fwd": "svae_tpu_torch/csrc/estep.cu",
     "filter_adj": "svae_tpu_torch/csrc/filter_adj.cu",
@@ -270,13 +284,16 @@ SOURCES = {
     "hmm_fb_adj_dM": "svae_tpu_torch/csrc/hmm_fb_adj.cu",
     "hmm_fb_stat_fwd": "svae_tpu_torch/csrc/hmm_fb.cu",
     "hmm_fb_stat_adj": "svae_tpu_torch/csrc/hmm_fb_adj.cu",
+    "hmm_fb_stat_adj_weights": "svae_tpu_torch/csrc/hmm_fb_adj.cu",
+    "hmm_fb_stat_adj_sums": "svae_tpu_torch/csrc/hmm_fb_adj.cu",
     "elem_scan": "svae_tpu_torch/csrc/elem_scan.cu",
     "elem_scan_adj": "svae_tpu_torch/csrc/elem_scan_adj.cu",
     "elem_scan_adj_factor": "svae_tpu_torch/csrc/elem_scan_adj.cu",
     "elem_scan_adj_chain": "svae_tpu_torch/csrc/elem_scan_adj.cu",
     "filter_shared": "svae_tpu_torch/csrc/kalman_fwd.cu",
     "backward_shared": "svae_tpu_torch/csrc/kalman_fwd.cu",
-    "sampler_shared": "svae_tpu_torch/csrc/kalman_fwd.cu",
+    "sampler_shared": "svae_tpu_torch/csrc/bpairs.cu",
+    "sampler_shared_factor": "svae_tpu_torch/csrc/bpairs.cu",
 }
 # ragged batches of the bpairs kernels: lengths spread evenly over [2, T]
 RAGGED_SHAPES = {"small": dict(B=3, T=7, d=3, S=2),
@@ -477,8 +494,8 @@ def _lane_rel(ln, lnp):
 def check_stiff(shape=SHAPES["config2"], seed=12, device="cuda"):
     """The stiff case: node precisions over [1e-2, 1e3] at ``shape`` (the
     per-sequence sampler at RAGGED_SHAPES["ragged"], the element scan at
-    the config-2 fold of ELEM_SHAPES, the shared-pair filters at
-    KFWD_SHAPES["config2"]). The forward kernels' explicit
+    the config-2 fold of ELEM_SHAPES, the shared-pair filters and sampler
+    at KFWD_SHAPES["config2"]). The forward kernels' explicit
     eliminations and inverses against float64, beside the float32 plain
     versions' error on the same device: each kernel's error may be at most
     STIFF_FACTOR times the float32 plain version's. The errors are
@@ -514,7 +531,7 @@ def check_stiff(shape=SHAPES["config2"], seed=12, device="cuda"):
     errs.update(_elem_stiff(elem_problem(ELEM_SHAPES["config2"], seed, device,
                                          stiff=True)))
     errs.update(_kfwd_stiff(kfwd_problem(KFWD_SHAPES["config2"], seed, device,
-                                         stiff=True)[:3]))
+                                         stiff=True), device))
     if not all(k <= STIFF_FACTOR * p for k, p in errs.values()):
         raise AssertionError(f"a forward kernel's error in the stiff case "
                              f"passes {STIFF_FACTOR}x the float32 plain "
@@ -522,12 +539,13 @@ def check_stiff(shape=SHAPES["config2"], seed=12, device="cuda"):
     return errs
 
 
-def _kfwd_stiff(problem):
-    """``check_stiff``'s errors of the shared-pair filters on the float64
-    ``(init, pairs, nodes)``: ``{"<filter>_<output>": (kernel error,
+def _kfwd_stiff(problem, device):
+    """``check_stiff``'s errors of the shared-pair kernels on the float64
+    ``(init, pairs, nodes, eps)``: ``{"<filter>_<output>": (kernel error,
     float32 plain error)}``, J and h normwise per step and lane, the
-    forward's ln per lane."""
-    init, pairs, nodes = problem
+    forward's ln per lane; and ``sampler_shared``'s samples normwise per
+    step and lane, on the float64 filter's messages."""
+    init, pairs, nodes, _ = problem
     errs = {}
     for name, args in (("filter_shared",
                         kalman_fwd.filter_inputs(init, pairs, nodes)),
@@ -544,6 +562,12 @@ def _kfwd_stiff(problem):
         if name == "filter_shared":
             errs["filter_shared_ln"] = (_lane_rel(got[2], want[2]),
                                         _lane_rel(plain32[2], want[2]))
+    sin = _kfwd_sampler_problem(problem, device)
+    xp = kalman_fwd.sampler_shared_plain(*sin)
+    x = kalman_fwd.sampler_shared(*_f32(sin))
+    torch.cuda.synchronize()
+    errs["sampler_shared"] = (_step_rel(x, xp), _step_rel(
+        kalman_fwd.sampler_shared_plain(*_f32(sin)), xp))
     return errs
 
 
@@ -576,7 +600,7 @@ def check_non_spd(device="cuda", seed=13):
     """A step whose precision is not positive definite must come back
     non-finite, in the lanes it reaches and no others: the filter and the
     two shared-pair filters with a large negative node precision at one
-    frame of one sequence, the two
+    frame of one sequence, the three
     samplers with one step's Jf of one sequence made indefinite, the
     element scan with one combine's M of one lane made indefinite. Returns
     the count of non-finite outputs of each."""
@@ -642,7 +666,30 @@ def check_non_spd(device="cuda", seed=13):
                              "on")
     counts["elem_scan"] = int((~torch.isfinite(out)).sum())
     counts.update(_kfwd_non_spd(shape, b0, f0, seed, device))
+    counts["sampler_shared"] = _kfwd_sampler_non_spd(shape, b0, t0, seed,
+                                                     device)
     return counts
+
+
+def _kfwd_sampler_non_spd(shape, b0, t0, seed, device):
+    """``check_non_spd``'s case of the shared-pair sampler: step t0's Jf of
+    sequence b0 made indefinite (its diagonal -1e4), so Jc_t0 of b0 is, and
+    its samples at that step and every earlier one, in every sample s
+    (lanes s*B + b0), must come back non-finite and every other entry
+    finite. Returns the count of non-finite samples."""
+    B, d = shape["B"], shape["d"]
+    P2, P3, Jf, hf, eps, xT = _f32(_kfwd_sampler_problem(
+        kfwd_problem(shape, seed, device), device))
+    Jf = Jf.clone()
+    Jf[t0, ::d + 1, b0] = -1e4
+    x = kalman_fwd.sampler_shared(P2, P3, Jf, hf, eps, xT)
+    torch.cuda.synchronize()
+    want = torch.zeros(x.shape, dtype=torch.bool)
+    want[:t0 + 1, :, b0::B] = True
+    if not bool((~torch.isfinite(x).cpu() == want).all()):
+        raise AssertionError("sampler_shared: a non-SPD step did not poison "
+                             "exactly the samples it reaches")
+    return int((~torch.isfinite(x)).sum())
 
 
 def _kfwd_non_spd(shape, b0, f0, seed, device):
@@ -1037,6 +1084,10 @@ HMM_RUNS = (("hmm_fb_fwd", "hmm_fb_adj"),
             ("hmm_fb_stat_fwd", "hmm_fb_stat_adj"))
 # the passes of hmm_fb_adj, which its one C call launches in this order
 HMM_ADJ_PASSES = ("hmm_fb_adj_weights", "hmm_fb_adj_chain", "hmm_fb_adj_dM")
+# and of hmm_fb_stat_adj: its own weight and sums passes around
+# hmm_fb_adj's chain pass
+HMM_STAT_ADJ_PASSES = ("hmm_fb_stat_adj_weights", "hmm_fb_adj_chain",
+                       "hmm_fb_stat_adj_sums")
 
 
 def hmm_kernel_args(li, lt, lo):
@@ -1073,11 +1124,51 @@ def check_hmm_adj_passes(adj_args):
     return errs
 
 
+def check_hmm_stat_adj_passes(adj_args):
+    """Each pass of ``hmm_fb_stat_adj`` (float32 kernel) against its own
+    plain version (float64) on ``adj_args`` (``hmm_fb_stat_adj``'s float64
+    arguments), each pass fed the plain output of the pass before it; and
+    the weight pass's outputs against ``hmm_fb_adj_weights``' kernel on the
+    float32 elements LT + lo_t, which they must equal bit for bit (the same
+    adds and exps). Returns ``{pass: (normwise rel, max abs)}`` with the
+    chain pass under ``hmm_fb_stat_adj_chain``; check_hmm holds them to
+    TOL_ADJ_REL."""
+    a0, LT, lo, alpha, beta, dalpha, dbeta = adj_args
+    errs = {}
+    W, V = hmm_fb.hmm_fb_stat_adj_weights_plain(a0, LT, lo, alpha, beta)
+    got = hmm_fb.hmm_fb_stat_adj_weights(*_f32((a0, LT, lo, alpha, beta)))
+    a32, LT32, lo32 = _f32((a0, LT, lo))
+    T1, K, B = lo.shape
+    M32 = (LT32[None, :, :, None] + lo32[:, None]).reshape(T1, K * K, B)
+    streamed = hmm_fb.hmm_fb_adj_weights(a32, M32.contiguous(),
+                                         *_f32((alpha, beta)))
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, streamed)):
+        raise AssertionError("hmm_fb_stat_adj_weights: not the streamed "
+                             "weights on LT + lo bit for bit")
+    errs["hmm_fb_stat_adj_weights"] = _rel_err(got, (W, V))
+    g, h, da0 = hmm_fb.hmm_fb_adj_chain_plain(W, V, dalpha, dbeta)
+    got = hmm_fb.hmm_fb_adj_chain(*_f32((W, V, dalpha, dbeta)))
+    torch.cuda.synchronize()
+    errs["hmm_fb_stat_adj_chain"] = _rel_err(got, (g, h, da0))
+    got = hmm_fb.hmm_fb_stat_adj_sums(*_f32((W, V, g, h)))
+    torch.cuda.synchronize()
+    errs["hmm_fb_stat_adj_sums"] = _rel_err(
+        got, hmm_fb.hmm_fb_stat_adj_sums_plain(W, V, g, h))
+    return errs
+
+
+HMM_STAT_ADJ_ERRS = ("hmm_fb_stat_adj_weights", "hmm_fb_stat_adj_chain",
+                     "hmm_fb_stat_adj_sums")
+
+
 def check_hmm(shape, case="stationary", seed=0, device="cuda"):
     """The HMM kernels (float32) against their plain versions (float64) on
     the same inputs and random cotangents at ``shape`` and ``case`` (see
     :func:`hmm_problem`), each pass of ``hmm_fb_adj`` against its own
-    (check_hmm_adj_passes), and ``hmm_posterior`` on the card (float32,
+    (check_hmm_adj_passes) and, for a stationary (K, K) transition matrix,
+    each pass of ``hmm_fb_stat_adj`` against its own
+    (check_hmm_stat_adj_passes), and ``hmm_posterior`` on the card (float32,
     every kernel choice) against the float64 CPU path; raises past
     TOL_MSG_REL, TOL_ADJ_REL (the adjoints and the passes) and TOL_ABS
     (node marginals), or if a forced switch's pair count leaves (0.9,
@@ -1102,6 +1193,8 @@ def check_hmm(shape, case="stationary", seed=0, device="cuda"):
         errs[adj] = _rel_err(got, getattr(hmm_fb, adj + "_plain")(*adj_args))
         if adj == "hmm_fb_adj":
             errs.update(check_hmm_adj_passes(adj_args))
+        else:
+            errs.update(check_hmm_stat_adj_passes(adj_args))
 
     cpu = lambda x: None if x is None else x.cpu()
     f32 = lambda x: None if x is None else x.float()
@@ -1119,6 +1212,8 @@ def check_hmm(shape, case="stationary", seed=0, device="cuda"):
     ok = (all(errs[f][0] <= TOL_MSG_REL and errs[a][0] <= TOL_ADJ_REL
               for f, a in HMM_RUNS if f in errs)
           and all(errs[k][0] <= TOL_ADJ_REL for k in HMM_ADJ_PASSES)
+          and all(errs[k][0] <= TOL_ADJ_REL for k in HMM_STAT_ADJ_ERRS
+                  if k in errs)
           and node_err <= TOL_ABS)
     if case == "forced":
         errs["forced_pair_count"] = (min(forced), max(forced))
@@ -1328,6 +1423,13 @@ HMM_PLAINS = (hmm_fb.hmm_fb_fwd_plain, hmm_fb.hmm_fb_adj_plain,
 HMM_PASS_WRAPPERS = tuple(getattr(hmm_fb, k) for k in HMM_ADJ_PASSES)
 HMM_PASS_PLAINS = tuple(getattr(hmm_fb, k + "_plain")
                         for k in HMM_ADJ_PASSES)
+# the stationary adjoint's own passes (check_hmm_stat_adj_passes, phase
+# 5); its chain pass is hmm_fb_adj_chain, and hmm_fb_stat_adj's one C call
+# launches all three
+HMM_STAT_PASS_WRAPPERS = (hmm_fb.hmm_fb_stat_adj_weights,
+                          hmm_fb.hmm_fb_stat_adj_sums)
+HMM_STAT_PASS_PLAINS = (hmm_fb.hmm_fb_stat_adj_weights_plain,
+                        hmm_fb.hmm_fb_stat_adj_sums_plain)
 CHUNK_WRAPPERS = (chunked.elem_scan, chunked.elem_scan_adj)
 CHUNK_PLAINS = (chunked.elem_scan_plain, chunked.elem_scan_adj_plain)
 KFWD_WRAPPERS = (kalman_fwd.filter_shared, kalman_fwd.backward_shared,
@@ -1373,6 +1475,11 @@ SAMPLER_BP_FWD_PASS_WRAPPERS = (bpairs.sampler_bp_fwd_factor,
                                 bpairs.sampler_bp_fwd_chain)
 SAMPLER_BP_FWD_PASS_PLAINS = (bpairs.sampler_bp_fwd_factor_plain,
                               bpairs.sampler_bp_fwd_chain_plain)
+# the shared-pair sampler's factor pass (check_sampler_shared_passes,
+# phase 5); its chain pass is sampler_bp_fwd_chain, and sampler_shared's
+# one C call launches both
+KFWD_PASS_WRAPPERS = (kalman_fwd.sampler_shared_factor,)
+KFWD_PASS_PLAINS = (kalman_fwd.sampler_shared_factor_plain,)
 LAUNCHED_BY = {**{w.__name__: estep.sampler_fwd.__name__
                   for w in FWD_PASS_WRAPPERS},
                **{w.__name__: chunked.elem_scan_adj.__name__
@@ -1384,17 +1491,22 @@ LAUNCHED_BY = {**{w.__name__: estep.sampler_fwd.__name__
                **{w.__name__: bpairs.sampler_bp_fwd.__name__
                   for w in SAMPLER_BP_FWD_PASS_WRAPPERS},
                **{w.__name__: hmm_fb.hmm_fb_adj.__name__
-                  for w in HMM_PASS_WRAPPERS}}
+                  for w in HMM_PASS_WRAPPERS},
+               **{w.__name__: hmm_fb.hmm_fb_stat_adj.__name__
+                  for w in HMM_STAT_PASS_WRAPPERS},
+               **{w.__name__: kalman_fwd.sampler_shared.__name__
+                  for w in KFWD_PASS_WRAPPERS}}
 ALL_WRAPPERS = (WRAPPERS + PASS_WRAPPERS + FWD_PASS_WRAPPERS
                 + RAGGED_WRAPPERS + RAGGED_PASS_WRAPPERS
                 + SAMPLER_BP_PASS_WRAPPERS + SAMPLER_BP_FWD_PASS_WRAPPERS
-                + HMM_WRAPPERS + HMM_PASS_WRAPPERS + CHUNK_WRAPPERS
-                + CHUNK_PASS_WRAPPERS + KFWD_WRAPPERS)
+                + HMM_WRAPPERS + HMM_PASS_WRAPPERS + HMM_STAT_PASS_WRAPPERS
+                + CHUNK_WRAPPERS + CHUNK_PASS_WRAPPERS + KFWD_WRAPPERS
+                + KFWD_PASS_WRAPPERS)
 ALL_PLAINS = (PLAINS + PASS_PLAINS + FWD_PASS_PLAINS + RAGGED_PLAINS
               + RAGGED_PASS_PLAINS + SAMPLER_BP_PASS_PLAINS
               + SAMPLER_BP_FWD_PASS_PLAINS + HMM_PLAINS + HMM_PASS_PLAINS
-              + CHUNK_PLAINS
-              + CHUNK_PASS_PLAINS + KFWD_PLAINS)
+              + HMM_STAT_PASS_PLAINS + CHUNK_PLAINS + CHUNK_PASS_PLAINS
+              + KFWD_PLAINS + KFWD_PASS_PLAINS)
 TRAIN_K = 8
 
 
@@ -1963,12 +2075,39 @@ def _cpu64(tree):
                     tree)
 
 
+def check_sampler_shared_passes(sin):
+    """Each pass of ``sampler_shared`` (float32 kernel) against its own
+    plain version (float64) on ``sin`` (``sampler_shared``'s float64
+    arguments), the chain (``bpairs.sampler_bp_fwd_chain``) fed the plain
+    factor pass's output. Returns ``{pass: max abs error}``, the chain
+    under ``sampler_shared_chain``; the callers hold them to TOL_ABS."""
+    P2, P3, Jf, hf, eps, xT = sin
+    Qc = kalman_fwd.sampler_shared_factor(*_f32((P2, P3, Jf, hf, eps)))
+    Qcp = kalman_fwd.sampler_shared_factor_plain(P2, P3, Jf, hf, eps)
+    x = bpairs.sampler_bp_fwd_chain(*_f32((*Qcp, xT)))
+    xp = bpairs.sampler_bp_fwd_chain_plain(*Qcp, xT)
+    torch.cuda.synchronize()
+    return {"sampler_shared_factor": _max_err(Qc, Qcp),
+            "sampler_shared_chain": _max_err((x,), (xp,))}
+
+
+def _kfwd_sampler_problem(problem, device):
+    """``sampler_shared``'s float64 arguments on ``kfwd_problem``'s
+    ``(init, pairs, nodes, eps)``: the forward messages of the float64
+    plain filter (on the CPU), the pair rows and the noise on ``device``."""
+    init, pairs, nodes, eps = problem
+    _, Jf, hf = kalman_fwd.lds_filter(*_cpu64((init, pairs, nodes)))
+    return kalman_fwd.sampler_inputs(pairs, Jf.to(device), hf.to(device),
+                                     eps)[0]
+
+
 def check_kalman_fwd(shape, seed=0, device="cuda"):
     """Phase 3k: the three shared-pair kernels (float32) against their
-    plain versions (float64) on the same inputs at ``shape``; the sampler
-    reads the float64 forward messages. Raises past TOL_ABS (messages,
-    samples) and TOL_LOGZ_REL (the summed log-normalizer). Returns the
-    errors."""
+    plain versions (float64) on the same inputs at ``shape``, and each pass
+    of the sampler against its own (check_sampler_shared_passes); the
+    sampler reads the float64 forward messages. Raises past TOL_ABS
+    (messages, samples, the passes) and TOL_LOGZ_REL (the summed
+    log-normalizer). Returns the errors."""
     init, pairs, nodes, eps = kfwd_problem(shape, seed, device)
     fin = kalman_fwd.filter_inputs(init, pairs, nodes)
     J, h, ln = kalman_fwd.filter_shared(*_f32(fin))
@@ -1976,9 +2115,7 @@ def check_kalman_fwd(shape, seed=0, device="cuda"):
     bin_ = kalman_fwd.backward_inputs(pairs, nodes)
     Jb, hb = kalman_fwd.backward_shared(*_f32(bin_))
     Jbp, hbp = kalman_fwd.backward_shared_plain(*bin_)
-    _, Jf, hf = kalman_fwd.lds_filter(*_cpu64((init, pairs, nodes)))
-    on = lambda x: x.to(device)
-    sin, _ = kalman_fwd.sampler_inputs(pairs, on(Jf), on(hf), eps)
+    sin = _kfwd_sampler_problem((init, pairs, nodes, eps), device)
     x = kalman_fwd.sampler_shared(*_f32(sin))
     xp = kalman_fwd.sampler_shared_plain(*sin)
     torch.cuda.synchronize()
@@ -1986,14 +2123,19 @@ def check_kalman_fwd(shape, seed=0, device="cuda"):
             "filter_ln_rel": abs(float(ln.double().sum() - lnp.sum()))
             / abs(float(lnp.sum())),
             "backward_shared": _max_err((Jb, hb), (Jbp, hbp)),
-            "sampler_shared": _max_err((x,), (xp,))}
+            "sampler_shared": _max_err((x,), (xp,)),
+            **check_sampler_shared_passes(sin)}
     if not (errs["filter_shared"] <= TOL_ABS
             and errs["filter_ln_rel"] <= TOL_LOGZ_REL
             and errs["backward_shared"] <= TOL_ABS
-            and errs["sampler_shared"] <= TOL_ABS):
+            and all(errs[k] <= TOL_ABS for k in SAMPLER_SHARED_ERRS)):
         raise AssertionError(f"a shared-pair kernel disagrees with its plain "
                              f"version at {shape}: {errs}")
     return errs
+
+
+SAMPLER_SHARED_ERRS = ("sampler_shared", "sampler_shared_factor",
+                       "sampler_shared_chain")
 
 
 def check_shared_filters(seed=0, device="cuda"):
@@ -2190,17 +2332,19 @@ def one_direction_filters(device="cuda", seed=5):
 
 def kalman_fwd_timings(device="cuda"):
     """Phase 5, shared-pair kernels: the three kernels and their plain
-    versions, and, on the same chains, the one-direction launches of the
+    versions (the sampler's passes alone, and each one's device time
+    within the sampler, _pass_times), and, on the same chains, the
+    one-direction launches of the
     bpairs kernels (``bidir_fwd`` over the B forward lanes, as
     ``bpairs.lds_filter`` and ``kalman_fwd.lds_filter_bpairs`` launch it,
     and over the B backward lanes, as ``bpairs.lds_backward`` does;
     ``bidir_adj`` on each) and their plain versions, and
-    ``sampler_bp_fwd`` on the pairs expanded per sequence (the routes the
-    shared-pair kernels could have been served by), at config-2 width and
-    at the long T; both E-steps on the same chain (CUDA events; the plain
-    versions 10 runs at config 2, 3 at the long T; the device time of the
-    two shared-pair filters and of ``bidir_fwd`` on the same chains
-    too)."""
+    ``sampler_bp_fwd`` and its passes on the pairs expanded per sequence
+    (the routes the shared-pair kernels could have been served by), at
+    config-2 width and at the long T; both E-steps on the same chain (CUDA
+    events; the plain versions 10 runs at config 2, 3 at the long T; the
+    device time of the three shared-pair kernels, of ``bidir_fwd`` and of
+    ``sampler_bp_fwd`` on the same chains too)."""
     t = {}
     for tag, name in (("", "config2"), ("_longT", "longT")):
         shape = KFWD_SHAPES[name]
@@ -2211,6 +2355,7 @@ def kalman_fwd_timings(device="cuda"):
         _, Jf, hf = kalman_fwd.lds_filter(*_cpu64((init, pairs, nodes)))
         sin, _ = kalman_fwd.sampler_inputs(pairs, Jf.to(device),
                                            hf.to(device), eps)
+        sin32 = _f32(sin)
         one_dir = {
             "fwd_lanes": bpairs._packed(*bpairs._initial(init, nodes),
                                         bpairs._streams(pairs, nodes)),
@@ -2232,18 +2377,37 @@ def kalman_fwd_timings(device="cuda"):
                                       kalman_fwd.sampler_shared_plain, sin)}
         for k, (fn, plain, args) in kernels.items():
             args = _f32(args)
-            t[k + tag] = _time_ms(lambda: fn(*args))
             if k != "sampler_shared":
+                t[k + tag] = _time_ms(lambda: fn(*args))
                 t[k + "_device" + tag] = _device_ms(lambda: fn(*args)).get(
                     k + "_kernel", math.nan)
             t[k + "_plain" + tag] = _time_ms(lambda: plain(*args), runs=runs,
                                              warmup=1)
-        # the served route of the sampler: sampler_bp_fwd on the pairs
-        # expanded per sequence
+        # the sampler's passes (the factor pass on the shared rows, then
+        # sampler_bp_fwd's chain pass), and on the same chains the served
+        # route, sampler_bp_fwd and its passes on the pairs expanded per
+        # sequence
+        Q, c = kalman_fwd.sampler_shared_factor(*sin32[:5])
+        _pass_times(
+            t, tag, "sampler_shared",
+            lambda: kalman_fwd.sampler_shared(*sin32),
+            {"sampler_shared_factor": functools.partial(
+                kalman_fwd.sampler_shared_factor, *sin32[:5]),
+             "sampler_shared_chain": functools.partial(
+                 bpairs.sampler_bp_fwd_chain, Q, c, sin32[5])},
+            {"sampler_shared_factor": functools.partial(
+                kalman_fwd.sampler_shared_factor_plain, *sin[:5])},
+            {"sampler_shared_chain": "sampler_bp_fwd_chain_kernel"})
         bp_sin = _f32(bpairs.sampler_inputs(pairs, Jf.to(device),
                                             hf.to(device), eps)[0])
-        t["sampler_bp_fwd_served" + tag] = _time_ms(
-            lambda: bpairs.sampler_bp_fwd(*bp_sin))
+        Q, c = bpairs.sampler_bp_fwd_factor(*bp_sin[:5])
+        _pass_times(
+            t, "_served" + tag, "sampler_bp_fwd",
+            lambda: bpairs.sampler_bp_fwd(*bp_sin),
+            {"sampler_bp_fwd_factor": functools.partial(
+                bpairs.sampler_bp_fwd_factor, *bp_sin[:5]),
+             "sampler_bp_fwd_chain": functools.partial(
+                 bpairs.sampler_bp_fwd_chain, Q, c, bp_sin[5])})
         for k, (fwd, adj) in one_dir.items():
             t[f"bidir_fwd_{k}{tag}"] = _time_ms(lambda: bpairs.bidir_fwd(
                 *fwd))
@@ -2288,7 +2452,8 @@ def _twins_on_card():
 def slds_timings(device="cuda", cfg=SLDS_CONFIG, epochs=2):
     """Phase 5, SLDS path: each HMM kernel and its plain version at the
     slds_synth sweep shape and at measure_hmm's, event and device time,
-    and the passes of ``hmm_fb_adj`` alone (_pass_times); ``bidir_fwd`` and
+    and the passes of ``hmm_fb_adj`` and of ``hmm_fb_stat_adj`` alone
+    (_pass_times); ``bidir_fwd`` and
     ``sampler_bp_adj`` (with its passes) at the slds_synth x-step's shape
     (BIDIR_ADJ_SHAPES["slds"]: 2B = 32 lanes, T=80, d=4, S=2), event and
     device time; ``slds.run_inference`` at
@@ -2310,6 +2475,8 @@ def slds_timings(device="cuda", cfg=SLDS_CONFIG, epochs=2):
             args = _f32(args)
             if adj == "hmm_fb_adj":
                 streamed = adj_args
+            else:
+                stationary = adj_args
             for name, a, runs in ((fwd, args, TIMING_RUNS),
                                   (adj, adj_args, TIMING_RUNS),
                                   (fwd + "_plain", args, 10),
@@ -2335,6 +2502,26 @@ def slds_timings(device="cuda", cfg=SLDS_CONFIG, epochs=2):
              for k, a in passes.items()},
             {k: functools.partial(getattr(hmm_fb, k + "_plain"), *a)
              for k, a in passes.items()})
+        # the stationary adjoint's: its weight pass, the chain pass on its
+        # weights (hmm_fb_adj_chain's kernel) and its sums pass
+        a0, LT, lo, alpha, beta, dalpha, dbeta = stationary
+        W, V = hmm_fb.hmm_fb_stat_adj_weights(a0, LT, lo, alpha, beta)
+        g, h, _ = hmm_fb.hmm_fb_adj_chain(W, V, dalpha, dbeta)
+        passes = {
+            "hmm_fb_stat_adj_weights": (hmm_fb.hmm_fb_stat_adj_weights,
+                                        (a0, LT, lo, alpha, beta)),
+            "hmm_fb_stat_adj_chain": (hmm_fb.hmm_fb_adj_chain,
+                                      (W, V, dalpha, dbeta)),
+            "hmm_fb_stat_adj_sums": (hmm_fb.hmm_fb_stat_adj_sums,
+                                     (W, V, g, h))}
+        _pass_times(
+            t, tag, "hmm_fb_stat_adj",
+            lambda: hmm_fb.hmm_fb_stat_adj(*stationary),
+            {k: functools.partial(fn, *a) for k, (fn, a) in passes.items()},
+            {k: functools.partial(getattr(hmm_fb, k + "_plain"), *a)
+             for k, (_, a) in passes.items()
+             if k != "hmm_fb_stat_adj_chain"},
+            {"hmm_fb_stat_adj_chain": "hmm_fb_adj_chain_kernel"})
 
     filt, samp, _ = bpairs_problem(BIDIR_ADJ_SHAPES["slds"], 0, device)
     _bpairs_kernel_times(t, "_slds", _f32(filt), _f32(samp))
@@ -2389,21 +2576,23 @@ def slds_timings(device="cuda", cfg=SLDS_CONFIG, epochs=2):
     return t
 
 
-def _pass_times(t, tag, name, whole, passes, plains=None):
+def _pass_times(t, tag, name, whole, passes, plains=None, kernels=None):
     """Into ``t``: the event time of ``name``, a function run as passes (a
-    no-argument call ``whole``), and its device time in its kernels (under
-    torch.profiler); for each of its ``passes`` ({pass name: call}) the
-    event time of the pass alone and its kernel's device time within the
-    whole; for each of ``plains`` ({pass name: call of its plain version})
-    the plain version's event time. Keys end in ``tag``."""
+    no-argument call ``whole``), and its device time in its passes'
+    kernels (under torch.profiler); for each of its ``passes`` ({pass name:
+    call}) the event time of the pass alone and its kernel's device time
+    within the whole (the kernel ``<pass name>_kernel``, or
+    ``kernels[pass name]``); for each of ``plains`` ({pass name: call of
+    its plain version}) the plain version's event time. Keys end in
+    ``tag``."""
+    kernel = lambda k: (kernels or {}).get(k, k + "_kernel")
     t[name + tag] = _time_ms(whole)
     dev = _device_ms(whole)
-    t[name + "_device" + tag] = (sum(v for n, v in dev.items()
-                                     if n.startswith(name))
-                                 if dev else math.nan)
+    t[name + "_device" + tag] = (sum(dev.get(kernel(k), 0.0)
+                                     for k in passes) if dev else math.nan)
     for k, fn in passes.items():
         t[k + tag] = _time_ms(fn)
-        t[k + "_device" + tag] = dev.get(k + "_kernel", math.nan)
+        t[k + "_device" + tag] = dev.get(kernel(k), math.nan)
     for k, fn in (plains or {}).items():
         t[k + "_plain" + tag] = _time_ms(fn, runs=10)
     print(f"device {name}{tag}: {t[name + '_device' + tag]:.4f} ms in its "
@@ -2918,13 +3107,22 @@ def bound(name, B, T, d, S, NL=None):
                   + T1 * (dd + d) * B)
         if name == "filter_shared":
             floats += T1 + (tri + d) * B + B
-    elif name == "sampler_shared":
-        chains = SB
-        step = d ** 3 / 3 + 4 * d * d
-        # in: the shared rows P2, P3 (lower triangle), Jf (lower triangle)
-        # and hf per sequence, eps, xT; out: x
-        floats = (T1 * (dd + tri) + T1 * (tri + d) * B + 2 * T1 * d * SB
-                  + d * SB)
+    elif name.startswith("sampler_shared"):
+        # sampler_bp_fwd's passes on the shared rows, per (step, sequence):
+        # the factor pass's 7 d^3/3 + (1 + S) d^2, the chain's 2 d^2 a
+        # sample
+        chains = B
+        ops = {"factor": 7 * d ** 3 / 3 + (1 + S) * d * d,
+               "chain": 2 * d * d * S}
+        # in: the shared rows P2 and P3 (lower triangle), Jf (lower
+        # triangle) and hf per sequence, eps
+        floats = T1 * (dd + tri) + T1 * (tri + d) * B + T1 * d * SB
+        if name == "sampler_shared_factor":
+            step = ops["factor"]
+            floats += T1 * dd * B + T1 * d * SB  # out: Q, c
+        else:
+            step = sum(ops.values())
+            floats += d * SB + T1 * d * SB  # in: xT; out: x
     elif name.startswith("elem_scan"):
         # here B is the lane count N and T the scan length L; the algebra of
         # pallas_chunked's _combine_rows (chol d^3/3, two triangular
@@ -2984,6 +3182,18 @@ def bound(name, B, T, d, S, NL=None):
             chains, step = B, 3 * KK
             # in: W, V, g, h; out: dM
             floats = 3 * T1 * KK * B + 2 * T1 * K * B
+        elif name == "hmm_fb_stat_adj_weights":
+            # one (step, entry, sequence) a thread: lt + lo, then w and v,
+            # an add, a subtraction and an exp each
+            chains, step = B, 7 * KK
+            # in: a0, LT, lo, alpha, beta; out: W, V
+            floats = K * B + elements + 2 * T1 * K * B + 2 * T1 * KK * B
+        elif name == "hmm_fb_stat_adj_sums":
+            # per (step, sequence): dLT's two multiplies and two adds an
+            # entry, dlo's K multiply-adds and an add a state
+            chains, step = B, 6 * KK + K
+            # in: W, V, g, h; out: dlo, dLT
+            floats = 2 * T1 * KK * B + 3 * T1 * K * B + KK
         elif name.endswith("_fwd"):
             # per step K logsumexps of K terms: K adds (carry + element;
             # K more for lt + lo in the stationary kernel), K-1 maxes, K
@@ -3111,7 +3321,7 @@ def main():
             e = check_hmm(shape, case)
             print(f"hmm kernels vs plain versions [{name} {shape} {case}] "
                   f"(normwise rel, max abs; node marginals max abs): {e}")
-            for k in sum(HMM_RUNS, HMM_ADJ_PASSES):
+            for k in sum(HMM_RUNS, HMM_ADJ_PASSES + HMM_STAT_ADJ_ERRS):
                 if k in e:
                     errs[k] = max(errs.get(k, 0.0), e[k][1])
     stat_launches = hmm_stationary_path()
@@ -3126,7 +3336,7 @@ def main():
         e = check_kalman_fwd(shape)
         print(f"shared-pair kernels vs plain versions [{name} {shape}] (max "
               f"abs; the filter's summed log-normalizer rel): {e}")
-        for k in ("filter_shared", "backward_shared", "sampler_shared"):
+        for k in ("filter_shared", "backward_shared") + SAMPLER_SHARED_ERRS:
             errs[k] = max(errs.get(k, 0.0), e[k])
     e = check_shared_filters()
     print(f"shared-pair filters vs plain [B=37, T=2 at every built d, "
@@ -3165,7 +3375,7 @@ def main():
                          d=c["d"], S=1)
         elif k in [w.__name__ for w in WRAPPERS + FWD_PASS_WRAPPERS]:
             shape = SHAPES["config2"]
-        elif k in [w.__name__ for w in KFWD_WRAPPERS]:
+        elif k in [w.__name__ for w in KFWD_WRAPPERS + KFWD_PASS_WRAPPERS]:
             shape = KFWD_SHAPES["config2"]
         else:
             shape = RAGGED_SHAPES["ragged"]
@@ -3182,10 +3392,17 @@ def main():
         args = (shape["B"], shape["T"], shape["d"], shape["S"])
         print(f"bounds at {name} {shape} (ms, by): "
               + ", ".join(f"{k} {bound(k, *args)}" for k in
-                          [w.__name__ for w in KFWD_WRAPPERS])
+                          [w.__name__ for w in KFWD_WRAPPERS]
+                          + ["sampler_shared_factor", "sampler_bp_fwd_chain"])
               + f", one direction's B lanes: bidir_fwd "
               f"{bound('bidir_fwd', *args, NL=shape['B'])}, bidir_adj "
               f"{bound('bidir_adj', *args, NL=shape['B'])}")
+    for name in ("slds", "measure_hmm"):
+        shape = HMM_SHAPES[name]
+        print(f"bounds at {name} {shape} (ms, by): " + ", ".join(
+            f"{k} {bound(k, shape['B'], shape['T'], shape['K'], 1)}"
+            for k in ("hmm_fb_adj",) + HMM_ADJ_PASSES + ("hmm_fb_stat_adj",)
+            + HMM_STAT_ADJ_PASSES))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

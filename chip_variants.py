@@ -2,7 +2,8 @@
 CUDA card: ``bidir_fwd``'s chains (warps) a block (``kBidirChains``,
 svae_tpu_torch/csrc/bpairs.cu), the ring depth of ``sampler_bp_adj``'s
 chain pass (``kBpRing``, csrc/sampler_bp_adj.cu) or of ``sampler_bp_fwd``'s
-(``kBpFwdRing``, csrc/bpairs.cu); the ring depth of ``hmm_fb_fwd``
+(``kBpFwdRing``, csrc/bpairs.cu; the chain pass the shared-pair sampler
+runs too); the ring depth of ``hmm_fb_fwd``
 (``kHmmRing``, csrc/hmm_fb.cu) and of ``hmm_fb_adj``'s chain pass
 (``kHmmAdjRing``, csrc/hmm_fb_adj.cu); the shared-pair filters' chains a
 block (``kSharedChains``, csrc/kalman_fwd.cu) or, with ``--constant
@@ -10,7 +11,7 @@ kSharedRing``, their ring depth.
 
     python3 chip_variants.py bidir_fwd [--values 1 2 4] [--rounds R]
     python3 chip_variants.py sampler_bp_adj --values 2 3 4
-    python3 chip_variants.py sampler_bp_fwd --values 2 3 4
+    python3 chip_variants.py sampler_bp_fwd --values 4 8 16
     python3 chip_variants.py hmm_fb_fwd --values 2 4 8
     python3 chip_variants.py hmm_fb_adj --values 2 4 8
     python3 chip_variants.py shared_filters --values 1 2 4
@@ -26,7 +27,9 @@ of 25 CUDA-event timings, and the device time of its kernels under
 torch.profiler) on chip_smoke.py's float32 problems at the shapes it runs
 at: ragged B=64 batches of T=128 and T=512, the slds_synth x-step's (B=16,
 T=80, d=4, S=2) and, for ``bidir_fwd``, one direction's 8 lanes of
-T=2048; the HMM kernels at the slds_synth z-step's shape (B=16, T=80,
+T=2048, for ``sampler_bp_fwd`` the shared-pair sampler
+(``kalman_fwd.sampler_shared``, the same chain pass) at config-2 width
+(B=64, T=100, d=10, S=2) and at B=8, T=2048; the HMM kernels at the slds_synth z-step's shape (B=16, T=80,
 K=4) and measure_hmm's (B=128, T=100, K=8), the adjoint on the plain
 forward's messages and seeded cotangents; the shared-pair filters
 (``kalman_fwd.filter_shared`` and ``backward_shared``, both timed) at
@@ -70,9 +73,12 @@ KERNELS = {
                         "sampler_bp_adj_dJc_kernel"), "sampler_bp_adj"),
     "sampler_bp_fwd": (("kBpFwdRing",), "bpairs.cu",
                        [n for n, _, _ in _build.ENTRIES
-                        if n.startswith("svae_sampler_bp_fwd")],
+                        if n.startswith(("svae_sampler_bp_fwd",
+                                         "svae_sampler_shared"))],
                        ("sampler_bp_fwd_factor_kernel",
-                        "sampler_bp_fwd_chain_kernel"), "sampler_bp_fwd"),
+                        "sampler_shared_factor_kernel",
+                        "sampler_bp_fwd_chain_kernel"),
+                       ("sampler_bp_fwd", "sampler_shared")),
     "hmm_fb_fwd": (("kHmmRing",), "hmm_fb.cu", ("svae_hmm_fb_fwd_f32",),
                    ("hmm_fb_fwd_kernel",), "hmm_fb_fwd"),
     "hmm_fb_adj": (("kHmmAdjRing",), "hmm_fb_adj.cu", _HMM_ADJ,
@@ -137,6 +143,8 @@ def _wrapper(kernel, problem):
         mod = kalman_fwd
         kernel = ("filter_shared" if problem.startswith("fwd")
                   else "backward_shared")
+    elif problem.startswith("shared_"):
+        mod, kernel = kalman_fwd, "sampler_shared"
     else:
         mod = hmm_fb if kernel.startswith("hmm_fb") else bpairs
     return getattr(mod, kernel), getattr(mod, kernel + "_plain")
@@ -178,6 +186,11 @@ def problems(kernel, device="cuda"):
     if kernel == "bidir_fwd":
         probs["one_direction"] = chip_smoke.one_direction_problem(
             chip_smoke.BIDIR_ADJ_SHAPES["one_direction"], 0, device)[:8]
+    if kernel == "sampler_bp_fwd":
+        for name in ("config2", "longT"):
+            probs["shared_" + name] = chip_smoke._kfwd_sampler_problem(
+                chip_smoke.kfwd_problem(chip_smoke.KFWD_SHAPES[name], 0,
+                                        device), device)
     return probs
 
 

@@ -1,10 +1,13 @@
 // Hopper kernels of the LDS E-step on per-sequence ("bpairs") pair
 // potentials: the generic bidirectional information filter and the
-// backward conditional sampler, both reading their pair blocks as streams.
+// backward conditional sampler, both reading their pair blocks as streams;
+// and the same sampler on pair rows shared by the batch.
 //
 // bidir_fwd_kernel<D> replaces svae_tpu/ops/pallas_bidir.py:_bidir_fwd_kernel;
 // sampler_bp_fwd_factor_kernel<D> and sampler_bp_fwd_chain_kernel<D>
-// together replace svae_tpu/ops/pallas_vjp.py:_sampler_fwd_kernel.
+// together replace svae_tpu/ops/pallas_vjp.py:_sampler_fwd_kernel;
+// sampler_shared_factor_kernel<D> and sampler_bp_fwd_chain_kernel<D>
+// together replace svae_tpu/ops/pallas_kalman.py:_sampler_kernel.
 //
 // What bounds them on an H100. As in estep.cu, every lane is a serial
 // chain of T-1 small dense steps, and at the ragged slice's shape (B=64,
@@ -50,7 +53,7 @@
 // chain, 4.5 us a step at d=10 with 64 threads busy at ragged T=512.
 // 1. sampler_bp_fwd_factor_kernel runs one thread per (step, sequence),
 //    32,704 at T=512, B=64: it factors Jc_t once for the S samples
-//    (adj_passes.cuh's factor_jc_bp), writes c per sample, and Q_t by two
+//    (adj_passes.cuh's factor_jc), writes c per sample, and Q_t by two
 //    triangular solves a column, lane-minor in Jf's layout. P2_t streams,
 //    unlike estep.cu's stationary P2, so folding it into Q here leaves the
 //    chain one matrix-vector product, one barrier and d loads a thread a
@@ -59,13 +62,27 @@
 // 2. sampler_bp_fwd_chain_kernel runs one chain per block of d threads
 //    (sample s, sequence b), thread i owning row i: x_t[i] = c_t[i] +
 //    Q_t[i] . x_{t+1}, x_{t+1} through shared memory double-buffered by the
-//    step's parity, and the coming steps' rows of Q and c in a ring of
-//    registers (kBpFwdRing), loaded unconditionally.
+//    step's parity, and the coming steps' rows of Q and c in a ring in
+//    shared memory (kBpFwdRing steps) filled by cp.async, as the HMM
+//    chains' (0.26-0.29 us a step with a ring of registers, whose every
+//    load the step waited on; 0.11-0.14 us with this ring).
 // svae_sampler_bp_fwd_f32 launches the two, one after the other, with Q
 // and c as the caller's scratch. The sampler reads the pairs at sequence
-// lane % B. T and the lane counts are runtime arguments (the length
-// buckets and a tail batch vary them); only d is a template parameter, so
-// the steps' loops unroll. There is no lane or time padding: every stream
+// lane % B.
+// The shared-pair sampler (ops/kalman_fwd.py) is this sampler with P2_t
+// and P3_t one (d*d) row a step for the whole batch. Its one-thread-per-
+// chain kernel refactored Jc_t on the chain as well, 2.6 us a step at d=10
+// and B=8, T=2048. Now it runs the same two passes, from
+// svae_sampler_shared_f32: sampler_shared_factor_kernel is the factor
+// pass's body (sampler_fwd_factor) reading each step's rows at stride 1,
+// the same address for every thread of a step (a warp's threads hold one
+// step, or a few at small B, so the rows come as broadcasts, and a (step,
+// sequence) reads 1.5 d^2 fewer floats than on expanded pairs); the Q_t
+// it writes is per sequence, since Jf_t is, and the chain pass is
+// sampler_bp_fwd_chain_kernel as it is.
+// T and the lane counts are runtime arguments (the length buckets and a
+// tail batch vary them); only d is a template parameter, so the steps'
+// loops unroll. There is no lane or time padding: every stream
 // row is a real step.
 
 #include "adj_passes.cuh"
@@ -76,8 +93,9 @@ namespace {
 // How many chains (one warp each) a block of bidir_fwd_kernel runs.
 constexpr int kBidirChains = 1;
 
-// How many steps ahead the sampler's chain pass loads.
-constexpr int kBpFwdRing = 4;
+// How many steps the sampler's chain pass keeps in its shared-memory ring
+// (chip_variants.py: 4, 8 and 16 within 7%).
+constexpr int kBpFwdRing = 8;
 
 // One warp per lane (chain) l of the NL lanes, kBidirChains a block, on
 // filter_chain.cuh's step with M = J + A_t, v = h + f_t, J' = C_t - D_t X_D,
@@ -173,29 +191,33 @@ bidir_fwd_kernel(int NL, int T1, const float* __restrict__ J0,
   if (vec) ln[lane] = (float)acc;
 }
 
-// One thread per (step t, sequence b), b fastest. Inputs: P2, P3, Jf
-// (T-1, d*d, B) (P3's and Jf's lower triangles read), hf (T-1, d, B), eps
-// (T-1, d, S*B). Outputs: the step's matrix Q_t = W_t P2_t^T (T-1, d*d, B)
-// in Jf's layout and c (T-1, d, S*B), per sample s of sequence b (lane
-// s*B + b) c = L^-T (L^-1 hf_t + eps_t) = W_t hf_t + L^-T eps_t, with L =
-// chol(Jc_t), Jc_t = Jf_t - 2 P3_t and W_t = Jc_t^-1.
-template <int D>
-__global__ void __launch_bounds__(kPassThreads)
-sampler_bp_fwd_factor_kernel(int B, int S, int T1,
-                             const float* __restrict__ P2,
-                             const float* __restrict__ P3,
-                             const float* __restrict__ Jf,
-                             const float* __restrict__ hf,
-                             const float* __restrict__ eps,
-                             float* __restrict__ Q, float* __restrict__ c) {
+// The factor pass's body, one thread per (step t, sequence b), b fastest.
+// Inputs: P2, P3, as (T-1, d*d, B) streams per sequence (kShared false)
+// or as (T-1, d*d) rows shared by the batch (kShared true); Jf (T-1, d*d,
+// B) (P3's and Jf's lower triangles read), hf (T-1, d, B), eps (T-1, d,
+// S*B). Outputs: the step's matrix Q_t = W_t P2_t^T (T-1, d*d, B) in Jf's
+// layout and c (T-1, d, S*B), per sample s of sequence b (lane s*B + b)
+// c = L^-T (L^-1 hf_t + eps_t) = W_t hf_t + L^-T eps_t, with L =
+// chol(Jc_t), Jc_t = Jf_t - 2 P3_t and W_t = Jc_t^-1. A shared row is one
+// address for every thread of a step, so a warp's threads (one or a few
+// steps) read it as broadcasts.
+template <int D, bool kShared>
+__device__ __forceinline__ void sampler_fwd_factor(
+    int B, int S, int T1, const float* __restrict__ P2,
+    const float* __restrict__ P3, const float* __restrict__ Jf,
+    const float* __restrict__ hf, const float* __restrict__ eps,
+    float* __restrict__ Q, float* __restrict__ c) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= T1 * B) return;
   const int t = idx / B;
   const int b = idx - t * B;
   const int SB = S * B;
   const size_t at = (size_t)t * D * D * B + b;
+  // the step's pair entry k at pat + k * ps
+  const size_t pat = kShared ? (size_t)t * D * D : at;
+  const int ps = kShared ? 1 : B;
   float L[D][D], rd[D], hv[D], y[D];
-  factor_jc_bp<D>(Jf, P3, at, B, L, rd);
+  factor_jc<D>(Jf + at, TwiceStream{P3 + pat, ps}, B, L, rd);
 #pragma unroll
   for (int i = 0; i < D; ++i) hv[i] = hf[((size_t)t * D + i) * B + b];
   solve_lower<D>(L, rd, hv, y);
@@ -215,7 +237,7 @@ sampler_bp_fwd_factor_kernel(int B, int S, int T1,
   for (int k = 0; k < D; ++k) {
     float p[D], z[D], q[D];
 #pragma unroll
-    for (int m = 0; m < D; ++m) p[m] = P2[at + (size_t)(k * D + m) * B];
+    for (int m = 0; m < D; ++m) p[m] = P2[pat + (size_t)(k * D + m) * ps];
     solve_lower<D>(L, rd, p, z);
     solve_upper<D>(L, rd, z, q);
 #pragma unroll
@@ -223,10 +245,37 @@ sampler_bp_fwd_factor_kernel(int B, int S, int T1,
   }
 }
 
+// The factor pass on per-sequence pairs (sampler_fwd_factor's streams).
+template <int D>
+__global__ void __launch_bounds__(kPassThreads)
+sampler_bp_fwd_factor_kernel(int B, int S, int T1,
+                             const float* __restrict__ P2,
+                             const float* __restrict__ P3,
+                             const float* __restrict__ Jf,
+                             const float* __restrict__ hf,
+                             const float* __restrict__ eps,
+                             float* __restrict__ Q, float* __restrict__ c) {
+  sampler_fwd_factor<D, false>(B, S, T1, P2, P3, Jf, hf, eps, Q, c);
+}
+
+// The factor pass on pair rows shared by the batch (sampler_fwd_factor's
+// rows), the first pass of the shared-pair sampler.
+template <int D>
+__global__ void __launch_bounds__(kPassThreads)
+sampler_shared_factor_kernel(int B, int S, int T1,
+                             const float* __restrict__ P2,
+                             const float* __restrict__ P3,
+                             const float* __restrict__ Jf,
+                             const float* __restrict__ hf,
+                             const float* __restrict__ eps,
+                             float* __restrict__ Q, float* __restrict__ c) {
+  sampler_fwd_factor<D, true>(B, S, T1, P2, P3, Jf, hf, eps, Q, c);
+}
+
 // One block of D threads per chain (sample s, sequence b), lane s*B + b,
 // thread i owning row i, walking t = T-2 ... 0 from the terminal sample:
-// x_t = c_t + Q_t x_{t+1}. Inputs: Q and c from
-// sampler_bp_fwd_factor_kernel, xT (d, S*B). Output x (T-1, d, S*B).
+// x_t = c_t + Q_t x_{t+1}. Inputs: Q and c from the factor pass, xT (d,
+// S*B). Output x (T-1, d, S*B).
 template <int D>
 __global__ void __launch_bounds__(32)
 sampler_bp_fwd_chain_kernel(int B, int SB, int T1, const float* __restrict__ Q,
@@ -239,35 +288,46 @@ sampler_bp_fwd_chain_kernel(int B, int SB, int T1, const float* __restrict__ Q,
   const int lane = blockIdx.x;
   const int i = threadIdx.x;
   const int b = lane % B;
-  // steps t-1 ... t-R in flight while step t computes: a ring of R
-  // register slots (row i of Q_t and c_t[i]), the loop unrolled by R so
-  // that every slot index is a constant; the loads unconditional, the step
-  // clamped to 0
-  float nQ[R][D], nc[R];
-  auto load = [&](int t, int u) {
-    t = t > 0 ? t : 0;
-    const size_t row = ((size_t)t * D * D + i * D) * B + b;
+  float xi = xT[i * SB + lane];
+  // steps t-1 ... t-R+1 in flight while step t computes: slot u of a
+  // ring in shared memory holds the thread's row i of Q_t and c_t[i]; a
+  // thread copies and reads its own row alone, so a step waits on its own
+  // copies (cp.async.wait_group) and takes no barrier for them. The copies
+  // are unconditional, their sources stepping down one step a copy and
+  // staying at step 0. (A ring of registers, loaded unconditionally, waited
+  // on every load: nvcc moved each into its slot's register right after
+  // issuing it, PERF.md §6.)
+  __shared__ float ring[R][D][D + 1];
+  const size_t qstep = (size_t)D * D * B, cstep = (size_t)D * SB;
+  const float* qs = Q + ((size_t)(T1 - 1) * D * D + i * D) * B + b;
+  const float* cs = c + ((size_t)(T1 - 1) * D + i) * SB + lane;
+  const float* qlast = Q + (size_t)i * D * B + b;
+  auto load = [&](int u) {
 #pragma unroll
-    for (int k = 0; k < D; ++k) nQ[u][k] = Q[row + (size_t)k * B];
-    nc[u] = c[((size_t)t * D + i) * SB + lane];
+    for (int k = 0; k < D; ++k) cp_async4(&ring[u][i][k], qs + (size_t)k * B);
+    cp_async4(&ring[u][i][D], cs);
+    cp_async_commit();
+    const bool more = qs != qlast;
+    qs = more ? qs - qstep : qs;
+    cs = more ? cs - cstep : cs;
   };
 #pragma unroll
-  for (int u = 0; u < R; ++u) load(T1 - 1 - u, u);
-  float xi = xT[i * SB + lane];
+  for (int u = 0; u < R; ++u) load(u);
   for (int t0 = T1 - 1; t0 >= 0; t0 -= R) {
 #pragma unroll
     for (int u = 0; u < R; ++u) {
       const int t = t0 - u;
       if (t < 0) break;
+      cp_async_wait<R - 1>();
       float Qr[D];
 #pragma unroll
-      for (int k = 0; k < D; ++k) Qr[k] = nQ[u][k];
-      const float ci = nc[u];
+      for (int k = 0; k < D; ++k) Qr[k] = ring[u][i][k];
+      const float ci = ring[u][i][D];
       // x_{t+1} into the buffer of the step's parity: the other one may
       // still be read by a thread in the step before (one barrier a step)
       float* sv = sx[t & 1];
       sv[i] = xi;
-      load(t - R, u);
+      load(u);  // step t-R into the slot just read
       __syncwarp(mask);
       // (Q_t x_{t+1})_i + c_t[i], in two partial sums to halve the
       // dependent adds
@@ -281,6 +341,7 @@ sampler_bp_fwd_chain_kernel(int B, int SB, int T1, const float* __restrict__ Q,
       x[((size_t)t * D + i) * SB + lane] = xi;
     }
   }
+  cp_async_wait<0>();
 }
 
 template <int D>
@@ -294,15 +355,20 @@ int launch_bidir_fwd(int NL, int T1, const float* J0, const float* h0,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+// The factor pass on per-sequence pairs or (kShared) on shared rows.
+template <int D, bool kShared>
 int launch_sampler_bp_factor(int B, int S, int T1, const float* P2,
                              const float* P3, const float* Jf,
                              const float* hf, const float* eps, float* Q,
                              float* c, cudaStream_t stream) {
   const int n = T1 * B;
-  sampler_bp_fwd_factor_kernel<D>
-      <<<(n + kPassThreads - 1) / kPassThreads, kPassThreads, 0, stream>>>(
-          B, S, T1, P2, P3, Jf, hf, eps, Q, c);
+  const int blocks = (n + kPassThreads - 1) / kPassThreads;
+  if (kShared)
+    sampler_shared_factor_kernel<D><<<blocks, kPassThreads, 0, stream>>>(
+        B, S, T1, P2, P3, Jf, hf, eps, Q, c);
+  else
+    sampler_bp_fwd_factor_kernel<D><<<blocks, kPassThreads, 0, stream>>>(
+        B, S, T1, P2, P3, Jf, hf, eps, Q, c);
   return (int)cudaGetLastError();
 }
 
@@ -315,13 +381,13 @@ int launch_sampler_bp_chain(int B, int SB, int T1, const float* Q,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kShared>
 int launch_sampler_bp_fwd(int B, int S, int T1, const float* P2,
                           const float* P3, const float* Jf, const float* hf,
                           const float* eps, const float* xT, float* Q,
                           float* c, float* x, cudaStream_t stream) {
-  const int err = launch_sampler_bp_factor<D>(B, S, T1, P2, P3, Jf, hf, eps,
-                                              Q, c, stream);
+  const int err = launch_sampler_bp_factor<D, kShared>(
+      B, S, T1, P2, P3, Jf, hf, eps, Q, c, stream);
   if (err != 0) return err;
   return launch_sampler_bp_chain<D>(B, S * B, T1, Q, c, xT, x, stream);
 }
@@ -357,10 +423,10 @@ extern "C" int svae_sampler_bp_fwd_f32(int d, int B, int S, int T1,
                                        float* Q, float* c, float* x,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SVAE_CASE(DIM)                                                     \
-  case DIM:                                                                \
-    return launch_sampler_bp_fwd<DIM>(B, S, T1, P2, P3, Jf, hf, eps, xT, Q, \
-                                      c, x, s);
+#define SVAE_CASE(DIM)                                                   \
+  case DIM:                                                              \
+    return launch_sampler_bp_fwd<DIM, false>(B, S, T1, P2, P3, Jf, hf,  \
+                                             eps, xT, Q, c, x, s);
   switch (d) {
     SVAE_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
@@ -378,8 +444,8 @@ extern "C" int svae_sampler_bp_fwd_factor_f32(int d, int B, int S, int T1,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SVAE_CASE(DIM)                                                 \
   case DIM:                                                            \
-    return launch_sampler_bp_factor<DIM>(B, S, T1, P2, P3, Jf, hf, eps, \
-                                         Q, c, s);
+    return launch_sampler_bp_factor<DIM, false>(B, S, T1, P2, P3, Jf,  \
+                                                hf, eps, Q, c, s);
   switch (d) {
     SVAE_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
@@ -395,6 +461,47 @@ extern "C" int svae_sampler_bp_fwd_chain_f32(int d, int B, int S, int T1,
 #define SVAE_CASE(DIM) \
   case DIM:            \
     return launch_sampler_bp_chain<DIM>(B, S * B, T1, Q, c, xT, x, s);
+  switch (d) {
+    SVAE_DIMS(SVAE_CASE)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SVAE_CASE
+}
+
+// The shared-pair sampler (P2, P3 (T-1, d*d) rows shared by the batch):
+// its factor pass, then sampler_bp_fwd's chain pass on the per-sequence Q
+// and per-lane c it writes (the caller's scratch), as
+// svae_sampler_bp_fwd_f32 runs them.
+extern "C" int svae_sampler_shared_f32(int d, int B, int S, int T1,
+                                       const float* P2, const float* P3,
+                                       const float* Jf, const float* hf,
+                                       const float* eps, const float* xT,
+                                       float* Q, float* c, float* x,
+                                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SVAE_CASE(DIM)                                                   \
+  case DIM:                                                              \
+    return launch_sampler_bp_fwd<DIM, true>(B, S, T1, P2, P3, Jf, hf,   \
+                                            eps, xT, Q, c, x, s);
+  switch (d) {
+    SVAE_DIMS(SVAE_CASE)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SVAE_CASE
+}
+
+extern "C" int svae_sampler_shared_factor_f32(int d, int B, int S, int T1,
+                                              const float* P2,
+                                              const float* P3,
+                                              const float* Jf,
+                                              const float* hf,
+                                              const float* eps, float* Q,
+                                              float* c, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SVAE_CASE(DIM)                                                 \
+  case DIM:                                                            \
+    return launch_sampler_bp_factor<DIM, true>(B, S, T1, P2, P3, Jf,   \
+                                               hf, eps, Q, c, s);
   switch (d) {
     SVAE_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;

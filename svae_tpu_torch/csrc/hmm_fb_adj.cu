@@ -2,8 +2,9 @@
 // backward of ops/hmm_fb.py's HmmFb and HmmFbStat).
 //
 // The three kernels of the streamed adjoint together replace
-// svae_tpu/ops/pallas_hmm.py:_hmm_fb_adj_kernel. hmm_fb_stat_adj_kernel<K>
-// replaces svae_tpu/ops/pallas_hmm.py:_hmm_fb_stat_adj_kernel.
+// svae_tpu/ops/pallas_hmm.py:_hmm_fb_adj_kernel; those of the stationary
+// adjoint (its weight pass, the streamed adjoint's chain pass and a sums
+// pass) replace svae_tpu/ops/pallas_hmm.py:_hmm_fb_stat_adj_kernel.
 //
 // The adjoint keeps the bounded softmax-weight form. With g the alpha
 // cotangent carried down from step t+1 plus its direct cotangent,
@@ -42,14 +43,27 @@
 //    dM_t(i, j) = g_t(j) w_ij + h_t(i) v_ij once: both directions' parts,
 //    summed in the kernel.
 // svae_hmm_fb_adj_f32 launches the three, one after the other, with W, V,
-// g and h as the caller's scratch. The stationary adjoint still runs one
-// thread per (sequence, direction), writes each direction's observation
-// cotangent to its own stream (the alpha half's is g itself, since sum_i
-// w_ij = 1; the beta half's is the new carry) and keeps its own (K, K)
-// transition partial in registers, written once per lane at the end; its
-// wrapper sums these. No two threads write one address and there are no
-// atomics. T and B are runtime arguments, K a template parameter; streams
-// keep the lane innermost.
+// g and h as the caller's scratch.
+//
+// The stationary adjoint, M_t(i, j) = LT(i, j) + lo_t(j), runs the same
+// weights and chains: its weight pass is hmm_fb_adj_weights_kernel's body
+// (adj_weights) reading m as LT(i, j) + lo_t(j) from the (K, K) matrix and
+// the observation stream, in the grouping p + (lt + ob) - q, so its
+// weights are the streamed pass's on M = LT + lo bit for bit; the chain
+// pass is hmm_fb_adj_chain_kernel as it is. What is left is two sums,
+// which hmm_fb_stat_adj_sums_kernel takes in one launch:
+//   dlo_t(j) = g_t(j) + sum_i h_t(i) v_t(i, j): the alpha half is g itself,
+//     since sum_i w_ij = 1, and the beta half is the beta chain's new
+//     carry, recomputed here (the chain pass stores h, the carry plus the
+//     direct cotangent); one thread per (step, state, sequence);
+//   dLT(i, j) = sum_{t, b} g_t(j) w_ij + h_t(i) v_ij, the sum of the
+//     streamed dM over steps and sequences: a block per entry, each thread
+//     summing a fixed stride of the (T-1) B terms, then a tree in shared
+//     memory; the order is fixed, so the result is deterministic.
+// svae_hmm_fb_stat_adj_f32 launches the three passes with W, V, g and h
+// as the caller's scratch. No two threads write one address and there are
+// no atomics. T and B are runtime arguments, K a template parameter;
+// streams keep the lane innermost.
 
 #include "adj_passes.cuh"
 
@@ -59,18 +73,23 @@ namespace {
 // the chain pass runs one warp a block: four ran slower).
 constexpr int kHmmAdjRing = 8;
 
-// One thread per (step t, entry e = i*K + j, sequence b), b fastest.
-// Inputs: a0 (K, B); M (T1, K*K, B); alpha, beta (T1, K, B) as
-// hmm_fb_fwd_kernel returns them. Outputs W, V (T1, K*K, B): w_ij from
-// alpha_t (a0 at t = 0) and alpha_{t+1}, v_ij from beta_t and beta_{t+1}
-// (0 at the last step).
-template <int K>
-__global__ void __launch_bounds__(kPassThreads)
-hmm_fb_adj_weights_kernel(int B, int T1, const float* __restrict__ a0,
-                          const float* __restrict__ M,
-                          const float* __restrict__ alpha,
-                          const float* __restrict__ beta,
-                          float* __restrict__ W, float* __restrict__ V) {
+// How many threads a block of the stationary adjoint's sums pass runs.
+constexpr int kSumThreads = 512;
+
+// The weight pass's body, one thread per (step t, entry e = i*K + j,
+// sequence b), b fastest. Inputs: a0 (K, B); alpha, beta (T1, K, B) as the
+// forward kernels return them; elem(idx, t, i, j, b) gives the chain
+// element M_t(i, j) of sequence b (idx its index in (T1, K*K, B)). Outputs
+// W, V (T1, K*K, B): w_ij from alpha_t (a0 at t = 0) and alpha_{t+1}, v_ij
+// from beta_t and beta_{t+1} (0 at the last step).
+template <int K, class Elem>
+__device__ __forceinline__ void adj_weights(int B, int T1,
+                                            const float* __restrict__ a0,
+                                            const float* __restrict__ alpha,
+                                            const float* __restrict__ beta,
+                                            float* __restrict__ W,
+                                            float* __restrict__ V,
+                                            Elem elem) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)T1 * K * K * B) return;
   const int b = (int)(idx % B);
@@ -78,12 +97,41 @@ hmm_fb_adj_weights_kernel(int B, int T1, const float* __restrict__ a0,
   const int e = (int)(r % (K * K)), t = (int)(r / (K * K));
   const int i = e / K, j = e - i * K;
   const size_t vec = (size_t)t * K * B + b;
-  const float m = M[idx];
+  const float m = elem(idx, t, i, j, b);
   const float p = t > 0 ? alpha[vec - (size_t)K * B + (size_t)i * B]
                         : a0[(size_t)i * B + b];
   W[idx] = expf(p + m - alpha[vec + (size_t)j * B]);
   const float q = t < T1 - 1 ? beta[vec + (size_t)(K + j) * B] : 0.f;
   V[idx] = expf(m + q - beta[vec + (size_t)i * B]);
+}
+
+// The streamed adjoint's weight pass: the elements from M (T1, K*K, B).
+template <int K>
+__global__ void __launch_bounds__(kPassThreads)
+hmm_fb_adj_weights_kernel(int B, int T1, const float* __restrict__ a0,
+                          const float* __restrict__ M,
+                          const float* __restrict__ alpha,
+                          const float* __restrict__ beta,
+                          float* __restrict__ W, float* __restrict__ V) {
+  adj_weights<K>(B, T1, a0, alpha, beta, W, V,
+                 [&](size_t idx, int, int, int, int) { return M[idx]; });
+}
+
+// The stationary adjoint's weight pass: the elements LT(i, j) + lo_t(j)
+// from LT (K, K) and lo (T1, K, B).
+template <int K>
+__global__ void __launch_bounds__(kPassThreads)
+hmm_fb_stat_adj_weights_kernel(int B, int T1, const float* __restrict__ a0,
+                               const float* __restrict__ LT,
+                               const float* __restrict__ lo,
+                               const float* __restrict__ alpha,
+                               const float* __restrict__ beta,
+                               float* __restrict__ W,
+                               float* __restrict__ V) {
+  adj_weights<K>(B, T1, a0, alpha, beta, W, V,
+                 [&](size_t, int t, int i, int j, int b) {
+                   return LT[i * K + j] + lo[((size_t)t * K + j) * B + b];
+                 });
 }
 
 // segment_lanes(K) lanes a chain, chain c = alpha lane c < B (descending
@@ -180,97 +228,61 @@ hmm_fb_adj_dM_kernel(int B, int T1, const float* __restrict__ W,
   dM[idx] = g[vec + (size_t)j * B] * W[idx] + h[vec + (size_t)i * B] * V[idx];
 }
 
-// The stationary adjoint, M_t(i, j) = LT(i, j) + lo_t(j). Layouts: a0
-// (K, B); LT (K, K); lo, alpha, beta, dalpha, dbeta (T1, K, B); out dloa,
-// dlod (T1, K, B) (the alpha and beta halves of dlo), da0 (K, B) and dLTp
-// (K*K, 2B), each lane's transition partial.
+// The stationary adjoint's sums pass: blocks 0 ... K*K-1 reduce dLT, a
+// block an entry e = i*K + j, thread k summing the terms (t, b) of index
+// k, k + kSumThreads, ... of the T1*B, then a tree in shared memory; the
+// blocks after them write dlo, a thread per (step t, state j, sequence b),
+// b fastest: dlo_t(j) = g_t(j) + sum_i h_t(i) v_t(i, j), the sum in the
+// index order of the chain pass's carry. Inputs: W, V (T1, K*K, B) from
+// the weight pass, g, h (T1, K, B) from the chain pass. Outputs: dlo (T1,
+// K, B) and dLT (K, K).
 template <int K>
-__global__ void __launch_bounds__(kThreads)
-hmm_fb_stat_adj_kernel(int B, int T1, const float* __restrict__ a0,
-                       const float* __restrict__ LT,
-                       const float* __restrict__ lo,
-                       const float* __restrict__ alpha,
-                       const float* __restrict__ beta,
-                       const float* __restrict__ dalpha,
-                       const float* __restrict__ dbeta,
-                       float* __restrict__ dloa, float* __restrict__ dlod,
-                       float* __restrict__ da0, float* __restrict__ dLTp) {
+__global__ void __launch_bounds__(kSumThreads)
+hmm_fb_stat_adj_sums_kernel(int B, int T1, const float* __restrict__ W,
+                            const float* __restrict__ V,
+                            const float* __restrict__ g,
+                            const float* __restrict__ h,
+                            float* __restrict__ dlo,
+                            float* __restrict__ dLT) {
   constexpr int KK = K * K;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= 2 * B) return;
-  const bool fwd = lane < B;
-  const int b = fwd ? lane : lane - B;
-  const size_t vstep = (size_t)K * B;
-
-  float lt[KK], dlt[KK];
-#pragma unroll
-  for (int k = 0; k < KK; ++k) {
-    lt[k] = LT[k];
-    dlt[k] = 0.f;
-  }
-  float c[K];
-#pragma unroll
-  for (int i = 0; i < K; ++i) c[i] = 0.f;
-
-  for (int s = 0; s < T1; ++s) {
-    const int t = fwd ? T1 - 1 - s : s;
-    const size_t vec = (size_t)t * vstep + b;
-    float ob[K], g[K], p[K], q[K], n[K];
-#pragma unroll
-    for (int i = 0; i < K; ++i) ob[i] = lo[vec + (size_t)i * B];
-    if (fwd) {
-#pragma unroll
-      for (int i = 0; i < K; ++i) {
-        g[i] = c[i] + dalpha[vec + (size_t)i * B];
-        p[i] = t > 0 ? alpha[vec - vstep + (size_t)i * B] : a0[i * B + b];
-        q[i] = alpha[vec + (size_t)i * B];
-        n[i] = 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < K; ++i) {
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          const float w = expf(p[i] + (lt[i * K + j] + ob[j]) - q[j]);
-          const float r = g[j] * w;
-          n[i] += r;
-          dlt[i * K + j] += r;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < K; ++j) dloa[vec + (size_t)j * B] = g[j];
-    } else {
-#pragma unroll
-      for (int i = 0; i < K; ++i) {
-        g[i] = c[i] + dbeta[vec + (size_t)i * B];
-        p[i] = beta[vec + (size_t)i * B];
-        q[i] = t < T1 - 1 ? beta[vec + vstep + (size_t)i * B] : 0.f;
-        n[i] = 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < K; ++i) {
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          const float v = expf((lt[i * K + j] + ob[j]) + q[j] - p[i]);
-          const float r = g[i] * v;
-          n[j] += r;
-          dlt[i * K + j] += r;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < K; ++j) dlod[vec + (size_t)j * B] = n[j];
+  const long long KB = (long long)K * B, KKB = KB * K;
+  const int tid = threadIdx.x;
+  if (blockIdx.x < KK) {
+    __shared__ float red[kSumThreads];
+    const int e = blockIdx.x, i = e / K, j = e - i * K;
+    const int n = T1 * B;
+    float s = 0.f;
+#pragma unroll 4
+    for (int q = tid; q < n; q += kSumThreads) {
+      const int t = q / B, b = q - t * B;
+      const long long at = t * KKB + (long long)e * B + b;
+      const long long vec = t * KB + b;
+      s += g[vec + (long long)j * B] * W[at] +
+           h[vec + (long long)i * B] * V[at];
     }
+    red[tid] = s;
+    __syncthreads();
 #pragma unroll
-    for (int i = 0; i < K; ++i) c[i] = n[i];
+    for (int o = kSumThreads / 2; o > 0; o /= 2) {
+      if (tid < o) red[tid] += red[tid + o];
+      __syncthreads();
+    }
+    if (tid == 0) dLT[e] = red[0];
+    return;
   }
-  if (fwd) {
+  const long long idx = (long long)(blockIdx.x - KK) * kSumThreads + tid;
+  if (idx >= T1 * KB) return;
+  const int b = (int)(idx % B);
+  const long long r = idx / B;
+  const int j = (int)(r % K), t = (int)(r / K);
+  const long long vec = t * KB + b, at = t * KKB + (long long)j * B + b;
+  float n = 0.f;
 #pragma unroll
-    for (int i = 0; i < K; ++i) da0[i * B + b] = c[i];
-  }
-#pragma unroll
-  for (int k = 0; k < KK; ++k) dLTp[(size_t)k * 2 * B + lane] = dlt[k];
+  for (int i = 0; i < K; ++i)
+    n += h[vec + (long long)i * B] * V[at + (long long)i * K * B];
+  dlo[idx] = g[idx] + n;
 }
 
-inline dim3 grid_of(int B) { return dim3((2 * B + kThreads - 1) / kThreads); }
 
 // The streamed adjoint's passes (n = (T-1) K^2 B threads for the weight
 // and dM passes, 2B chains of segment_lanes(K) lanes for the chain pass).
@@ -283,6 +295,19 @@ int launch_weights(int B, int T1, const float* a0, const float* M,
                                             kPassThreads),
                                  kPassThreads, 0, st>>>(B, T1, a0, M, alpha,
                                                         beta, W, V);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int launch_stat_weights(int B, int T1, const float* a0, const float* LT,
+                        const float* lo, const float* alpha,
+                        const float* beta, float* W, float* V,
+                        cudaStream_t st) {
+  const size_t n = (size_t)T1 * K * K * B;
+  hmm_fb_stat_adj_weights_kernel<K><<<(unsigned)((n + kPassThreads - 1) /
+                                                 kPassThreads),
+                                      kPassThreads, 0, st>>>(
+      B, T1, a0, LT, lo, alpha, beta, W, V);
   return (int)cudaGetLastError();
 }
 
@@ -306,6 +331,31 @@ int launch_dM(int B, int T1, const float* W, const float* V, const float* g,
   return (int)cudaGetLastError();
 }
 
+// K*K dLT blocks, then the dlo blocks of T1*K*B threads.
+template <int K>
+int launch_sums(int B, int T1, const float* W, const float* V, const float* g,
+                const float* h, float* dlo, float* dLT, cudaStream_t st) {
+  const long long n = (long long)T1 * K * B;
+  const unsigned blocks =
+      (unsigned)(K * K + (n + kSumThreads - 1) / kSumThreads);
+  hmm_fb_stat_adj_sums_kernel<K><<<blocks, kSumThreads, 0, st>>>(
+      B, T1, W, V, g, h, dlo, dLT);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int launch_stat_adj(int B, int T1, const float* a0, const float* LT,
+                    const float* lo, const float* alpha, const float* beta,
+                    const float* dalpha, const float* dbeta, float* W,
+                    float* V, float* g, float* h, float* dlo, float* da0,
+                    float* dLT, cudaStream_t st) {
+  int err = launch_stat_weights<K>(B, T1, a0, LT, lo, alpha, beta, W, V, st);
+  if (err) return err;
+  err = launch_chain<K>(B, T1, W, V, dalpha, dbeta, g, h, da0, st);
+  if (err) return err;
+  return launch_sums<K>(B, T1, W, V, g, h, dlo, dLT, st);
+}
+
 template <int K>
 int launch_adj(int B, int T1, const float* a0, const float* M,
                const float* alpha, const float* beta, const float* dalpha,
@@ -324,7 +374,9 @@ int launch_adj(int B, int T1, const float* a0, const float* M,
 // launches (0 on success); an unsupported K returns cudaErrorInvalidValue.
 // T1 is the number of steps (T-1). svae_hmm_fb_adj_f32 runs the three
 // passes (W, V (T-1, K*K, B) and g, h (T-1, K, B) are its scratch); the
-// next three run one each.
+// next three run one each. svae_hmm_fb_stat_adj_f32 runs the stationary
+// adjoint's three (the same scratch); the two after it run its weight and
+// sums passes alone (its chain pass is svae_hmm_fb_adj_chain_f32).
 #define SVAE_HMM_SWITCH(CASE)            \
   switch (K) {                           \
     CASE(1)                              \
@@ -389,21 +441,44 @@ extern "C" int svae_hmm_fb_adj_dM_f32(int K, int B, int T1, const float* W,
 #undef SVAE_CASE
 }
 
-extern "C" int svae_hmm_fb_stat_adj_f32(int K, int B, int T1,
-                                        const float* a0, const float* LT,
-                                        const float* lo, const float* alpha,
-                                        const float* beta,
-                                        const float* dalpha,
-                                        const float* dbeta, float* dloa,
-                                        float* dlod, float* da0, float* dLTp,
-                                        void* stream) {
+extern "C" int svae_hmm_fb_stat_adj_f32(
+    int K, int B, int T1, const float* a0, const float* LT, const float* lo,
+    const float* alpha, const float* beta, const float* dalpha,
+    const float* dbeta, float* W, float* V, float* g, float* h, float* dlo,
+    float* da0, float* dLT, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SVAE_CASE(KS)                                                     \
-  case KS:                                                                \
-    hmm_fb_stat_adj_kernel<KS><<<grid_of(B), kThreads, 0, st>>>(          \
-        B, T1, a0, LT, lo, alpha, beta, dalpha, dbeta, dloa, dlod, da0,   \
-        dLTp);                                                            \
-    return (int)cudaGetLastError();
+#define SVAE_CASE(KS)                                                       \
+  case KS:                                                                  \
+    return launch_stat_adj<KS>(B, T1, a0, LT, lo, alpha, beta, dalpha,     \
+                               dbeta, W, V, g, h, dlo, da0, dLT, st);
+  SVAE_HMM_SWITCH(SVAE_CASE)
+#undef SVAE_CASE
+}
+
+extern "C" int svae_hmm_fb_stat_adj_weights_f32(int K, int B, int T1,
+                                                const float* a0,
+                                                const float* LT,
+                                                const float* lo,
+                                                const float* alpha,
+                                                const float* beta, float* W,
+                                                float* V, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SVAE_CASE(KS) \
+  case KS:            \
+    return launch_stat_weights<KS>(B, T1, a0, LT, lo, alpha, beta, W, V, st);
+  SVAE_HMM_SWITCH(SVAE_CASE)
+#undef SVAE_CASE
+}
+
+extern "C" int svae_hmm_fb_stat_adj_sums_f32(int K, int B, int T1,
+                                             const float* W, const float* V,
+                                             const float* g, const float* h,
+                                             float* dlo, float* dLT,
+                                             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SVAE_CASE(KS) \
+  case KS:            \
+    return launch_sums<KS>(B, T1, W, V, g, h, dlo, dLT, st);
   SVAE_HMM_SWITCH(SVAE_CASE)
 #undef SVAE_CASE
 }

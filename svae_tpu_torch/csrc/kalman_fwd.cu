@@ -1,18 +1,17 @@
 // Hopper kernels of the forward-only LDS E-step on pair potentials shared
-// over the batch but varying in time: the forward information filter, the
-// backward information filter and the backward conditional sampler.
+// over the batch but varying in time: the forward and the backward
+// information filter. (The backward conditional sampler on shared rows,
+// which replaces svae_tpu/ops/pallas_kalman.py:_sampler_kernel, runs
+// bpairs.cu's two sampler passes, whose chain pass it shares.)
 //
 // filter_shared_kernel<D> replaces
 // svae_tpu/ops/pallas_kalman.py:_filter_kernel.
 // backward_shared_kernel<D> replaces
 // svae_tpu/ops/pallas_kalman.py:_backward_kernel.
-// sampler_shared_kernel<D> replaces
-// svae_tpu/ops/pallas_kalman.py:_sampler_kernel.
 //
 // What bounds them on an H100. As in estep.cu and bpairs.cu, every lane is
 // a serial chain of T-1 small dense steps, far fewer chains than the card
-// holds threads (B = 64 filter chains, S*B = 128 sampler chains at config
-// 2): the latency of one chain's step bounds them, not bytes nor peak
+// holds threads (B = 64 filter chains at config 2): the latency of one chain's step bounds them, not bytes nor peak
 // FLOP/s. What they read differs from bpairs.cu's: the pair blocks P1, P2,
 // P3 and pc of step t are one (d*d) row shared by every lane, and only the
 // node evidence (N1, N2) and the outputs are per lane, so a filter step
@@ -51,10 +50,6 @@
 // parameter, so every loop unrolls. A failed pivot gives NaN, which reaches
 // every later output of the lane (and the forward's ln); the wrappers'
 // callers check finiteness once.
-//
-// The sampler still runs one thread per chain: its carried sample x holds
-// d floats, and every lane reads the shared rows P2_t, P3_t straight from
-// device memory as one broadcast load a warp.
 
 #include "filter_chain.cuh"
 
@@ -239,59 +234,6 @@ backward_shared_kernel(int B, int T1, const float* __restrict__ P1,
                          N2, Jout, hout, nullptr);
 }
 
-// One thread per (sample s, sequence b), lane s*B + b, walking
-// t = T1-1 ... 0 from the terminal sample xT. Per step:
-//   Jc = Jf_t - 2 P3_t, L = chol(Jc),
-//   x_t = L^-T (L^-1 (hf_t + P2_t^T x_{t+1}) + eps_t).
-// The messages are read at sequence b = lane % B, not tiled S times; the
-// pair rows are shared by every lane.
-// Layouts: P2, P3 (T1, d*d); Jf (T1, d*d, B), hf (T1, d, B) (frames
-// 0..T-2); eps (T1, d, S*B), xT (d, S*B); out x (T1, d, S*B).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-sampler_shared_kernel(int B, int SB, int T1, const float* __restrict__ P2,
-                      const float* __restrict__ P3,
-                      const float* __restrict__ Jf,
-                      const float* __restrict__ hf,
-                      const float* __restrict__ eps,
-                      const float* __restrict__ xT,
-                      float* __restrict__ xout) {
-  constexpr int DD = D * D;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= SB) return;
-  const int b = lane % B;
-
-  float x[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) x[i] = xT[i * SB + lane];
-
-  for (int t = T1 - 1; t >= 0; --t) {
-    const float* p2 = P2 + (size_t)t * DD;
-    const float* p3 = P3 + (size_t)t * DD;
-    const size_t mat = (size_t)t * DD * B + b;
-    float L[D][D], rd[D], c[D];
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-#pragma unroll
-      for (int j = 0; j <= i; ++j)
-        L[i][j] = Jf[mat + (size_t)(i * D + j) * B] - 2.f * p3[i * D + j];
-      float s = hf[((size_t)t * D + i) * B + b];
-#pragma unroll
-      for (int k = 0; k < D; ++k) s += p2[k * D + i] * x[k];
-      c[i] = s;
-    }
-    chol_inplace<D>(L, rd);
-
-    float y[D];
-    solve_lower<D>(L, rd, c, y);
-#pragma unroll
-    for (int i = 0; i < D; ++i) y[i] += eps[((size_t)t * D + i) * SB + lane];
-    solve_upper<D>(L, rd, y, x);
-#pragma unroll
-    for (int i = 0; i < D; ++i) xout[((size_t)t * D + i) * SB + lane] = x[i];
-  }
-}
-
 template <int D>
 int launch_filter_shared(int B, int T1, const float* J0, const float* h0,
                          const float* P1, const float* P2, const float* P3,
@@ -310,18 +252,6 @@ int launch_backward_shared(int B, int T1, const float* P1, const float* P2,
   dim3 grid((B + kSharedChains - 1) / kSharedChains);
   backward_shared_kernel<D><<<grid, 32 * kSharedChains, 0, stream>>>(
       B, T1, P1, P2, P3, N1, N2, J, h);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_sampler_shared(int B, int S, int T1, const float* P2,
-                          const float* P3, const float* Jf, const float* hf,
-                          const float* eps, const float* xT, float* x,
-                          cudaStream_t stream) {
-  const int SB = S * B;
-  dim3 grid((SB + kThreads - 1) / kThreads);
-  sampler_shared_kernel<D><<<grid, kThreads, 0, stream>>>(
-      B, SB, T1, P2, P3, Jf, hf, eps, xT, x);
   return (int)cudaGetLastError();
 }
 
@@ -371,26 +301,4 @@ extern "C" int svae_backward_shared_f32(int d, int B, int T1,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_BACKWARD_SHARED
-}
-
-extern "C" int svae_sampler_shared_f32(int d, int B, int S, int T1,
-                                       const float* P2, const float* P3,
-                                       const float* Jf, const float* hf,
-                                       const float* eps, const float* xT,
-                                       float* x, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SVAE_SAMPLER_SHARED(DIM)                                            \
-  case DIM:                                                                 \
-    return launch_sampler_shared<DIM>(B, S, T1, P2, P3, Jf, hf, eps, xT, x, \
-                                      s);
-  switch (d) {
-    SVAE_SAMPLER_SHARED(2)
-    SVAE_SAMPLER_SHARED(3)
-    SVAE_SAMPLER_SHARED(4)
-    SVAE_SAMPLER_SHARED(8)
-    SVAE_SAMPLER_SHARED(10)
-    SVAE_SAMPLER_SHARED(16)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef SVAE_SAMPLER_SHARED
 }

@@ -120,14 +120,17 @@ ENTRIES = (("svae_filter_fwd_f32", 3, 11),
            ("svae_hmm_fb_adj_weights_f32", 3, 7),
            ("svae_hmm_fb_adj_chain_f32", 3, 8),
            ("svae_hmm_fb_adj_dM_f32", 3, 6),
-           ("svae_hmm_fb_stat_adj_f32", 3, 12),
+           ("svae_hmm_fb_stat_adj_f32", 3, 15),
+           ("svae_hmm_fb_stat_adj_weights_f32", 3, 8),
+           ("svae_hmm_fb_stat_adj_sums_f32", 3, 7),
            ("svae_elem_scan_f32", 3, 3),
            ("svae_elem_scan_adj_f32", 3, 6),
            ("svae_elem_scan_adj_factor_f32", 3, 4),
            ("svae_elem_scan_adj_chain_f32", 3, 4),
            ("svae_filter_shared_f32", 3, 12),
            ("svae_backward_shared_f32", 3, 8),
-           ("svae_sampler_shared_f32", 4, 8))
+           ("svae_sampler_shared_f32", 4, 10),
+           ("svae_sampler_shared_factor_f32", 4, 8))
 
 
 def bind(lib, names=None):

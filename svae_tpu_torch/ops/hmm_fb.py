@@ -21,7 +21,9 @@ from alpha_0 = log_init + log_obs_0 and beta_{T-1} = 0.
   :func:`hmm_fb_adj` runs as three passes: the weights, which do not
   depend on the carried cotangent (:func:`hmm_fb_adj_weights`), the two
   serial chains of cotangents, products only (:func:`hmm_fb_adj_chain`),
-  and dM from both (:func:`hmm_fb_adj_dM`).
+  and dM from both (:func:`hmm_fb_adj_dM`). :func:`hmm_fb_stat_adj` runs
+  the stationary weights (:func:`hmm_fb_stat_adj_weights`), the same
+  chains, and the sums of dlo and dLT (:func:`hmm_fb_stat_adj_sums`).
 
 Each of the four, and each pass, is a CUDA kernel (``csrc/hmm_fb.cu``,
 ``csrc/hmm_fb_adj.cu``) for tensors on a card and a plain PyTorch version
@@ -222,24 +224,81 @@ hmm_fb_adj_dM.launches = 0
 
 def hmm_fb_stat_adj(a0, LT, lo, alpha, beta, dalpha, dbeta):
     """Adjoint of :func:`hmm_fb_stat_fwd` -> ``(da0, dLT, dlo)``, shaped as
-    the inputs. The kernel writes each direction's observation cotangent
-    and each thread's (K, K) transition partial apart; they are summed
-    here, the partials over both directions and every sequence."""
+    the inputs. On a card one C call runs the three passes of
+    :func:`hmm_fb_stat_adj_weights`, :func:`hmm_fb_adj_chain` and
+    :func:`hmm_fb_stat_adj_sums`."""
     if a0.device.type == "cpu":
         return hmm_fb_stat_adj_plain(a0, LT, lo, alpha, beta, dalpha, dbeta)
     outs = (alpha, beta, dalpha, dbeta)
     K, B, T1 = _check_shapes("hmm_fb_stat_adj", a0, lo, LT, outs)
     _check("hmm_fb_stat_adj", K, (a0, LT, lo) + outs)
-    dloa, dlod = torch.empty_like(lo), torch.empty_like(lo)
-    da0 = torch.empty_like(a0)
-    dLTp = torch.empty((K * K, 2 * B), dtype=a0.dtype, device=a0.device)
+    kw = dict(dtype=a0.dtype, device=a0.device)
+    # the passes' scratch: W and V, g and h, one allocation each
+    W, V = torch.empty((2, T1, K * K, B), **kw)
+    g, h = torch.empty((2,) + alpha.shape, **kw)
+    dlo, da0 = torch.empty_like(lo), torch.empty_like(a0)
+    dLT = torch.empty((K, K), **kw)
     _launch("hmm_fb_stat_adj", _build.load_library().svae_hmm_fb_stat_adj_f32,
-            a0.device, K, B, T1, a0, LT, lo, *outs, dloa, dlod, da0, dLTp)
+            a0.device, K, B, T1, a0, LT, lo, *outs, W, V, g, h, dlo, da0,
+            dLT)
     hmm_fb_stat_adj.launches += 1
-    return da0, dLTp.sum(1).reshape(K, K), dloa + dlod
+    return da0, dLT, dlo
 
 
 hmm_fb_stat_adj.launches = 0
+
+
+# The stationary adjoint's passes one by one, for holding each kernel
+# against its own plain version: hmm_fb_stat_adj = (da0, *reversed(
+# hmm_fb_stat_adj_sums(W, V, g, h))) with (W, V) = hmm_fb_stat_adj_weights(
+# a0, LT, lo, alpha, beta) and (g, h, da0) = hmm_fb_adj_chain(W, V, dalpha,
+# dbeta). hmm_posterior(kernel="stationary") calls hmm_fb_stat_adj, which
+# launches the same kernels from one C call.
+
+
+def hmm_fb_stat_adj_weights(a0, LT, lo, alpha, beta):
+    """Pass 1 of :func:`hmm_fb_stat_adj`: :func:`hmm_fb_adj_weights` on the
+    stationary chain elements M_t(i, j) = LT(i, j) + lo_t(j), which it
+    forms from ``LT`` (K, K) and ``lo`` (T-1, K, B) without writing them.
+    Returns ``(W, V)`` (T-1, K*K, B)."""
+    if a0.device.type == "cpu":
+        return hmm_fb_stat_adj_weights_plain(a0, LT, lo, alpha, beta)
+    K, B, T1 = _check_shapes("hmm_fb_stat_adj_weights", a0, lo, LT,
+                             (alpha, beta))
+    args = (a0, LT, lo, alpha, beta)
+    _check("hmm_fb_stat_adj_weights", K, args)
+    W, V = (torch.empty((T1, K * K, B), dtype=a0.dtype, device=a0.device)
+            for _ in range(2))
+    _launch("hmm_fb_stat_adj_weights",
+            _build.load_library().svae_hmm_fb_stat_adj_weights_f32,
+            a0.device, K, B, T1, *args, W, V)
+    hmm_fb_stat_adj_weights.launches += 1
+    return W, V
+
+
+hmm_fb_stat_adj_weights.launches = 0
+
+
+def hmm_fb_stat_adj_sums(W, V, g, h):
+    """Pass 3 of :func:`hmm_fb_stat_adj`, from the weights and the chains'
+    ``g``, ``h`` (T-1, K, B): ``dlo`` (T-1, K, B), dlo_t(j) = g_t(j) +
+    sum_i h_t(i) v_t(i, j), and ``dLT`` (K, K), the sum over steps and
+    sequences of g_t(j) w_ij + h_t(i) v_ij. Returns ``(dlo, dLT)``."""
+    if W.device.type == "cpu":
+        return hmm_fb_stat_adj_sums_plain(W, V, g, h)
+    K, B, T1 = _check_pass_shapes("hmm_fb_stat_adj_sums", W, V, (g, h))
+    args = (W, V, g, h)
+    _check("hmm_fb_stat_adj_sums", K, args)
+    dlo = torch.empty_like(g)
+    dLT = torch.empty((K, K), dtype=W.dtype, device=W.device)
+    _launch("hmm_fb_stat_adj_sums",
+            _build.load_library().svae_hmm_fb_stat_adj_sums_f32, W.device, K,
+            B, T1, *args, dlo, dLT)
+    hmm_fb_stat_adj_sums.launches += 1
+    return dlo, dLT
+
+
+hmm_fb_stat_adj_sums.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -360,6 +419,33 @@ def hmm_fb_stat_adj_plain(a0, LT, lo, alpha, beta, dalpha, dbeta):
 
 
 hmm_fb_stat_adj_plain.calls = 0
+
+
+def hmm_fb_stat_adj_weights_plain(a0, LT, lo, alpha, beta):
+    """Plain version of :func:`hmm_fb_stat_adj_weights` (same arguments,
+    same outputs): :func:`hmm_fb_adj_weights_plain` on the elements
+    LT(i, j) + lo_t(j), the kernel's grouping."""
+    hmm_fb_stat_adj_weights_plain.calls += 1
+    T1, K, B = lo.shape
+    M = LT[None, :, :, None] + lo[:, None]               # (T-1, K, K, B)
+    return hmm_fb_adj_weights_plain(a0, M.reshape(T1, K * K, B), alpha,
+                                    beta)
+
+
+hmm_fb_stat_adj_weights_plain.calls = 0
+
+
+def hmm_fb_stat_adj_sums_plain(W, V, g, h):
+    """Plain version of :func:`hmm_fb_stat_adj_sums` (same arguments, same
+    outputs)."""
+    hmm_fb_stat_adj_sums_plain.calls += 1
+    T1, K, B = g.shape
+    dlo = g + (h[:, :, None] * V.reshape(T1, K, K, B)).sum(1)
+    dLT = hmm_fb_adj_dM_plain(W, V, g, h).reshape(T1, K, K, B).sum((0, 3))
+    return dlo, dLT
+
+
+hmm_fb_stat_adj_sums_plain.calls = 0
 
 
 # --------------------------------------------------------------------------

@@ -21,9 +21,12 @@ layout of the Pallas kernels, without their 128-lane padding): the two
 filters run a chain on a warp, on the Gauss-Jordan step of
 :func:`~svae_tpu_torch.ops.bpairs.bidir_fwd`'s kernel, with the pair rows
 and each lane's node entries staged through a ring in shared memory; the
-sampler runs a chain on a thread. The plain versions run
-:mod:`~svae_tpu_torch.ops.bpairs`'s twins on the pair rows broadcast over
-the lanes.
+sampler runs :func:`~svae_tpu_torch.ops.bpairs.sampler_bp_fwd`'s two
+passes (``csrc/bpairs.cu``), a factor pass on the shared rows
+(:func:`sampler_shared_factor`) and that sampler's chain pass
+(:func:`~svae_tpu_torch.ops.bpairs.sampler_bp_fwd_chain`). The plain
+versions run :mod:`~svae_tpu_torch.ops.bpairs`'s twins on the pair rows
+broadcast over the lanes.
 
 As in the JAX package, nothing here is differentiable: the Pallas kernels
 carry no ``custom_vjp``. The entry points raise if a gradient could be
@@ -124,7 +127,9 @@ def sampler_shared(P2, P3, Jf, hf, eps, xT):
     sequence; ``eps`` (T-1, d, S*B): standard normal noise; ``xT``
     (d, S*B): the terminal samples. Per step, ``Jc = Jf_t - 2 P3_t`` and
     ``x_t = Jc^-1 (hf_t + P2_t^T x_{t+1}) + chol(Jc)^-T eps_t``. Returns
-    ``x`` (T-1, d, S*B), frames 0..T-2."""
+    ``x`` (T-1, d, S*B), frames 0..T-2. On a card one C call runs the two
+    passes of :func:`sampler_shared_factor` and
+    :func:`~svae_tpu_torch.ops.bpairs.sampler_bp_fwd_chain`."""
     if Jf.device.type == "cpu":
         return sampler_shared_plain(P2, P3, Jf, hf, eps, xT)
     args = (P2, P3, Jf, hf, eps, xT)
@@ -136,15 +141,50 @@ def sampler_shared(P2, P3, Jf, hf, eps, xT):
                   [(T1, d * d)] * 2 + [(T1, d * d, B), (T1, d, B),
                                        (T1, d, SB), (d, SB)])
     _check_kernel_args("sampler_shared", d, args)
+    kw = dict(dtype=xT.dtype, device=xT.device)
+    Q = torch.empty((T1, dd, B), **kw)
+    c = torch.empty((T1, d, SB), **kw)
     x = torch.empty_like(eps)
     lib = _build.load_library()
     _launch("sampler_shared", lib.svae_sampler_shared_f32, xT.device, d, B,
-            SB // B, T1, *args, x)
+            SB // B, T1, *args, Q, c, x)
     sampler_shared.launches += 1
     return x
 
 
 sampler_shared.launches = 0
+
+
+def sampler_shared_factor(P2, P3, Jf, hf, eps):
+    """Pass 1 of :func:`sampler_shared`, parallel over (step, sequence),
+    on the shared rows ``P2``, ``P3`` (T-1, d*d): ``Q`` (T-1, d*d, B) =
+    Jc_t^-1 P2_t^T per sequence (Jc_t = Jf_t - 2 P3_t), shared by its S
+    samples, in ``Jf``'s layout, and ``c`` (T-1, d, S*B) = Jc_t^-1 hf_t +
+    chol(Jc_t)^-T eps_t per lane; pass 2 is
+    :func:`~svae_tpu_torch.ops.bpairs.sampler_bp_fwd_chain` on them.
+    Arguments as :func:`sampler_shared`'s first five."""
+    if Jf.device.type == "cpu":
+        return sampler_shared_factor_plain(P2, P3, Jf, hf, eps)
+    args = (P2, P3, Jf, hf, eps)
+    T1, dd, B = Jf.shape
+    d, SB = (hf.shape[1], eps.shape[2]) if eps.dim() == 3 else (0, 0)
+    if T1 < 1 or SB % B:
+        raise ValueError("sampler_shared_factor: inconsistent shapes")
+    _check_shapes("sampler_shared_factor", args,
+                  [(T1, d * d)] * 2 + [(T1, d * d, B), (T1, d, B),
+                                       (T1, d, SB)])
+    _check_kernel_args("sampler_shared_factor", d, args)
+    kw = dict(dtype=Jf.dtype, device=Jf.device)
+    Q = torch.empty((T1, dd, B), **kw)
+    c = torch.empty((T1, d, SB), **kw)
+    _launch("sampler_shared_factor",
+            _build.load_library().svae_sampler_shared_factor_f32, Jf.device,
+            d, B, SB // B, T1, *args, Q, c)
+    sampler_shared_factor.launches += 1
+    return Q, c
+
+
+sampler_shared_factor.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -196,6 +236,18 @@ def sampler_shared_plain(P2, P3, Jf, hf, eps, xT):
 
 
 sampler_shared_plain.calls = 0
+
+
+def sampler_shared_factor_plain(P2, P3, Jf, hf, eps):
+    """Plain version of :func:`sampler_shared_factor` (same arguments, same
+    outputs)."""
+    sampler_shared_factor_plain.calls += 1
+    B = Jf.shape[2]
+    return bpairs.sampler_bp_fwd_factor_plain(_lanes(P2, B), _lanes(P3, B),
+                                              Jf, hf, eps)
+
+
+sampler_shared_factor_plain.calls = 0
 
 
 # --------------------------------------------------------------------------

@@ -666,3 +666,107 @@ def test_shared_filters_poison_exactly_what_an_indefinite_step_reaches(
                                  device="cuda")
     assert counts["filter_shared"] == (T - 1 - f0) * (d * d + d) + 1
     assert counts["backward_shared"] == f0 * (d * d + d)
+
+
+@pytest.mark.parametrize("d", estep.KERNEL_DIMS)
+def test_sampler_shared_passes_match_plain_at_every_built_d(smoke, d):
+    """Each pass of the shared-pair sampler (kalman_fwd.sampler_shared_factor,
+    then bpairs.sampler_bp_fwd_chain) against its own plain version, and
+    the two in one C call against sampler_shared_plain: at B=37 (not a
+    multiple of a warp) on chains of one step (T=2) and at B=5, T=9. The
+    factor pass on the shared rows gives what sampler_bp_fwd_factor gives
+    on the rows expanded over the batch, bit for bit."""
+    from svae_tpu_torch.ops import kalman_fwd
+    for B, T in ((37, 2), (5, 9)):
+        sin = smoke._kfwd_sampler_problem(smoke.kfwd_problem(
+            dict(B=B, T=T, d=d, S=2), d, "cuda"), "cuda")
+        errs = smoke.check_sampler_shared_passes(sin)
+        x = kalman_fwd.sampler_shared(*smoke._f32(sin))
+        torch.cuda.synchronize()
+        errs["sampler_shared"] = smoke._max_err(
+            (x,), (kalman_fwd.sampler_shared_plain(*sin),))
+        assert all(e <= smoke.TOL_ABS for e in errs.values()), (B, T, errs)
+        P2, P3, Jf, hf, eps = smoke._f32(sin[:5])
+        lanes = lambda X: X[..., None].expand(X.shape + (B,)).contiguous()
+        got = kalman_fwd.sampler_shared_factor(P2, P3, Jf, hf, eps)
+        want = bpairs.sampler_bp_fwd_factor(lanes(P2), lanes(P3), Jf, hf,
+                                            eps)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (B, T)
+
+
+def test_sampler_shared_pass_launch_counters(smoke):
+    from svae_tpu_torch.ops import kalman_fwd
+    sin = smoke._kfwd_sampler_problem(smoke.kfwd_problem(
+        smoke.KFWD_SHAPES["small"], 0, "cuda"), "cuda")
+    smoke._reset_counters()
+    smoke.check_sampler_shared_passes(sin)
+    assert kalman_fwd.sampler_shared_factor.launches == 1
+    assert bpairs.sampler_bp_fwd_chain.launches == 1
+    assert kalman_fwd.sampler_shared_factor_plain.calls == 1
+    assert kalman_fwd.sampler_shared.launches == 0
+    # sampler_shared launches both passes' kernels in one C call of its
+    # own, and counts that call alone
+    kalman_fwd.sampler_shared(*smoke._f32(sin))
+    torch.cuda.synchronize()
+    assert kalman_fwd.sampler_shared_factor.launches == 1
+    assert kalman_fwd.sampler_shared.launches == 1
+    assert kalman_fwd.sampler_shared_plain.calls == 0
+
+
+@pytest.mark.parametrize("B,T,d,b0,t0",
+                         [(4, 9, 3, 1, 3), (37, 40, 10, 36, 20)])
+def test_sampler_shared_poisons_exactly_what_an_indefinite_step_reaches(
+        smoke, B, T, d, b0, t0):
+    """An indefinite Jc at step t0 of sequence b0: that step's and every
+    earlier step's samples of b0, in both samples' lanes, come back
+    non-finite, every other entry finite; also in the last lane of a batch
+    that is not a multiple of a warp."""
+    count = smoke._kfwd_sampler_non_spd(dict(B=B, T=T, d=d, S=2), b0, t0,
+                                        seed=d, device="cuda")
+    assert count == (t0 + 1) * d * 2
+
+
+@pytest.mark.parametrize("K", hmm_fb.KERNEL_STATES)
+def test_hmm_kernels_on_chains_of_one_step_at_every_built_K(smoke, K):
+    """Every HMM kernel and the passes of both adjoints (check_hmm) on
+    chains of one step (T=2) at B=37, not a multiple of the chains a warp
+    holds at any K."""
+    errs = smoke.check_hmm(dict(B=37, T=2, K=K), seed=K)
+    assert set(smoke.HMM_STAT_ADJ_ERRS) <= set(errs)
+
+
+def test_hmm_stat_adj_pass_launch_counters(smoke):
+    li, lt, lo, _ = smoke.hmm_problem(smoke.HMM_SHAPES["small"], 0, "cuda")
+    args = smoke.hmm_kernel_args(li, lt, lo)["hmm_fb_stat_fwd"]
+    alpha, beta = hmm_fb.hmm_fb_stat_fwd_plain(*args)
+    adj = (*args, alpha, beta, torch.ones_like(alpha), torch.ones_like(beta))
+    smoke._reset_counters()
+    smoke.check_hmm_stat_adj_passes(adj)
+    assert [w.launches for w in smoke.HMM_STAT_PASS_WRAPPERS] == [1, 1]
+    assert [p.calls for p in smoke.HMM_STAT_PASS_PLAINS] == [1, 1]
+    assert hmm_fb.hmm_fb_adj_chain.launches == 1
+    assert hmm_fb.hmm_fb_stat_adj.launches == 0
+    # hmm_fb_stat_adj launches the three kernels in one C call of its own,
+    # and counts that call alone
+    hmm_fb.hmm_fb_stat_adj(*smoke._f32(adj))
+    torch.cuda.synchronize()
+    assert [w.launches for w in smoke.HMM_STAT_PASS_WRAPPERS] == [1, 1]
+    assert hmm_fb.hmm_fb_stat_adj.launches == 1
+    assert hmm_fb.hmm_fb_stat_adj_plain.calls == 0
+
+
+def test_redesigned_stationary_c_entries_reject_an_unbuilt_size(smoke):
+    """The C entries of sampler_shared, its factor pass and the stationary
+    HMM adjoint and its passes refuse d=5 / K=5 (cudaErrorInvalidValue)
+    before they read a pointer."""
+    from svae_tpu_torch.ops import _build
+    lib = _build.load_library()
+    for name in ("svae_sampler_shared_f32", "svae_sampler_shared_factor_f32",
+                 "svae_hmm_fb_stat_adj_f32",
+                 "svae_hmm_fb_stat_adj_weights_f32",
+                 "svae_hmm_fb_stat_adj_sums_f32"):
+        fn = getattr(lib, name)
+        ints = sum(t is ctypes.c_int for t in fn.argtypes)
+        assert fn(5, *[3] * (ints - 1),
+                  *[None] * (len(fn.argtypes) - ints)) != 0, name

@@ -38,7 +38,11 @@ slds_synth shape, B=16, S=2); the four HMM kernels alone
 (``hmm_fb.hmm_fb_fwd``, ``hmm_fb_adj``, ``hmm_fb_stat_fwd`` and
 ``hmm_fb_stat_adj`` at the slds_synth z-step's shape, B=16, T=80, K=4,
 and at bench.py measure_hmm's, B=128, T=100, K=8, the adjoints on the
-plain forward's messages and cotangents drawn from one seed); the two
+plain forward's messages and cotangents drawn from one seed), the two
+forwards' plain versions on the same inputs (``hmm_fb_fwd_plain_*``,
+``hmm_fb_stat_fwd_plain_*``) and, at the same two shapes, ``hmm_posterior`` with the gradient of its summed logZ
+(chip_smoke.hmm_gradients) for ``kernel="stationary"`` and for
+``kernel="auto"`` (``hmm_posterior_grad_*``); the two
 shared-pair filters alone (``kalman_fwd.filter_shared`` and
 ``backward_shared`` at chip_smoke.py's KFWD_SHAPES config-2 width and B=8,
 T=2048, and at config-2 width at the other built latent sizes) and
@@ -82,7 +86,7 @@ B, T, S, D, D_OBS = 64, 100, 2, 10, 20
 # the stages whose device time is taken too
 DEVICE_STAGES = ("bidir_fwd", "sampler_bp_fwd", "sampler_bp_adj", "bidir_adj",
                  "elem_scan", "hmm_fb", "filter_shared", "backward_shared",
-                 "sampler_shared", "empty_kernel")
+                 "sampler_shared", "hmm_posterior", "empty_kernel")
 
 
 def _median_ms(fn, calls):
@@ -190,7 +194,9 @@ def _hmm_stages(torch, dev):
     """The four HMM kernels alone at the slds_synth z-step's shape and at
     measure_hmm's, on float32 copies of the checkout's chip_smoke.py
     problems: the adjoints on the plain forward's messages and cotangents
-    drawn from one seed."""
+    drawn from one seed; the two forwards' plain versions on the same
+    inputs (``*_plain_*``); and ``hmm_posterior`` with its gradient on the
+    same problems, stationary and auto."""
     import chip_smoke
     from svae_tpu_torch.ops import hmm_fb
     f32 = lambda xs: tuple(x.float().contiguous() for x in xs)
@@ -206,8 +212,13 @@ def _hmm_stages(torch, dev):
                                      device=dev) for o in outs)
             stages[f"{fwd}_{name}"] = functools.partial(
                 getattr(hmm_fb, fwd), *f32(args))
+            stages[f"{fwd}_plain_{name}"] = functools.partial(
+                getattr(hmm_fb, fwd + "_plain"), *f32(args))
             stages[f"{adj}_{name}"] = functools.partial(
                 getattr(hmm_fb, adj), *f32((*args, *outs, *cots)))
+        for kernel in ("stationary", "auto"):
+            stages[f"hmm_posterior_grad_{kernel}_{name}"] = functools.partial(
+                chip_smoke.hmm_gradients, *f32((li, lt, lo)), kernel)
     return stages
 
 
@@ -385,8 +396,8 @@ def worker(root, calls, only=None):
            for m in ("bpairs", "chunked")) and any(
                map(family, ("elem_scan", "bidir", "sampler_bp"))):
         stages.update(_scan_bidir_adj_stages(torch, dev))
-    if importlib.util.find_spec("svae_tpu_torch.ops.hmm_fb") and family(
-            "hmm_fb"):
+    if importlib.util.find_spec("svae_tpu_torch.ops.hmm_fb") and any(
+            map(family, ("hmm_fb", "hmm_posterior"))):
         stages.update(_hmm_stages(torch, dev))
     if importlib.util.find_spec("svae_tpu_torch.ops.kalman_fwd") and any(
             map(family, ("filter_shared", "backward_shared",

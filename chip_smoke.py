@@ -70,13 +70,16 @@ exits non-zero:
    (``hmm_fb.hmm_fb_stat_adj_weights``, whose weights must equal the
    streamed pass's on LT + lo bit for bit, ``hmm_fb_adj_chain``,
    ``hmm_fb_stat_adj_sums``) in float32 against its plain version
-   in float64 on the same inputs and random cotangents, and
-   ``hmm_posterior`` on the card against the float64 CPU path: at a small
-   odd shape, at the slds_synth sweep shape (B=16, T=80, K=4; stationary,
-   time-varying with ragged pair weights, and a forced near-forbidden
-   switch) and at bench.py measure_hmm's (B=128, T=100, K=8); then
+   in float64 on the same inputs and random cotangents, the stationary
+   forward's messages bit for bit against the streamed kernel's on
+   LT + lo, and ``hmm_posterior`` on the card against the float64 CPU
+   path: at a small odd shape, at the slds_synth sweep shape (B=16, T=80,
+   K=4; stationary, time-varying with ragged pair weights, and a forced
+   near-forbidden switch), at bench.py measure_hmm's (B=128, T=100, K=8)
+   and at every built K (B=37, T=9: a partial last warp); then
    ``hmm_posterior(kernel="stationary")`` with its gradient, the path that
-   runs the stationary kernels, against float64;
+   runs the stationary kernels, against float64, and its outputs bit for
+   bit against ``kernel="streamed"``;
 4s. SLDS-SVAE training at the slds_synth preset (svae_tpu/config.py
    SLDSConfig, examples/slds_synth.py: ``make_switching_dot_data`` with
    N=256, T=80, 16-pixel frames, K=4, d_latent=4, MLP width 64, 12
@@ -1101,6 +1104,29 @@ def hmm_kernel_args(li, lt, lo):
     return args
 
 
+def hmm_stat_as_streamed(a0, LT, lo):
+    """The streamed forward's float32 arguments (a0, M) for the stationary
+    forward's (a0, LT, lo): M_t(i, j) = LT(i, j) + lo_t(j) formed in
+    float32 and packed, the elements the stationary kernels form."""
+    a32, LT32, lo32 = _f32((a0, LT, lo))
+    T1, K, B = lo.shape
+    M32 = (LT32[None, :, :, None] + lo32[:, None]).reshape(T1, K * K, B)
+    return a32, M32.contiguous()
+
+
+def check_hmm_stat_fwd_bitwise(args):
+    """``hmm_fb_stat_fwd`` (float32 kernel) on the stationary forward's
+    float64 ``args`` against ``hmm_fb_fwd``'s kernel on the packed LT + lo
+    (hmm_stat_as_streamed): the two run the same chain step on the same
+    elements, so their messages must agree bit for bit; raises if not."""
+    got = hmm_fb.hmm_fb_stat_fwd(*_f32(args))
+    want = hmm_fb.hmm_fb_fwd(*hmm_stat_as_streamed(*args))
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError("hmm_fb_stat_fwd: not hmm_fb_fwd's messages on "
+                             "LT + lo bit for bit")
+
+
 def check_hmm_adj_passes(adj_args):
     """Each pass of ``hmm_fb_adj`` (float32 kernel) against its own plain
     version (float64) on ``adj_args`` (``hmm_fb_adj``'s float64
@@ -1137,11 +1163,8 @@ def check_hmm_stat_adj_passes(adj_args):
     errs = {}
     W, V = hmm_fb.hmm_fb_stat_adj_weights_plain(a0, LT, lo, alpha, beta)
     got = hmm_fb.hmm_fb_stat_adj_weights(*_f32((a0, LT, lo, alpha, beta)))
-    a32, LT32, lo32 = _f32((a0, LT, lo))
-    T1, K, B = lo.shape
-    M32 = (LT32[None, :, :, None] + lo32[:, None]).reshape(T1, K * K, B)
-    streamed = hmm_fb.hmm_fb_adj_weights(a32, M32.contiguous(),
-                                         *_f32((alpha, beta)))
+    a32, M32 = hmm_stat_as_streamed(a0, LT, lo)
+    streamed = hmm_fb.hmm_fb_adj_weights(a32, M32, *_f32((alpha, beta)))
     torch.cuda.synchronize()
     if not all(torch.equal(x, y) for x, y in zip(got, streamed)):
         raise AssertionError("hmm_fb_stat_adj_weights: not the streamed "
@@ -1167,13 +1190,14 @@ def check_hmm(shape, case="stationary", seed=0, device="cuda"):
     the same inputs and random cotangents at ``shape`` and ``case`` (see
     :func:`hmm_problem`), each pass of ``hmm_fb_adj`` against its own
     (check_hmm_adj_passes) and, for a stationary (K, K) transition matrix,
-    each pass of ``hmm_fb_stat_adj`` against its own
-    (check_hmm_stat_adj_passes), and ``hmm_posterior`` on the card (float32,
-    every kernel choice) against the float64 CPU path; raises past
-    TOL_MSG_REL, TOL_ADJ_REL (the adjoints and the passes) and TOL_ABS
-    (node marginals), or if a forced switch's pair count leaves (0.9,
-    1.1). Returns ``{kernel or pass: (normwise rel, max abs)}`` and the
-    node marginals' max abs error."""
+    ``hmm_fb_stat_fwd`` bit for bit against ``hmm_fb_fwd`` on LT + lo
+    (check_hmm_stat_fwd_bitwise) and each pass of ``hmm_fb_stat_adj``
+    against its own (check_hmm_stat_adj_passes), and ``hmm_posterior`` on
+    the card (float32, every kernel choice) against the float64 CPU path;
+    raises past TOL_MSG_REL, TOL_ADJ_REL (the adjoints and the passes) and
+    TOL_ABS (node marginals), or if a forced switch's pair count leaves
+    (0.9, 1.1). Returns ``{kernel or pass: (normwise rel, max abs)}`` and
+    the node marginals' max abs error."""
     li, lt, lo, w = hmm_problem(shape, seed, device, case)
     g = torch.Generator(device=device).manual_seed(seed + 1000)
     cot = lambda x: torch.randn(x.shape, generator=g, dtype=x.dtype,
@@ -1187,6 +1211,8 @@ def check_hmm(shape, case="stationary", seed=0, device="cuda"):
         want = getattr(hmm_fb, fwd + "_plain")(*args)
         torch.cuda.synchronize()
         errs[fwd] = _rel_err(got, want)
+        if fwd == "hmm_fb_stat_fwd":
+            check_hmm_stat_fwd_bitwise(args)
         adj_args = (*args, *want, cot(want[0]), cot(want[1]))
         got = getattr(hmm_fb, adj)(*_f32(adj_args))
         torch.cuda.synchronize()
@@ -1242,7 +1268,8 @@ def hmm_stationary_path(device="cuda"):
     at the slds_synth sweep shape on the card, the path that runs the
     stationary kernels: the counters show one launch of each and nothing
     else; the gradients agree with the float64 CPU path within
-    TOL_ADJ_REL. Returns the launch counts."""
+    TOL_ADJ_REL; then, uncounted, its outputs equal those of
+    ``kernel="streamed"`` bit for bit. Returns the launch counts."""
     li, lt, lo, _ = hmm_problem(HMM_SHAPES["slds"], 1, device)
     _reset_counters()
     got = hmm_gradients(*_f32((li, lt, lo)), "stationary")
@@ -1258,6 +1285,15 @@ def hmm_stationary_path(device="cuda"):
                      "hmm_fb_stat_adj": 1} or any(plain_calls.values())
             or rel > TOL_ADJ_REL):
         raise AssertionError("the stationary HMM path went wrong")
+    # the stationary kernel's messages are the streamed kernel's on LT + lo
+    # bit for bit, and the marginals are formed alike from them
+    with torch.no_grad():
+        outs = [hmm_fb.hmm_posterior(*_f32((li, lt, lo)), kernel=kernel)
+                for kernel in ("stationary", "streamed")]
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(*outs)):
+        raise AssertionError("hmm_posterior(kernel='stationary') is not "
+                             "kernel='streamed' bit for bit")
     return launches
 
 
@@ -3315,15 +3351,21 @@ def main():
               f"{BIDIR_ADJ_SHAPES[name]}] (normwise rel, max abs): {e}")
         for k, (_, err) in e.items():
             errs[k] = max(errs.get(k, 0.0), err)
-    for name, shape in HMM_SHAPES.items():
-        for case in (("stationary", "ragged", "forced") if name == "slds"
-                     else ("stationary",)):
-            e = check_hmm(shape, case)
-            print(f"hmm kernels vs plain versions [{name} {shape} {case}] "
-                  f"(normwise rel, max abs; node marginals max abs): {e}")
-            for k in sum(HMM_RUNS, HMM_ADJ_PASSES + HMM_STAT_ADJ_ERRS):
-                if k in e:
-                    errs[k] = max(errs.get(k, 0.0), e[k][1])
+    # (name, shape, case, seed): the HMM shapes, then every built K at a
+    # batch whose last warp is partial
+    hmm_cases = [(name, shape, case, 0) for name, shape in HMM_SHAPES.items()
+                 for case in (("stationary", "ragged", "forced")
+                              if name == "slds" else ("stationary",))]
+    hmm_cases += [(f"K={K}", dict(B=37, T=9, K=K), "stationary", K)
+                  for K in hmm_fb.KERNEL_STATES]
+    for name, shape, case, seed in hmm_cases:
+        e = check_hmm(shape, case, seed)
+        print(f"hmm kernels vs plain versions [{name} {shape} {case}] "
+              f"(normwise rel, max abs; node marginals max abs; the "
+              f"stationary forward bitwise the streamed on LT + lo): {e}")
+        for k in sum(HMM_RUNS, HMM_ADJ_PASSES + HMM_STAT_ADJ_ERRS):
+            if k in e:
+                errs[k] = max(errs.get(k, 0.0), e[k][1])
     stat_launches = hmm_stationary_path()
     for name, shape in ELEM_SHAPES.items():
         e = check_elem_scan(shape)
@@ -3401,7 +3443,7 @@ def main():
         shape = HMM_SHAPES[name]
         print(f"bounds at {name} {shape} (ms, by): " + ", ".join(
             f"{k} {bound(k, shape['B'], shape['T'], shape['K'], 1)}"
-            for k in ("hmm_fb_adj",) + HMM_ADJ_PASSES + ("hmm_fb_stat_adj",)
+            for k in sum(HMM_RUNS, ()) + HMM_ADJ_PASSES
             + HMM_STAT_ADJ_PASSES))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

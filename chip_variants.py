@@ -4,7 +4,8 @@ svae_tpu_torch/csrc/bpairs.cu), the ring depth of ``sampler_bp_adj``'s
 chain pass (``kBpRing``, csrc/sampler_bp_adj.cu) or of ``sampler_bp_fwd``'s
 (``kBpFwdRing``, csrc/bpairs.cu; the chain pass the shared-pair sampler
 runs too); the ring depth of ``hmm_fb_fwd``
-(``kHmmRing``, csrc/hmm_fb.cu) and of ``hmm_fb_adj``'s chain pass
+(``kHmmRing``, csrc/hmm_fb.cu), of ``hmm_fb_stat_fwd`` (``kHmmStatRing``)
+and of ``hmm_fb_adj``'s chain pass
 (``kHmmAdjRing``, csrc/hmm_fb_adj.cu); the shared-pair filters' chains a
 block (``kSharedChains``, csrc/kalman_fwd.cu) or, with ``--constant
 kSharedRing``, their ring depth.
@@ -13,6 +14,7 @@ kSharedRing``, their ring depth.
     python3 chip_variants.py sampler_bp_adj --values 2 3 4
     python3 chip_variants.py sampler_bp_fwd --values 4 8 16
     python3 chip_variants.py hmm_fb_fwd --values 2 4 8
+    python3 chip_variants.py hmm_fb_stat_fwd --values 2 4 8
     python3 chip_variants.py hmm_fb_adj --values 2 4 8
     python3 chip_variants.py shared_filters --values 1 2 4
     python3 chip_variants.py shared_filters --constant kSharedRing \
@@ -31,8 +33,10 @@ T=2048, for ``sampler_bp_fwd`` the shared-pair sampler
 (``kalman_fwd.sampler_shared``, the same chain pass) at config-2 width
 (B=64, T=100, d=10, S=2) and at B=8, T=2048; the HMM kernels at the slds_synth z-step's shape (B=16, T=80,
 K=4) and measure_hmm's (B=128, T=100, K=8), the adjoint on the plain
-forward's messages and seeded cotangents; the shared-pair filters
-(``kalman_fwd.filter_shared`` and ``backward_shared``, both timed) at
+forward's messages and seeded cotangents, and beside the stationary
+forward the streamed one on the same chains (``streamed_*``: the same
+chain step, the kernel the stationary one must match bit for bit); the
+shared-pair filters (``kalman_fwd.filter_shared`` and ``backward_shared``, both timed) at
 config-2 width (B=64, T=100, d=10) and at B=8, T=2048. Each variant is
 first held to the float64 plain version. The
 variants run in turns (A B C C B A), ``R`` times over, in one process.
@@ -81,6 +85,10 @@ KERNELS = {
                        ("sampler_bp_fwd", "sampler_shared")),
     "hmm_fb_fwd": (("kHmmRing",), "hmm_fb.cu", ("svae_hmm_fb_fwd_f32",),
                    ("hmm_fb_fwd_kernel",), "hmm_fb_fwd"),
+    "hmm_fb_stat_fwd": (("kHmmStatRing",), "hmm_fb.cu",
+                        ("svae_hmm_fb_fwd_f32", "svae_hmm_fb_stat_fwd_f32"),
+                        ("hmm_fb_stat_fwd_kernel", "hmm_fb_fwd_kernel"),
+                        ("hmm_fb_stat_fwd", "hmm_fb_fwd")),
     "hmm_fb_adj": (("kHmmAdjRing",), "hmm_fb_adj.cu", _HMM_ADJ,
                    _HMM_ADJ_KERNELS, "hmm_fb_adj"),
     "shared_filters": (("kSharedChains", "kSharedRing"), "kalman_fwd.cu",
@@ -145,6 +153,8 @@ def _wrapper(kernel, problem):
                   else "backward_shared")
     elif problem.startswith("shared_"):
         mod, kernel = kalman_fwd, "sampler_shared"
+    elif problem.startswith("streamed_"):
+        mod, kernel = hmm_fb, "hmm_fb_fwd"
     else:
         mod = hmm_fb if kernel.startswith("hmm_fb") else bpairs
     return getattr(mod, kernel), getattr(mod, kernel + "_plain")
@@ -166,7 +176,11 @@ def problems(kernel, device="cuda"):
         for name in ("slds", "measure_hmm"):
             li, lt, lo, _ = chip_smoke.hmm_problem(
                 chip_smoke.HMM_SHAPES[name], 0, device)
-            args = chip_smoke.hmm_kernel_args(li, lt, lo)["hmm_fb_fwd"]
+            args = chip_smoke.hmm_kernel_args(li, lt, lo)
+            if kernel == "hmm_fb_stat_fwd":
+                probs["streamed_" + name] = args["hmm_fb_fwd"]
+            args = args["hmm_fb_stat_fwd" if kernel == "hmm_fb_stat_fwd"
+                        else "hmm_fb_fwd"]
             if kernel == "hmm_fb_adj":
                 outs = hmm_fb.hmm_fb_fwd_plain(*args)
                 g = torch.Generator(device=device).manual_seed(3)
@@ -229,9 +243,11 @@ def main():
             got = wrapper(*f32[k])
             torch.cuda.synchronize()
             want = plain(*a)
-            if args.kernel == "hmm_fb_fwd":
+            if args.kernel in ("hmm_fb_fwd", "hmm_fb_stat_fwd"):
                 err = chip_smoke._rel_err(got, want)[0]
                 ok = err <= chip_smoke.TOL_MSG_REL
+                if wrapper is hmm_fb.hmm_fb_stat_fwd:
+                    chip_smoke.check_hmm_stat_fwd_bitwise(a)
             elif args.kernel in ("bidir_fwd", "shared_filters"):
                 err = chip_smoke._max_err(got[:2], want[:2])
                 ok = err <= chip_smoke.TOL_ABS

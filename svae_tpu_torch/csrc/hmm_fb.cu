@@ -19,26 +19,36 @@
 // What the design does about it. Lanes [0, B) run the alpha recursion,
 // lanes [B, 2B) the beta recursion of the same sequences (independent
 // chains; the Pallas kernel interleaves them only to fill a grid step).
-// hmm_fb_fwd_kernel gives each chain segment_lanes(K) adjacent lanes of a
-// warp (K = 3 leaves one idle), lane j owning state j of the carry: a
-// step takes the K carried values by shuffles within the segment, adds
-// the lane's column of M_t (its row, for beta) and computes one
-// logsumexp of K terms, K expf and one logf where a thread per chain ran
-// K^2 and K. Each lane loads only its K elements of a step, and those of
-// the next kHmmRing - 1 steps are in flight: a ring in shared memory,
-// filled by cp.async, one group of copies a step (the step clamped at the
-// chain's end), so that a step waits only on its own group. A ring of
-// registers did not pay here, though its loads were unconditional: nvcc
-// moved each new load into the ring's register right after issuing it,
-// and the move waits for the load, a whole L2 latency a step (its SASS).
-// The logsumexp keeps the op order of the thread-per-chain kernel (the
-// max, then the sum in index order), so the outputs are bitwise the same.
-// The stationary kernel still runs one thread per chain; it
-// holds the whole (K, K) matrix in registers (it is the same for every
-// lane) and forms (lt + lo) before adding the carry, the op order of the
-// streamed kernel, whose elements are precomputed as lt + lo. Streams keep
-// the lane innermost ((T-1, K*K, B) and (T-1, K, B)); T and B are runtime
-// arguments, K a template parameter, so the loops unroll.
+// Both kernels give each chain segment_lanes(K) adjacent lanes of a warp
+// (K = 3 leaves one idle), lane j owning state j of the carry, and run the
+// same chain step (chain_steps): it takes the K carried values by shuffles
+// within the segment, adds them to the lane's K elements of the step (the
+// lane's column of M_t, its row for beta) and computes one logsumexp of K
+// terms, K expf and one logf where a thread per chain ran K^2 and K. The
+// elements do not depend on the carry, and what a lane loads for them is
+// in flight the ring's depth less one steps ahead (kHmmRing,
+// kHmmStatRing): a ring in shared memory, filled by cp.async, one group of
+// copies a step (the step clamped at the chain's end), so that a step
+// waits only on its own group. A ring of registers
+// did not pay here, though its loads were unconditional: nvcc moved each
+// new load into the ring's register right after issuing it, and the move
+// waits for the load, a whole L2 latency a step (its SASS).
+//
+// The two kernels differ only in where a lane's elements come from.
+// hmm_fb_fwd_kernel rings its K elements of M_t. hmm_fb_stat_fwd_kernel,
+// with M_t(i, j) = LT(i, j) + lo_t(j), holds the lane's K entries of LT in
+// registers (column j for alpha, row j for beta), loaded once, and rings
+// only observations: an alpha lane needs lo_t(j) alone, a beta lane
+// lo_t(k) for every k, which it takes from lane k of its segment by a
+// shuffle (ringing all K in each lane, K copies a step, ran slower). It
+// forms (lt + lo) before adding the carry, so its elements are those the
+// streamed kernel reads from M = LT + lo formed in float32. The logsumexp
+// keeps the op order of the thread-per-chain kernels (the max, then the
+// sum in index order), so both kernels' outputs are bitwise those of the
+// kernels they replaced, and the stationary kernel's are the streamed
+// kernel's on the packed LT + lo. Streams keep the lane innermost
+// ((T-1, K*K, B) and (T-1, K, B)); T and B are runtime arguments, K a
+// template parameter, so the loops unroll.
 
 #include "estep_common.cuh"
 
@@ -60,50 +70,58 @@ __device__ __forceinline__ float lse(const float (&v)[K]) {
 // the kernel runs one warp a block: four ran slower).
 constexpr int kHmmRing = 4;
 
-// Layouts: a0 (K, B); M (T1, K*K, B), entry i*K + j; out alpha, beta
-// (T1, K, B): alpha_1..alpha_T1 and beta_0..beta_{T1-1}. segment_lanes(K)
-// lanes a chain, chain c = alpha lane c < B or beta lane c - B; one warp a
-// block.
+// How many steps ahead a lane of the stationary kernel loads its
+// observations (chip_variants.py).
+constexpr int kHmmStatRing = 8;
+
+// A lane's place in a chain kernel, one warp a block: segment_lanes(K)
+// lanes a chain, chain c = alpha lane c < B or beta lane c - B. In the last
+// warp, lanes past the last chain (and K = 3's idle lane) shadow a real
+// lane and are not live: they compute, so that every shuffle has its
+// lanes, and store nothing. A warp past the last chain leaves whole
+// first (warp_past_chains).
+struct ChainLane {
+  bool live, fwd;
+  int j, b;  // the state the lane owns, the sequence
+};
+
 template <int K>
-__global__ void __launch_bounds__(kThreads)
-hmm_fb_fwd_kernel(int B, int T1, const float* __restrict__ a0,
-                  const float* __restrict__ M, float* __restrict__ alpha,
-                  float* __restrict__ beta) {
-  constexpr int W = segment_lanes(K), R = kHmmRing;
-  // the ring: slot u holds the lane's K elements of a coming step
-  __shared__ float ring[R][K][kThreads];
-  const int lane = threadIdx.x;
-  const int g = blockIdx.x * kThreads + lane;
-  // a warp past the last chain leaves whole; in the last warp, lanes past
-  // it (and K = 3's idle lane) shadow a real lane and store nothing
-  if ((g - lane) / W >= 2 * B) return;
-  const bool live = g / W < 2 * B && g % W < K;
+__device__ __forceinline__ bool warp_past_chains(int B) {
+  return (int)blockIdx.x * kThreads / segment_lanes(K) >= 2 * B;
+}
+
+template <int K>
+__device__ __forceinline__ ChainLane chain_lane(int B) {
+  constexpr int W = segment_lanes(K);
+  const int g = blockIdx.x * kThreads + threadIdx.x;
   const int chain = min(g / W, 2 * B - 1);
-  const int j = min(g % W, K - 1);  // the state this lane owns
   const bool fwd = chain < B;
-  const int b = fwd ? chain : chain - B;
-  const long long KB = (long long)K * B, KKB = KB * K;
-  // the lane's K elements of chain step s (column j of M_t for alpha, t =
-  // s; row j for beta, t = T1-1-s), k-th at src + k * stride; the source
-  // steps down M's rows one step a load and stays at the chain's last
-  const long long stride = fwd ? KB : B;
-  const long long step = fwd ? KKB : -KKB;
-  long long src = (fwd ? (long long)j * B : (T1 - 1) * KKB + j * KB) + b;
-  const long long last = src + (T1 - 1) * step;
-  auto load = [&](int u) {
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-      cp_async4(&ring[u][k][lane], M + src + k * stride);
-    cp_async_commit();
-    src = src == last ? src : src + step;
-  };
-  // steps s+1 ... s+R-1 in flight while step s computes, each step's
-  // copies a group; the loop unrolled by R so that every slot is a
-  // constant
+  return {g / W < 2 * B && g % W < K, fwd, min(g % W, K - 1),
+          fwd ? chain : chain - B};
+}
+
+// The T1 steps of the chain of a lane that owns state j of sequence b,
+// from alpha_0 (a0 (K, B)) or beta = 0. load(u) issues the copies of the
+// next chain step into ring slot u, one group; elem(u, k) gives the lane's
+// k-th element of the step in slot u, M_t(k, j) for alpha (t = s),
+// M_t(j, k) for beta (t = T1-1-s). Steps s+1 ... s+R-1 are in flight
+// while step s computes; the loop is unrolled by R so that every slot is a
+// constant. Writes the carry's state j at each step: alpha_1..alpha_T1,
+// beta_{T1-1}..beta_0 (T1, K, B).
+template <int K, int R, class Load, class Elem>
+__device__ __forceinline__ void chain_steps(int B, int T1, ChainLane ln,
+                                            const float* __restrict__ a0,
+                                            float* __restrict__ alpha,
+                                            float* __restrict__ beta,
+                                            Load load, Elem elem) {
+  constexpr int W = segment_lanes(K);
+  const bool live = ln.live, fwd = ln.fwd;
+  const int j = ln.j, b = ln.b;
+  const long long KB = (long long)K * B;
 #pragma unroll
   for (int u = 0; u < R; ++u) load(u);
-
-  // the carry's state j: alpha_t ascending, beta_{t+1} descending
+  // j * B + b spelled out at each use: one shared 64-bit offset gives
+  // hmm_fb_fwd_kernel 1-2 more registers at K = 2, 3, 4 (ptxas)
   float c = fwd ? a0[(long long)j * B + b] : 0.f;
   float* out = fwd ? alpha + (long long)j * B + b
                    : beta + (T1 - 1) * KB + (long long)j * B + b;
@@ -116,7 +134,7 @@ hmm_fb_fwd_kernel(int B, int T1, const float* __restrict__ a0,
       float v[K];
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const float m = ring[u][k][lane];
+        const float m = elem(u, k);
         const float ck = __shfl_sync(0xffffffffu, c, k, W);
         v[k] = fwd ? ck + m : m + ck;
       }
@@ -129,6 +147,40 @@ hmm_fb_fwd_kernel(int B, int T1, const float* __restrict__ a0,
   cp_async_wait<0>();
 }
 
+// Layouts: a0 (K, B); M (T1, K*K, B), entry i*K + j; out alpha, beta
+// (T1, K, B): alpha_1..alpha_T1 and beta_0..beta_{T1-1}.
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+hmm_fb_fwd_kernel(int B, int T1, const float* __restrict__ a0,
+                  const float* __restrict__ M, float* __restrict__ alpha,
+                  float* __restrict__ beta) {
+  constexpr int R = kHmmRing;
+  // the ring: slot u holds the lane's K elements of a coming step
+  __shared__ float ring[R][K][kThreads];
+  if (warp_past_chains<K>(B)) return;
+  const ChainLane ln = chain_lane<K>(B);
+  const int lane = threadIdx.x;
+  const long long KB = (long long)K * B, KKB = KB * K;
+  // the lane's K elements of chain step s (column j of M_t for alpha, t =
+  // s; row j for beta, t = T1-1-s), k-th at src + k * stride; the source
+  // steps down M's rows one step a load and stays at the chain's last
+  const long long stride = ln.fwd ? KB : B;
+  const long long step = ln.fwd ? KKB : -KKB;
+  long long src =
+      (ln.fwd ? (long long)ln.j * B : (T1 - 1) * KKB + ln.j * KB) + ln.b;
+  const long long last = src + (T1 - 1) * step;
+  chain_steps<K, R>(
+      B, T1, ln, a0, alpha, beta,
+      [&](int u) {
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          cp_async4(&ring[u][k][lane], M + src + k * stride);
+        cp_async_commit();
+        src = src == last ? src : src + step;
+      },
+      [&](int u, int k) { return ring[u][k][lane]; });
+}
+
 // As hmm_fb_fwd_kernel with M_t(i, j) = LT(i, j) + lo_t(j). Layouts: a0
 // (K, B); LT (K, K); lo (T1, K, B); out alpha, beta (T1, K, B).
 template <int K>
@@ -137,47 +189,41 @@ hmm_fb_stat_fwd_kernel(int B, int T1, const float* __restrict__ a0,
                        const float* __restrict__ LT,
                        const float* __restrict__ lo,
                        float* __restrict__ alpha, float* __restrict__ beta) {
-  constexpr int KK = K * K;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= 2 * B) return;
-  const bool fwd = lane < B;
-  const int b = fwd ? lane : lane - B;
-
-  float lt[KK];
+  constexpr int R = kHmmStatRing, W = segment_lanes(K);
+  // the ring: slot u holds the lane's observation of a coming step
+  __shared__ float ring[R][kThreads];
+  if (warp_past_chains<K>(B)) return;
+  const ChainLane ln = chain_lane<K>(B);
+  const int lane = threadIdx.x;
+  // the lane's K entries of LT: column j (LT(k, j)) for alpha, row j
+  // (LT(j, k)) for beta, the same at every step
+  float lt[K];
 #pragma unroll
-  for (int k = 0; k < KK; ++k) lt[k] = LT[k];
-  float c[K];
-#pragma unroll
-  for (int i = 0; i < K; ++i) c[i] = fwd ? a0[i * B + b] : 0.f;
-
-  for (int s = 0; s < T1; ++s) {
-    const int t = fwd ? s : T1 - 1 - s;
-    const float* lot = lo + (size_t)t * K * B + b;
-    float ob[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) ob[k] = lot[(size_t)k * B];
-    float n[K];
-#pragma unroll
-    for (int o = 0; o < K; ++o) {
-      float v[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-        v[k] = fwd ? c[k] + (lt[k * K + o] + ob[o])
-                   : (lt[o * K + k] + ob[k]) + c[k];
-      n[o] = lse<K>(v);
-    }
-    float* out = (fwd ? alpha : beta) + (size_t)t * K * B + b;
-#pragma unroll
-    for (int o = 0; o < K; ++o) {
-      c[o] = n[o];
-      out[(size_t)o * B] = n[o];
-    }
-  }
+  for (int k = 0; k < K; ++k)
+    lt[k] = LT[ln.fwd ? k * K + ln.j : ln.j * K + k];
+  const long long KB = (long long)K * B;
+  // the lane's observation of chain step s, lo_t(j) (t = s for alpha,
+  // T1-1-s for beta); the source steps down lo's rows one step a load and
+  // stays at the chain's last
+  const long long step = ln.fwd ? KB : -KB;
+  long long src = (ln.fwd ? 0 : (T1 - 1) * KB) + (long long)ln.j * B + ln.b;
+  const long long last = src + (T1 - 1) * step;
+  chain_steps<K, R>(
+      B, T1, ln, a0, alpha, beta,
+      [&](int u) {
+        cp_async4(&ring[u][lane], lo + src);
+        cp_async_commit();
+        src = src == last ? src : src + step;
+      },
+      [&](int u, int k) {
+        // lo_t(k) from lane k of the segment; an alpha lane keeps its own
+        const float o = ring[u][lane];
+        const float ok = __shfl_sync(0xffffffffu, o, k, W);
+        return lt[k] + (ln.fwd ? o : ok);
+      });
 }
 
-inline dim3 grid_of(int B) { return dim3((2 * B + kThreads - 1) / kThreads); }
-
-// The streamed kernel's blocks: 2B chains of segment_lanes(K) lanes.
+// The kernels' blocks: 2B chains of segment_lanes(K) lanes.
 template <int K>
 inline dim3 segment_grid(int B) {
   return dim3((2 * B * segment_lanes(K) + kThreads - 1) / kThreads);
@@ -216,10 +262,10 @@ extern "C" int svae_hmm_fb_stat_fwd_f32(int K, int B, int T1,
                                         const float* lo, float* alpha,
                                         float* beta, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SVAE_CASE(KS)                                              \
-  case KS:                                                         \
-    hmm_fb_stat_fwd_kernel<KS><<<grid_of(B), kThreads, 0, st>>>(   \
-        B, T1, a0, LT, lo, alpha, beta);                           \
+#define SVAE_CASE(KS)                                                     \
+  case KS:                                                                \
+    hmm_fb_stat_fwd_kernel<KS><<<segment_grid<KS>(B), kThreads, 0, st>>>( \
+        B, T1, a0, LT, lo, alpha, beta);                                  \
     return (int)cudaGetLastError();
   SVAE_HMM_SWITCH(SVAE_CASE)
 #undef SVAE_CASE

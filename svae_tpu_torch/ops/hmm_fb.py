@@ -336,10 +336,13 @@ hmm_fb_fwd_plain.calls = 0
 
 
 def hmm_fb_stat_fwd_plain(a0, LT, lo):
-    """Plain PyTorch twin of :func:`hmm_fb_stat_fwd` (same arguments)."""
+    """Plain PyTorch twin of :func:`hmm_fb_stat_fwd` (same arguments).
+    The elements LT(i, j) + lo_t(j) are formed once, in the layout
+    :func:`hmm_fb_fwd_plain` reads from M, so that the two reduce the same
+    layout and give the same float32 messages on M = LT + lo."""
     hmm_fb_stat_fwd_plain.calls += 1
-    lo_ = lo.permute(0, 2, 1)                            # (T-1, B, K)
-    return _recursions(a0, lambda t: LT + lo_[t][:, None, :], lo.shape[0])
+    Mm = (LT[None, :, :, None] + lo[:, None]).permute(0, 3, 1, 2)
+    return _recursions(a0, lambda t: Mm[t], lo.shape[0])
 
 
 hmm_fb_stat_fwd_plain.calls = 0

@@ -770,3 +770,41 @@ def test_redesigned_stationary_c_entries_reject_an_unbuilt_size(smoke):
         ints = sum(t is ctypes.c_int for t in fn.argtypes)
         assert fn(5, *[3] * (ints - 1),
                   *[None] * (len(fn.argtypes) - ints)) != 0, name
+
+
+@pytest.mark.parametrize("K", hmm_fb.KERNEL_STATES)
+@pytest.mark.parametrize("shape", ["slds", "measure_hmm"])
+def test_hmm_stat_fwd_is_the_streamed_kernel_on_LT_plus_lo(smoke, shape, K):
+    """The stationary forward (K lanes a chain, LT in registers, only the
+    observations streamed) gives hmm_fb_fwd's messages on the packed
+    float32 LT + lo bit for bit, at the slds_synth z-step's and
+    measure_hmm's B and T and every built K."""
+    B, T = (smoke.HMM_SHAPES[shape][k] for k in "BT")
+    li, lt, lo, _ = smoke.hmm_problem(dict(B=B, T=T, K=K), K, "cuda")
+    smoke.check_hmm_stat_fwd_bitwise(
+        smoke.hmm_kernel_args(li, lt, lo)["hmm_fb_stat_fwd"])
+
+
+def test_hmm_stat_fwd_writes_every_message_once_in_a_partial_warp(smoke):
+    """K = 3 (a segment of four lanes, one idle) at B=37: 74 chains of 4
+    lanes fill 9 warps and a quarter of a tenth. Through the C entry, onto
+    outputs filled with NaN and followed by a guard of NaN: every message
+    is written, none past the outputs, and each is the streamed kernel's
+    on LT + lo (a shadow or idle lane storing would break one of these)."""
+    from svae_tpu_torch.ops import _build
+    K, B, T = 3, 37, 9
+    li, lt, lo, _ = smoke.hmm_problem(dict(B=B, T=T, K=K), 3, "cuda")
+    args = smoke.hmm_kernel_args(li, lt, lo)["hmm_fb_stat_fwd"]
+    a0, LT, lo32 = smoke._f32(args)
+    n, guard = (T - 1) * K * B, 256
+    buf = torch.full((2, n + guard), float("nan"), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    assert _build.load_library().svae_hmm_fb_stat_fwd_f32(
+        K, B, T - 1, a0.data_ptr(), LT.data_ptr(), lo32.data_ptr(),
+        buf[0].data_ptr(), buf[1].data_ptr(), stream) == 0
+    want = hmm_fb.hmm_fb_fwd(*smoke.hmm_stat_as_streamed(*args))
+    torch.cuda.synchronize()
+    assert torch.isnan(buf[:, n:]).all()
+    for got, w in zip(buf[:, :n], want):
+        assert torch.isfinite(got).all()
+        assert torch.equal(got.reshape(w.shape), w)

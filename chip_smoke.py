@@ -154,7 +154,24 @@ exits non-zero:
    gradients against float64, on per-sequence and shared pairs, one launch
    of each kernel a call; with the timings of phase 5 (the three kernels,
    the one-direction launches and the routes that could have served the
-   shared-pair functions, both E-steps, at config-2 width and T=2048).
+   shared-pair functions, both E-steps, at config-2 width and T=2048);
+4g. GMM-SVAE at BASELINE config 1 (bench.py measure_gmm: pinwheel
+   N=1000, K=8, d_latent=2, 25 mean-field sweeps, S=2, MLP width 40, full
+   batch; random weights from a seed; torch ops, no kernel): the first
+   step's ELBO and statistics against the float64 CPU path under the same
+   noise, 8 steps of ``loop.run``, one ``make_fused_train_step`` call of 8
+   steps and ``classify``, every output finite; the ms of a step (CUDA
+   events), its device ms and device ops (torch.profiler), and the fused
+   call's;
+4f. the forecast and state-sampling APIs, each with the counters set to 0
+   before it and read after it: ``lds.predict`` at config 2 (50 steps)
+   launches ``filter_fwd`` and ``sampler_fwd`` once each,
+   ``slds.sample_states`` at slds_synth (12 sweeps) launches ``bidir_fwd``
+   and ``hmm_fb_fwd`` 13 times each and ``slds.predict`` those and
+   ``sampler_bp_fwd`` once, and nothing else runs; their window samples
+   against the float64 CPU path under the same noise (abs <= 2e-3), the
+   discrete paths on >= 99% of entries, the rollouts where the z paths
+   agree; the event ms of each call.
 
 The line before the last is a JSON object with one entry per kernel (the
 passes of ``sampler_fwd``, ``sampler_bp_fwd``, ``elem_scan_adj``,
@@ -184,13 +201,13 @@ import numpy as np
 import torch
 
 from svae_tpu_torch.data import loader as data_loader
-from svae_tpu_torch.data.synthetic import (make_dot_data,
+from svae_tpu_torch.data.synthetic import (make_dot_data, make_pinwheel,
                                            make_switching_dot_data)
 from svae_tpu_torch.expfam import mniw, niw
-from svae_tpu_torch.models import lds, slds
+from svae_tpu_torch.models import gmm, lds, slds
 from svae_tpu_torch.nets import decoders, recognition
-from svae_tpu_torch.ops import (_build, bpairs, chunked, estep, hmm_fb,
-                                kalman, kalman_fwd)
+from svae_tpu_torch.ops import (_build, bpairs, chunked, estep, hmm,
+                                hmm_fb, kalman, kalman_fwd)
 from svae_tpu_torch.train import elbo, loop
 from svae_tpu_torch.utils.pytree import tree_leaves, tree_map
 
@@ -327,6 +344,12 @@ TOL_MSG_REL = 2e-4
 # Adam at 1e-3, natural-gradient step 0.5
 SLDS_CONFIG = dict(K=4, d=4, T=80, width=16, N=256, hidden=64, sweeps=12,
                    S=2, B=16, net_step_size=1e-3, pgm_step_size=0.5)
+# GMM-SVAE at BASELINE config 1 (bench.py measure_gmm): pinwheel N=1000
+# (5 arms), K=8, d_latent=2, 25 mean-field sweeps, S=2, MLP width 40,
+# full-batch SVI
+GMM_CONFIG = dict(N=1000, K=8, d=2, sweeps=25, S=2, hidden=40)
+# the forecast horizon of lds.predict and slds.predict (phase 4f)
+FORECAST_STEPS = 50
 # bench.py measure_slds: the SLDS E-step alone
 MEASURE_SLDS = dict(B=16, T=50, K=4, d=3, sweeps=10, S=2)
 # the padded-batch theorem in float32: stats and local KL of a padded
@@ -1314,18 +1337,15 @@ def _time_ms(fn, runs=TIMING_RUNS, warmup=3):
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-def _device_ms(fn, calls=20, warmup=3, tries=3):
-    """Device time per call of ``fn()`` by kernel, under torch.profiler:
-    ``{kernel name: ms}`` (a port kernel by its function name, a PyTorch
-    kernel by the first 40 characters of its name). Unlike _time_ms, it
-    does not count the host's time to launch the call. In a process that
-    opens many profiler sessions, a session can lose some of its device
-    records (a 2.5 ms kernel read 1.9 ms a call in one), or all of them:
-    so a kernel's time a call is the mean of its records times its
-    launches a call, the count of its records over ``calls`` rounded, and
-    a session with no device record is taken again, up to ``tries``
-    sessions; after that the reading is empty and said to be not
-    measured."""
+def _device_spans(fn, calls=20, warmup=3, tries=3):
+    """The device records of ``calls`` calls of ``fn()`` under
+    torch.profiler, ``{kernel name: [ms of each record]}`` (a port kernel
+    by its function name, a PyTorch kernel by the first 40 characters of
+    its name). In a process that opens many profiler sessions, a session
+    can lose some of its device records (a 2.5 ms kernel read 1.9 ms a
+    call in one), or all of them: a session with no device record is taken
+    again, up to ``tries`` sessions; after that the result is empty and
+    said to be not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -1345,13 +1365,23 @@ def _device_ms(fn, calls=20, warmup=3, tries=3):
             name = m.group(1) if m else e.name[:40]
             spans.setdefault(name, []).append(
                 (e.time_range.end - e.time_range.start) / 1e3)
-        ms = {k: float(np.mean(v)) * max(1, round(len(v) / calls))
-              for k, v in spans.items()}
-        if ms:
-            return ms
+        if spans:
+            return spans
     print(f"device time not measured: torch.profiler recorded no device "
           f"event in {tries} sessions")
-    return ms
+    return {}
+
+
+def _device_ms(fn, calls=20, warmup=3, tries=3):
+    """Device time per call of ``fn()`` by kernel, under torch.profiler:
+    ``{kernel name: ms}`` (see _device_spans). Unlike _time_ms, it does not
+    count the host's time to launch the call. Since a session can lose
+    some of its records, a kernel's time a call is the mean of its records
+    times its launches a call, the count of its records over ``calls``
+    rounded."""
+    spans = _device_spans(fn, calls, warmup, tries)
+    return {k: float(np.mean(v)) * max(1, round(len(v) / calls))
+            for k, v in spans.items()}
 
 
 def _config2_models(device):
@@ -1918,6 +1948,226 @@ def slds_padded_theorem(device="cuda", lengths=(37, 80), seed=8,
         raise AssertionError("a padded SLDS batch disagrees with its "
                              "sequences")
     return stat_rel, kl_rel
+
+
+def _device_totals(fn, calls=5):
+    """Device ms and device ops per call of ``fn()`` under torch.profiler
+    (NaN where no record came back)."""
+    spans = _device_spans(fn, calls=calls, warmup=1)
+    if not spans:
+        return math.nan, math.nan
+    return (sum(map(sum, spans.values())) / calls,
+            sum(map(len, spans.values())) / calls)
+
+
+def gmm_path(device="cuda", cfg=GMM_CONFIG):
+    """Phase 4g: GMM-SVAE at BASELINE config 1, full batch: 8 steps of
+    ``loop.run`` and one ``make_fused_train_step`` call of TRAIN_K steps,
+    then ``classify`` of the data; the first step's ELBO and statistics
+    against the float64 CPU path under the same noise (rel <=
+    TOL_LOGZ_REL); every output finite; ms a step (CUDA events), device
+    ms and device ops a step (torch.profiler). No kernel runs here: the
+    JAX package's GMM path is XLA ops, and the port's is torch ops."""
+    N, K, d, S = (cfg[k] for k in ("N", "K", "d", "S"))
+    data = torch.from_numpy(make_pinwheel(seed=0, num_classes=5,
+                                          num_per_class=N // 5)).to(device)
+    g = torch.Generator().manual_seed(0)
+    prior = gmm.init_pgm_param(K, d, g, device=device)
+    glob = gmm.init_pgm_param(K, d, g, random_scale=2.0, device=device)
+    rec = recognition.init_mlp_recognize(2, (cfg["hidden"],), d, g,
+                                         device=device)
+    dec = decoders.init_mlp_decode(d, (cfg["hidden"],), 2, g, device=device)
+    run = functools.partial(gmm.run_inference,
+                            num_meanfield_iters=cfg["sweeps"])
+    parts = (run, recognition.mlp_recognize, decoders.mlp_loglike, prior, N)
+    gen = torch.Generator(device=device).manual_seed(8)
+
+    # the first step against float64 on the CPU, same noise
+    eps = torch.randn((S, N, d), generator=gen, device=device)
+    cpu64 = lambda t: t.detach().double().cpu()
+    obj = elbo.make_objective(functools.partial(run, eps=eps), *parts[1:],
+                              num_samples=S)
+    obj64 = elbo.make_objective(functools.partial(run, eps=cpu64(eps)),
+                                *parts[1:3], tree_map(cpu64, prior), N,
+                                num_samples=S)
+    with torch.no_grad():
+        val, (stats, _) = obj(glob, (rec, dec), data, gen)
+        val64, (stats64, _) = obj64(
+            tree_map(cpu64, glob),
+            tuple(copy.deepcopy(m).double().cpu() for m in (rec, dec)),
+            cpu64(data), None)
+    rel = abs(float(val) - float(val64)) / abs(float(val64))
+    stat_rel = max(float((cpu64(a) - b).abs().max() / b.abs().max())
+                   for a, b in zip(tree_leaves(stats), tree_leaves(stats64)))
+    print(f"gmm first step vs float64 CPU path: elbo rel {rel:.3e}, stats "
+          f"rel {stat_rel:.3e}")
+    if not (rel <= TOL_LOGZ_REL and stat_rel <= TOL_LOGZ_REL):
+        raise AssertionError("the GMM step disagrees with the f64 reference")
+
+    opt_init, step = loop.make_train_step(*parts, num_samples=S)
+    _, fused = loop.make_fused_train_step(*parts, k_steps=TRAIN_K,
+                                          num_samples=S)
+    pgm, nets, state, history, gen = loop.run(
+        step, glob, (rec, dec), opt_init(glob, (rec, dec)), data, gen,
+        num_epochs=8, batch_size=N, shuffle=False)
+    pgm, nets, state, _, terms, elbos = fused(pgm, nets, state, data, gen)
+    with torch.no_grad():
+        probs = gmm.classify(pgm, nets[0](data), cfg["sweeps"])
+    elbos = history + elbos.tolist()
+    _finite([pgm, tuple(terms.values()), probs], "the GMM path")
+    if len(elbos) != 8 + TRAIN_K or not np.isfinite(elbos).all():
+        raise AssertionError(f"gmm path: bad ELBO history {elbos}")
+    if (probs.shape != (N, K) or float((probs.sum(-1) - 1).abs().max())
+            > 1e-4):
+        raise AssertionError("gmm classify: rows are not distributions")
+    print(f"gmm path ({8 + TRAIN_K} steps, N={N}, K={K}, d={d}, "
+          f"{cfg['sweeps']} sweeps, S={S}): elbo/N "
+          f"{' '.join(f'{e:.4f}' for e in elbos)}; clusters used "
+          f"{int(probs.argmax(-1).unique().numel())} of {K}")
+
+    st = [pgm, nets, state]
+
+    def one_step():
+        st[0], st[1], st[2], _, _ = step(*st, data, gen)
+
+    ms = _time_ms(one_step, runs=10)
+    dev_ms, ops = _device_totals(one_step)
+    fused_ms = _time_ms(lambda: fused(*st, data, gen), runs=5, warmup=1)
+    print(f"time gmm_train_step: {ms:.4f} ms = {1e3 / ms:.1f} steps/s; "
+          f"device {dev_ms:.4f} ms in {ops:.1f} device ops a step (idle "
+          f"{1 - dev_ms / ms:.1%}); fused {TRAIN_K}-step call "
+          f"{fused_ms:.4f} ms = {TRAIN_K * 1e3 / fused_ms:.1f} steps/s")
+    return dict(gmm_train_step=ms, gmm_train_step_device=dev_ms,
+                gmm_train_step_ops=ops, gmm_fused=fused_ms)
+
+
+# the kernels the forecast APIs launch: the stationary filter and sampler
+# (#1, #3) for lds.predict, the bpairs filter and sampler (#13, #9) and the
+# HMM forward (#15) for the SLDS APIs
+FORECAST_WRAPPERS = (estep.filter_fwd, estep.sampler_fwd, bpairs.bidir_fwd,
+                     bpairs.sampler_bp_fwd, hmm_fb.hmm_fb_fwd)
+
+
+def _forecast_launches(fn, want):
+    """Run ``fn()`` with the counters at 0; raise unless the forecast
+    kernels' launches are ``want`` (others 0) and no plain version ran."""
+    _reset_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in ALL_WRAPPERS if w.launches}
+    plain = sum(p.calls for p in ALL_PLAINS)
+    full = {w.__name__: want.get(w.__name__, 0) for w in FORECAST_WRAPPERS}
+    if launches != {k: v for k, v in full.items() if v} or plain:
+        raise AssertionError(f"launches {launches} (plain calls {plain}), "
+                             f"want {want}")
+    return out, launches
+
+
+def _agree(a, b):
+    """The share of equal entries of two discrete paths."""
+    return float((a.cpu() == b.cpu()).double().mean())
+
+
+def forecast_path(device="cuda", cfg=SLDS_CONFIG, steps=FORECAST_STEPS):
+    """Phase 4f: ``lds.predict`` at config 2 (B=64, T=100, d=10, S=2) and
+    ``slds.sample_states`` and ``slds.predict`` at slds_synth (B=16, T=80,
+    K=4, d=4, 12 sweeps), ``steps`` forecast steps, each with the counters
+    at 0: its launches of #1, #3 (lds) or #13, #15, #9 (slds) and nothing
+    else; the window samples against the float64 CPU path under the same
+    noise (abs <= TOL_ABS), the discrete paths agreeing on >= 99% of their
+    entries (a flip needs a near tie), the rollout agreeing where its z
+    path does; every output finite; the event ms of each call, and its
+    device ms and device ops."""
+    cpu64 = lambda t: t.detach().double().cpu()
+    gen = torch.Generator(device=device).manual_seed(9)
+    out = {}
+
+    B, T, d, S = 64, 100, 10, 2
+    _, glob, rec, _ = _config2_models(device)
+    data = torch.from_numpy(make_dot_data(seed=3, num_seqs=B, T=T,
+                                          image_width=20)).to(device)
+    with torch.no_grad():
+        pots = rec(data)
+    eps = torch.randn((S, B, T, d), generator=gen, device=device)
+    step_eps = torch.randn((steps, S, B, d), generator=gen, device=device)
+    call = lambda: lds.predict(glob, pots, gen, steps, S, eps=eps,
+                               step_eps=step_eps)
+    with torch.no_grad():
+        x, launches = _forecast_launches(
+            call, {"filter_fwd": 1, "sampler_fwd": 1})
+        x64 = lds.predict(tree_map(cpu64, glob), tree_map(cpu64, pots), None,
+                          steps, S, eps=cpu64(eps), step_eps=cpu64(step_eps))
+        ms = _time_ms(call, runs=10)
+        busy = _device_totals(call)
+    _finite(x, "lds.predict")
+    err = (cpu64(x) - x64).abs()
+    window, roll = float(err[:, :, :T].max()), float(err[:, :, T:].max())
+    print(f"lds.predict [B={B}, T={T}, d={d}, S={S}, {steps} steps]: "
+          f"launches {launches}; vs float64 CPU: window max abs "
+          f"{window:.3e}, rollout max abs {roll:.3e}; {ms:.4f} ms, device "
+          f"{busy[0]:.4f} ms in {busy[1]:.1f} device ops")
+    if x.shape != (B, S, T + steps, d) or max(window, roll) > TOL_ABS:
+        raise AssertionError("lds.predict disagrees with the f64 reference")
+    out["lds_predict"] = ms
+
+    K, d, T, B, S = (cfg[k] for k in ("K", "d", "T", "B", "S"))
+    _, glob, rec, _ = _slds_models(device, K, d, cfg["width"], cfg["hidden"])
+    data = torch.from_numpy(make_switching_dot_data(
+        2, B, T, cfg["width"])).to(device)
+    with torch.no_grad():
+        pots = rec(data)
+    g0 = hmm.gumbel((B, S, K), gen, torch.float32, device)
+    gs = hmm.gumbel((B, T - 1, S, K), gen, torch.float32, device)
+    noise = dict(eps=torch.randn((S, B, T, d), generator=gen, device=device),
+                 gumbel_noise=(g0, gs),
+                 step_eps=torch.randn((steps, S, B, d), generator=gen,
+                                      device=device),
+                 step_gumbel=hmm.gumbel((steps, S, B, K), gen, torch.float32,
+                                        device))
+    noise64 = {k: tree_map(cpu64, v) for k, v in noise.items()}
+    sweeps = cfg["sweeps"]
+    mf = {"bidir_fwd": sweeps + 1, "hmm_fb_fwd": sweeps + 1}
+    glob64, pots64 = tree_map(cpu64, glob), tree_map(cpu64, pots)
+
+    states = lambda: slds.sample_states(glob, pots, gen, S, sweeps,
+                                        gumbel_noise=noise["gumbel_noise"])
+    z, launches = _forecast_launches(states, mf)
+    z64 = slds.sample_states(glob64, pots64, None, S, sweeps,
+                             gumbel_noise=noise64["gumbel_noise"])
+    agree = _agree(z, z64)
+    ms = _time_ms(states, runs=10)
+    busy = _device_totals(states)
+    print(f"slds.sample_states [B={B}, T={T}, K={K}, d={d}, S={S}, "
+          f"{sweeps} sweeps]: launches {launches}; paths agree with float64 "
+          f"CPU on {agree:.2%} of entries; {ms:.4f} ms, device "
+          f"{busy[0]:.4f} ms in {busy[1]:.1f} device ops")
+    if z.shape != (B, S, T) or agree < 0.99:
+        raise AssertionError("slds.sample_states disagrees with the f64 "
+                             "reference")
+    out["slds_sample_states"] = ms
+
+    pred = lambda: slds.predict(glob, pots, gen, steps, S, sweeps, **noise)
+    (x, z), launches = _forecast_launches(pred, dict(mf, sampler_bp_fwd=1))
+    x64, z64 = slds.predict(glob64, pots64, None, steps, S, sweeps,
+                            **noise64)
+    ms = _time_ms(pred, runs=10)
+    busy = _device_totals(pred)
+    _finite(x, "slds.predict")
+    agree = _agree(z, z64)
+    same = (z.cpu() == z64).all(-1)                       # (B, S)
+    err = (cpu64(x) - x64).abs()
+    window = float(err[:, :, :T].max())
+    roll = float(err[:, :, T:][same].max()) if bool(same.any()) else 0.0
+    print(f"slds.predict [{steps} steps]: launches {launches}; z paths "
+          f"agree with float64 CPU on {agree:.2%} of entries ({int(same.sum())}"
+          f" of {same.numel()} whole); window max abs {window:.3e}, rollout "
+          f"max abs {roll:.3e} where z agrees; {ms:.4f} ms, device "
+          f"{busy[0]:.4f} ms in {busy[1]:.1f} device ops")
+    if (x.shape != (B, S, T + steps, d) or agree < 0.99
+            or max(window, roll) > TOL_ABS):
+        raise AssertionError("slds.predict disagrees with the f64 reference")
+    out["slds_predict"] = ms
+    return out
 
 
 def elem_problem(shape, seed=0, device="cuda", stiff=False):
@@ -3398,6 +3648,8 @@ def main():
     long_t_moments()
     launches.update(kalman_fwd_path())
     one_direction_filters()
+    gmm_path()
+    forecast_path()
     t = timings()
     t.update(ragged_timings())
     t.update(slds_timings())

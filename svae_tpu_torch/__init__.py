@@ -2,11 +2,16 @@
 
 The JAX package ``svae_tpu`` is the reference; this package mirrors its
 module names. It imports PyTorch and NumPy and never JAX. It holds the
-LDS-SVAE inference and training paths (``models.lds`` on the packed E-step
-of ``ops.estep`` or, for ragged batches, the per-sequence-pairs E-step of
+GMM-SVAE (``models.gmm``, a block mean-field of torch ops over the
+``expfam.gaussian`` and ``expfam.categorical`` families), the LDS-SVAE
+inference and training paths (``models.lds`` on the packed E-step of
+``ops.estep`` or, for ragged batches, the per-sequence-pairs E-step of
 ``ops.bpairs``) and SLDS-SVAE training (``models.slds``, a structured
 mean-field alternating ``ops.bpairs`` with the HMM forward-backward of
-``ops.hmm_fb``), with the recognition nets and decoders (``nets``), the
+``ops.hmm_fb``), the forecast and state-sampling APIs (``lds.predict``,
+``slds.sample_states``, ``slds.predict``, ``ops.hmm.hmm_sample``) and
+the MAP decode (``slds.most_likely_states``), with the recognition nets
+and decoders (``nets``), the
 MC-ELBO and its gradients (``train.elbo``), the optimizers and loops
 (``train``) and the data layer (``data``). Every serial recursion is a
 hand-written CUDA kernel in ``csrc/`` with a plain PyTorch twin for CPU

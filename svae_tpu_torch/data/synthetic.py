@@ -1,9 +1,29 @@
 """Synthetic data: NumPy copies of svae_tpu/data/synthetic.py's
-``make_dot_data`` and of examples/slds_synth.py's
-``make_switching_dot_data``, giving the same arrays for the same seed
-(tested)."""
+``make_pinwheel``, ``make_dot_data``, ``rand_lds`` and ``lds_rollout`` and
+of examples/slds_synth.py's ``make_switching_dot_data``, giving the same
+arrays for the same seed (tested)."""
 
 import numpy as np
+
+
+def make_pinwheel(seed=0, num_classes=5, num_per_class=100, radial_std=0.3,
+                  tangential_std=0.05, rate=0.25):
+    """2-D pinwheel: ``num_classes`` spiral arms of ``num_per_class``
+    points each, shuffled; float32 (num_classes * num_per_class, 2). The
+    GMM-SVAE's dataset."""
+    rng = np.random.RandomState(seed)
+    rads = np.linspace(0, 2 * np.pi, num_classes, endpoint=False)
+    features = rng.randn(num_classes * num_per_class, 2) * np.array(
+        [radial_std, tangential_std])
+    features[:, 0] += 1.0
+    labels = np.repeat(np.arange(num_classes), num_per_class)
+    angles = rads[labels] + rate * np.exp(features[:, 0])
+    rotations = np.stack(
+        [np.cos(angles), -np.sin(angles), np.sin(angles), np.cos(angles)],
+        axis=-1).reshape(-1, 2, 2)
+    data = np.einsum("ni,nij->nj", features, rotations)
+    perm = rng.permutation(len(data))
+    return data[perm].astype(np.float32)
 
 
 def make_dot_data(seed=0, num_seqs=64, T=100, image_width=20, dot_width=3,
@@ -27,6 +47,30 @@ def make_dot_data(seed=0, num_seqs=64, T=100, image_width=20, dot_width=3,
             pos += vel
     out += noise_std * rng.randn(*out.shape)
     return out.astype(np.float32)
+
+
+def rand_lds(seed=0, d=2, eigmax=0.9, q_scale=0.1):
+    """A random stable LDS ``(A, Q, mu0, S0)``: A with spectral radius
+    ``eigmax``, Q = q_scale I, mu0 = 0, S0 = I (float64)."""
+    rng = np.random.RandomState(seed)
+    A = rng.randn(d, d)
+    A *= eigmax / max(np.abs(np.linalg.eigvals(A)))
+    return A, q_scale * np.eye(d), np.zeros(d), np.eye(d)
+
+
+def lds_rollout(A, Q, mu0, S0, T, seed=0, num_seqs=1):
+    """Trajectories x_{1:T} drawn from the LDS prior; float32
+    (num_seqs, T, d)."""
+    rng = np.random.RandomState(seed)
+    d = A.shape[0]
+    Lq = np.linalg.cholesky(Q)
+    L0 = np.linalg.cholesky(S0)
+    xs = np.empty((num_seqs, T, d))
+    x = mu0 + rng.randn(num_seqs, d) @ L0.T
+    for t in range(T):
+        xs[:, t] = x
+        x = x @ A.T + rng.randn(num_seqs, d) @ Lq.T
+    return xs.astype(np.float32)
 
 
 def make_switching_dot_data(seed, num_seqs, T, image_width,

@@ -62,6 +62,15 @@ def expectedstats(natparam):
     return (E_t1, E_t2, E_t3, E_t4)
 
 
+def posterior_mean_params(natparam):
+    """The posterior-mean dynamics ``(E[A], E[Sigma]) = (M, Phi / (nu - d
+    - 1))`` (the inverse-Wishart mean, nu > d + 1), for the forecasts of
+    models.lds.predict and models.slds.predict."""
+    Phi, M, V, nu = natural_to_standard(natparam)
+    d = M.shape[-2]
+    return M, symmetrize(Phi / (nu[..., None, None] - d - 1.0))
+
+
 def expected_pair_potential(natparam):
     """``(E_t1, E_t2, E_t3, const)`` with const = E_t4 - d/2 log(2 pi): the
     expected LDS pair potential for the E-step."""

@@ -55,6 +55,12 @@ def init_pgm_param(d, generator, niw_conc=10.0, mniw_conc=10.0, A_scale=0.9,
     return (niw_natparam, mniw_natparam)
 
 
+def pgm_expectedstats(global_natparam):
+    """(NIW, MNIW) expected statistics under q(theta)."""
+    niw_natparam, mniw_natparam = global_natparam
+    return niw.expectedstats(niw_natparam), mniw.expectedstats(mniw_natparam)
+
+
 def mask_potentials(nn_potentials, mask):
     """Zero the recognition evidence at masked-out frames. ``mask`` is
     (T,) or (B, T), boolean or {0,1}; a zero node potential in information
@@ -280,3 +286,48 @@ def posterior_moments(global_natparam, nn_potentials, parallel=False,
     if not batched:
         return Ex[0], ExxT[0], Exnxt[0], logZ[0]
     return Ex, ExxT, Exnxt, logZ
+
+
+@f32_linalg()
+def predict(global_natparam, nn_potentials, generator, num_steps,
+            num_samples=1, parallel=False, mask=None, eps=None,
+            step_eps=None):
+    """Forecast: condition on an observed window through the recognition
+    potentials, then roll the posterior-mean dynamics (E[A], E[Sigma]) of
+    the MNIW factor forward ``num_steps`` with process noise.
+
+    ``nn_potentials`` = (J_diag, h), (T, d) or (B, T, d). Returns latent
+    trajectories (S, T + num_steps, d) or, batched, (B, S, T + num_steps,
+    d), as the JAX package's ``vmap`` lays them out: the first T frames are
+    posterior samples of the window, drawn on the route that
+    :func:`run_inference` takes for the same ``parallel`` (the stationary
+    filter and sampler kernels for ``False``), the rest the rollout.
+    ``mask`` marks missing frames of the window, as in
+    :func:`run_inference`. ``generator`` draws the noise unless it is
+    given: ``eps`` (S, B, T, d) for the window (the JAX package's
+    ``normal(k1, (S, T, d))`` per sequence) and ``step_eps``
+    (num_steps, S, B, d) for the rollout (its ``normal(k2, (num_steps, S,
+    d))``), B = 1 for one sequence."""
+    parallel = _check_parallel(parallel)
+    J_diag, h, batched = _prepare(nn_potentials, mask, None)
+    init, pair_mats = _expected_potentials(global_natparam, h.dtype)
+    if parallel:
+        pairs, nodes = _chain(pair_mats, (J_diag, h))
+        xs = _route(parallel)[0](init, pairs, nodes, generator, num_samples,
+                                 eps=eps)[0]
+    else:
+        xs = estep.lds_sample_stationary(init, pair_mats, (J_diag, h),
+                                         generator, num_samples, eps=eps)
+    S, B, _, d = xs.shape
+    A, Sigma = tree_map(lambda a: a.to(h.dtype),
+                        mniw.posterior_mean_params(global_natparam[1]))
+    Ls = smallchol.chol(Sigma)
+    if step_eps is None:
+        step_eps = torch.randn((num_steps, S, B, d), generator=generator,
+                               dtype=h.dtype, device=h.device)
+    frames, x = [xs], xs[:, :, -1]
+    for e in step_eps:
+        x = (A @ x[..., None])[..., 0] + (Ls @ e[..., None])[..., 0]
+        frames.append(x[:, :, None])
+    traj = torch.cat(frames, 2).transpose(0, 1)
+    return traj if batched else traj[0]

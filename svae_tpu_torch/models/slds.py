@@ -289,6 +289,15 @@ def _z_chain_inputs(global_natparam, moments, dtype):
         E_pair, _x_pair_stats_b(*moments)))
 
 
+def _converged_meanfield(global_natparam, J_diag, h, num_meanfield_iters):
+    """The structured mean-field with no gradient sweep, and the discrete
+    chain's inputs under it: ``(lds_post, (e_pi0, e_Pi, log_obs))``."""
+    _, lds_post, _ = _batched_meanfield(
+        global_natparam, (J_diag, h), num_iters=num_meanfield_iters,
+        num_diff_iters=0)
+    return lds_post, _z_chain_inputs(global_natparam, lds_post[2], h.dtype)
+
+
 @f32_linalg()
 def most_likely_states(global_natparam, nn_potentials,
                        num_meanfield_iters=15, mask=None):
@@ -300,10 +309,89 @@ def most_likely_states(global_natparam, nn_potentials,
     dynamics). No gradient is taken."""
     J_diag, h, batched = lds._prepare(nn_potentials, mask, None)
     with torch.no_grad():
-        _, lds_post, _ = _batched_meanfield(
-            global_natparam, (J_diag, h), num_iters=num_meanfield_iters,
-            num_diff_iters=0)
-        e_pi0, e_Pi, log_obs = _z_chain_inputs(global_natparam, lds_post[2],
-                                               h.dtype)
-        path, _ = hmm.hmm_viterbi(e_pi0, e_Pi, log_obs)
+        _, z_inputs = _converged_meanfield(global_natparam, J_diag, h,
+                                           num_meanfield_iters)
+        path, _ = hmm.hmm_viterbi(*z_inputs)
     return path if batched else path[0]
+
+
+@f32_linalg()
+def sample_states(global_natparam, nn_potentials, generator, num_samples=(),
+                  num_meanfield_iters=15, mask=None, gumbel_noise=None):
+    """Posterior samples of the discrete paths under the converged
+    structured mean-field q(z): Gumbel-argmax backward sampling
+    (:func:`~svae_tpu_torch.ops.hmm.hmm_sample`) through the HMM factor
+    whose observations are the pair energies at q(x). ``nn_potentials`` =
+    (J_diag, h), (T, d) or (B, T, d); returns int32 paths S + (T,) or
+    (B,) + S + (T,) (``num_samples`` an int or a shape tuple S).
+    ``gumbel_noise`` overrides the noise in ``hmm_sample``'s layout (B = 1
+    for one sequence). ``mask`` marks missing frames. No gradient is
+    taken."""
+    J_diag, h, batched = lds._prepare(nn_potentials, mask, None)
+    with torch.no_grad():
+        _, z_inputs = _converged_meanfield(global_natparam, J_diag, h,
+                                           num_meanfield_iters)
+        paths = hmm.hmm_sample(*z_inputs, generator, num_samples,
+                               gumbel_noise=gumbel_noise)
+    return paths if batched else paths[0]
+
+
+@f32_linalg()
+def predict(global_natparam, nn_potentials, generator, num_steps,
+            num_samples=1, num_meanfield_iters=15, mask=None, eps=None,
+            gumbel_noise=None, step_eps=None, step_gumbel=None):
+    """Regime-switching forecast: condition on an observed window through
+    the structured mean-field, sample joint posterior paths (z, x) of the
+    window, then roll forward ``num_steps`` with z_{n+1} ~ Cat(E[Pi]_{z_n})
+    (the posterior-mean transition rows of the Dirichlet factors) and
+    x_{n+1} ~ N(E[A_k] x_n, E[Sigma_k]) at k = z_{n+1}
+    (``mniw.posterior_mean_params``).
+
+    ``nn_potentials`` = (J_diag, h), (T, d) or (B, T, d). Returns
+    ``(x_traj, z_traj)``, (S, T + num_steps, d) and int32
+    (S, T + num_steps), with a batch axis in front for a batch, as the JAX
+    package's ``vmap`` lays them out. The window's x samples come from the
+    converged q(x) through ``bpairs.lds_sample``, its z paths from
+    :func:`~svae_tpu_torch.ops.hmm.hmm_sample`. ``generator`` draws the
+    noise unless it is given, one override for each of the JAX package's
+    four draws: ``eps`` (S, B, T, d) for the window's x, ``gumbel_noise``
+    for its z paths (``hmm_sample``'s layout), ``step_eps``
+    (num_steps, S, B, d) and ``step_gumbel`` (num_steps, S, B, K) for the
+    rollout (B = 1 for one sequence). ``mask`` marks missing frames. No
+    gradient is taken."""
+    J_diag, h, batched = lds._prepare(nn_potentials, mask, None)
+    _, trans_dir, _, mniw_np = global_natparam
+    with torch.no_grad():
+        # posterior-mean transition probabilities, not exp E[log Pi]: the
+        # rollout wants a normalized predictive kernel
+        alpha = dirichlet.natural_to_standard(trans_dir)
+        log_Pi = torch.log(alpha / alpha.sum(-1, keepdim=True)).to(h.dtype)
+        A_k, Sigma_k = tree_map(lambda a: a.to(h.dtype),
+                                mniw.posterior_mean_params(mniw_np))
+        Ls_k = smallchol.chol(Sigma_k)
+        lds_post, z_inputs = _converged_meanfield(
+            global_natparam, J_diag, h, num_meanfield_iters)
+        _, (_, pairs_bar, _), _, filt = lds_post
+        xs = bpairs.lds_sample(pairs_bar, filt, generator, num_samples,
+                               eps=eps)                    # (S, B, T, d)
+        zs = hmm.hmm_sample(*z_inputs, generator, num_samples,
+                            gumbel_noise=gumbel_noise)     # (B, S, T)
+        S, B, _, d = xs.shape
+        K = log_Pi.shape[-1]
+        kw = dict(dtype=h.dtype, device=h.device)
+        if step_eps is None:
+            step_eps = torch.randn((num_steps, S, B, d), generator=generator,
+                                   **kw)
+        if step_gumbel is None:
+            step_gumbel = hmm.gumbel((num_steps, S, B, K), generator, **kw)
+        x_frames, z_frames = [xs], [zs.transpose(0, 1).long()]
+        x, z = xs[:, :, -1], z_frames[0][:, :, -1]
+        for e, g in zip(step_eps, step_gumbel):
+            z = (log_Pi[z] + g).argmax(-1)
+            x = ((A_k[z] @ x[..., None])[..., 0]
+                 + (Ls_k[z] @ e[..., None])[..., 0])
+            x_frames.append(x[:, :, None])
+            z_frames.append(z[:, :, None])
+    x_traj = torch.cat(x_frames, 2).transpose(0, 1)
+    z_traj = torch.cat(z_frames, 2).transpose(0, 1).to(torch.int32)
+    return (x_traj, z_traj) if batched else (x_traj[0], z_traj[0])

@@ -903,12 +903,47 @@ def sampler_inputs(pair_mats, Jf, hf, eps):
     return args, xT
 
 
+def _samples(pair_mats, Jf, hf, generator, num_samples, eps=None,
+             plain=False):
+    """(S, B, T, d) posterior samples from the packed forward messages
+    ``Jf`` (T, d*d, B), ``hf`` (T, d, B): ``generator`` draws the noise
+    unless ``eps`` (S, B, T, d) gives it."""
+    T, d, B = hf.shape
+    S = int(num_samples)
+    if eps is None:
+        if generator is None:
+            raise ValueError("the stationary sampler: pass a "
+                             "torch.Generator or eps; the global RNG is not "
+                             "used")
+        eps = torch.randn((S, B, T, d), generator=generator, dtype=hf.dtype,
+                          device=hf.device)
+    args, xT = sampler_inputs(pair_mats, Jf, hf, eps)
+    xb = _forward(sampler_fwd, sampler_fwd_plain, SamplerFwd, args,
+                  plain)                                  # (T-1, d, S*B)
+    x_body = xb.permute(2, 0, 1).reshape(S, B, T - 1, d)
+    return torch.cat([x_body, xT[:, :, None]], dim=2)
+
+
 def lds_moments_stationary(init, pair_mats, nodes_diag):
     """Smoothed posterior moments, no sampling: ``(logZ (B,), Ex (B,T,d),
     ExxT (B,T,d,d), Exnxt (B,T-1,d,d))``."""
     logZ, Ex, ExxT, Exnxt, _, _ = _filter_and_moments(
         init, pair_mats, nodes_diag)
     return logZ, Ex, ExxT, Exnxt
+
+
+def lds_sample_stationary(init, pair_mats, nodes_diag, generator,
+                          num_samples, eps=None):
+    """Posterior samples (S, B, T, d) alone: :func:`filter_fwd`'s forward
+    lanes feed :func:`sampler_fwd`, with no moment assembly, on the same
+    arguments as :func:`lds_estep_stationary` (whose samples these are, for
+    the same noise)."""
+    B = nodes_diag[1].shape[0]
+    args = filter_inputs(init, pair_mats, nodes_diag)
+    Jr, hr, _ = _forward(filter_fwd, filter_fwd_plain, FilterFwd, args)
+    Jf = torch.cat([args[0][None, :, :B], Jr[:, :, :B]])
+    hf = torch.cat([args[1][None, :, :B], hr[:, :, :B]])
+    return _samples(pair_mats, Jf, hf, generator, num_samples, eps)
 
 
 def lds_estep_stationary(init, pair_mats, nodes_diag, generator,
@@ -927,7 +962,6 @@ def lds_estep_stationary(init, pair_mats, nodes_diag, generator,
     the statistics summed over the batch."""
     jd, n2 = nodes_diag
     B, T, d = n2.shape
-    S = int(num_samples)
     T1 = T - 1
 
     logZ, Ex, ExxT, Exnxt, Jf, hf = _filter_and_moments(
@@ -944,15 +978,5 @@ def lds_estep_stationary(init, pair_mats, nodes_diag, generator,
     local_kl = (-0.5 * (jd * diag_ExxT).sum() + (n2 * Ex).sum()
                 - logZ.sum())
 
-    if eps is None:
-        if generator is None:
-            raise ValueError("lds_estep_stationary: pass a torch.Generator "
-                             "or eps; the global RNG is not used")
-        eps = torch.randn((S, B, T, d), generator=generator, dtype=n2.dtype,
-                          device=n2.device)
-    args, xT = sampler_inputs(pair_mats, Jf, hf, eps)
-    xb = _forward(sampler_fwd, sampler_fwd_plain, SamplerFwd, args,
-                  plain)                                  # (T-1, d, S*B)
-    x_body = xb.permute(2, 0, 1).reshape(S, B, T1, d)
-    samples = torch.cat([x_body, xT[:, :, None]], dim=2)
+    samples = _samples(pair_mats, Jf, hf, generator, num_samples, eps, plain)
     return samples, (niw_stats, mniw_stats), local_kl

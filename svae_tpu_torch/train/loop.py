@@ -151,7 +151,7 @@ def run_loader(train_step, pgm_params, net_params, opt_state, get_batches,
     shape change or an epoch end runs the partial group step by step). The
     trajectory does not depend on k, as the JAX package's docstring
     guarantees for its own; fusing a group into one CUDA graph is later
-    work (ROADMAP.md Queue 1, item 2). The total step count is not known
+    work (ROADMAP.md). The total step count is not known
     up front, so the callback fires on the cadence only.
 
     ``callback(step, elbo, (pgm_params, net_params, opt_state), terms,

@@ -171,7 +171,25 @@ exits non-zero:
    ``sampler_bp_fwd`` once, and nothing else runs; their window samples
    against the float64 CPU path under the same noise (abs <= 2e-3), the
    discrete paths on >= 99% of entries, the rollouts where the z paths
-   agree; the event ms of each call.
+   agree; the event ms of each call;
+4e. the conv-LDS at BASELINE config 4 (the ``conv_lds`` preset of
+   ``svae_tpu_torch.config``: N=128, B=8, T=500, d_latent=16, 16x16
+   frames, stride-2 convs of (16, 32) channels, decoder width 128, S=2,
+   Adam at 1e-3; random weights from the preset's seed) through
+   ``examples.conv_lds.main`` and ``train.experiment.run``: one epoch (16
+   steps) with a checkpoint directory and a metrics file, the counters
+   showing #1-#4 launched once a step at d=16 and nothing else; a 2-epoch
+   run preempted after epoch 1 and resumed against the uninterrupted run
+   (the largest ELBO gap printed, rel <= 1e-3); one batch's ELBO, natural
+   gradient and net gradients on the kernels and on the float32 plain
+   path against the float64 CPU path (TF32 off), each held to its T=100
+   tier or to twice the float32 plain path's error (the long-T rule); a
+   bf16 step's gap to the float32 step; a step's event ms, busy ms,
+   device ops and idle share; #1-#4 alone at the config-4 shape (B=8,
+   T=500, d=16, S=2), each against float64 beside its float32 plain
+   version, with event, device and plain ms and bound (printed as their
+   own JSON line before the kernels line); then every example script at
+   its ``*_smoke`` preset on the card, its history finite.
 
 The line before the last is a JSON object with one entry per kernel (the
 passes of ``sampler_fwd``, ``sampler_bp_fwd``, ``elem_scan_adj``,
@@ -189,17 +207,23 @@ no CPU path.
 
 import contextlib
 import copy
+import dataclasses
 import functools
+import importlib
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from svae_tpu_torch.config import PRESETS
 from svae_tpu_torch.data import loader as data_loader
 from svae_tpu_torch.data.synthetic import (make_dot_data, make_pinwheel,
                                            make_switching_dot_data)
@@ -208,7 +232,10 @@ from svae_tpu_torch.models import gmm, lds, slds
 from svae_tpu_torch.nets import decoders, recognition
 from svae_tpu_torch.ops import (_build, bpairs, chunked, estep, hmm,
                                 hmm_fb, kalman, kalman_fwd)
+from svae_tpu_torch.examples import conv_lds
+from svae_tpu_torch.train import checkpoint as ckpt_lib
 from svae_tpu_torch.train import elbo, loop
+from svae_tpu_torch.utils.psd import f32_linalg
 from svae_tpu_torch.utils.pytree import tree_leaves, tree_map
 
 SHAPES = {"small": dict(B=3, T=7, d=3, S=2),
@@ -338,16 +365,24 @@ HMM_SHAPES = {"small": dict(B=3, T=7, K=3), "slds": dict(B=16, T=80, K=4),
 # marginals of hmm_posterior are held to TOL_ABS, the adjoints to
 # TOL_ADJ_REL)
 TOL_MSG_REL = 2e-4
-# SLDS-SVAE training at the slds_synth preset (svae_tpu/config.py
-# SLDSConfig, examples/slds_synth.py): K=4 states, d_latent=4, T=80,
-# 16-pixel frames, MLP width 64, 12 mean-field sweeps, S=2, B=16 of N=256,
-# Adam at 1e-3, natural-gradient step 0.5
-SLDS_CONFIG = dict(K=4, d=4, T=80, width=16, N=256, hidden=64, sweeps=12,
-                   S=2, B=16, net_step_size=1e-3, pgm_step_size=0.5)
-# GMM-SVAE at BASELINE config 1 (bench.py measure_gmm): pinwheel N=1000
-# (5 arms), K=8, d_latent=2, 25 mean-field sweeps, S=2, MLP width 40,
-# full-batch SVI
-GMM_CONFIG = dict(N=1000, K=8, d=2, sweeps=25, S=2, hidden=40)
+# SLDS-SVAE training at the slds_synth preset (svae_tpu_torch.config
+# PRESETS, examples/slds_synth.py): K=4 states, d_latent=4, T=80, 16-pixel
+# frames, MLP width 64, 12 mean-field sweeps, S=2, B=16 of N=256, Adam at
+# 1e-3, natural-gradient step 0.5
+_SLDS = PRESETS["slds_synth"]
+SLDS_CONFIG = dict(K=_SLDS.K, d=_SLDS.d_latent, T=_SLDS.T,
+                   width=_SLDS.image_width, N=_SLDS.num_seqs,
+                   hidden=_SLDS.hidden[0], sweeps=_SLDS.meanfield_iters,
+                   S=_SLDS.train.num_samples, B=_SLDS.train.batch_size,
+                   net_step_size=_SLDS.train.net_step_size,
+                   pgm_step_size=_SLDS.train.pgm_step_size)
+# GMM-SVAE at BASELINE config 1 (the gmm_pinwheel preset, bench.py
+# measure_gmm): pinwheel N=1000 (5 arms), K=8, d_latent=2, 25 mean-field
+# sweeps, S=2, MLP width 40, full-batch SVI
+_GMM = PRESETS["gmm_pinwheel"]
+GMM_CONFIG = dict(N=_GMM.num_classes * _GMM.num_per_class, K=_GMM.K,
+                  d=_GMM.d_latent, sweeps=_GMM.meanfield_iters,
+                  S=_GMM.train.num_samples, hidden=_GMM.hidden[0])
 # the forecast horizon of lds.predict and slds.predict (phase 4f)
 FORECAST_STEPS = 50
 # bench.py measure_slds: the SLDS E-step alone
@@ -2170,6 +2205,270 @@ def forecast_path(device="cuda", cfg=SLDS_CONFIG, steps=FORECAST_STEPS):
     return out
 
 
+# BASELINE config 4 (svae_tpu_torch.config.PRESETS["conv_lds"]): the
+# conv-LDS's E-step shape, and the ELBO tier there. The float32 tiers of
+# tests/test_f32_parity.py were set at T=100; past it the long-T rule of
+# PERF.md §2 holds a kernel path to at most twice the float32 plain path's
+# error on the same inputs where that plain error is itself past the tier
+CONV_SHAPE = dict(B=PRESETS["conv_lds"].train.batch_size,
+                  T=PRESETS["conv_lds"].T, d=PRESETS["conv_lds"].d_latent,
+                  S=PRESETS["conv_lds"].train.num_samples)
+CONV_KERNELS = ("filter_fwd", "filter_adj", "sampler_fwd", "sampler_adj")
+
+
+def _within(err, plain_err, tier):
+    """The tier, or the long-T rule: at most twice the float32 plain
+    version's error on the same inputs."""
+    return err <= max(tier, 2.0 * plain_err)
+
+
+@contextlib.contextmanager
+def _stationary_twins():
+    """``lds.run_inference``'s stationary E-step on its plain twins on
+    whatever device the tensors lie (``lds_estep_stationary(plain=True)``,
+    the switch that exists for these comparisons)."""
+    saved = estep.lds_estep_stationary
+    estep.lds_estep_stationary = functools.partial(saved, plain=True)
+    try:
+        yield
+    finally:
+        estep.lds_estep_stationary = saved
+
+
+def conv_lds_path(device="cuda", preset="conv_lds"):
+    """Phase 4e: the conv-LDS (BASELINE config 4: N=128, B=8, T=500,
+    d_latent=16, 16x16 frames, conv channels (16, 32), kernel 3, decoder
+    width 128, S=2, Adam at 1e-3; random weights from the preset's seed)
+    through ``examples.conv_lds.main`` and ``experiment.run``. Returns
+    ``(launches of the epoch, timings)``."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_conv_")
+    try:
+        return _conv_lds_path(PRESETS[preset], tmp, device, preset)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _conv_lds_path(cfg, tmp, device, preset):
+    def _conv_main(argv):
+        return conv_lds.main(["--device", device, "--preset", preset]
+                             + argv)
+
+    tc = cfg.train
+    steps = cfg.num_seqs // tc.batch_size
+    # one epoch with a checkpoint directory and a metrics file
+    ckdir, mpath = os.path.join(tmp, "ck"), os.path.join(tmp, "m.jsonl")
+    _reset_counters()
+    t0 = time.perf_counter()
+    hist = _conv_main(["--train.num_epochs", "1", "--train.checkpoint_dir",
+                       ckdir, "--train.metrics_path", mpath])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in WRAPPERS}
+    plain_calls = {p.__name__: p.calls for p in ALL_PLAINS if p.calls}
+    other = {w.__name__: w.launches for w in ALL_WRAPPERS
+             if w.launches and w not in WRAPPERS + PASS_WRAPPERS
+             + FWD_PASS_WRAPPERS}
+    print(f"conv_lds (config 4) epoch through experiment.run ({steps} "
+          f"steps, {wall:.1f} s with the data and the checkpoint): "
+          f"launches a step "
+          f"{ {k: v / steps for k, v in launches.items()} }, plain calls "
+          f"{plain_calls}, other kernels {other}")
+    if any(v != steps for v in launches.values()) or plain_calls or other:
+        raise AssertionError(f"the conv_lds epoch did not run #1-#4 once a "
+                             f"step: {launches} {plain_calls} {other}")
+    if len(hist) != steps or not np.isfinite(hist).all():
+        raise AssertionError(f"conv_lds: bad ELBO history {hist}")
+    with open(mpath) as f:
+        records = [json.loads(line) for line in f]
+    if [r["step"] for r in records] != list(range(steps)):
+        raise AssertionError("conv_lds: the metrics file's records")
+    latest = ckpt_lib.latest(ckdir)
+    if latest is None or not latest.endswith(f"ckpt_{steps}.npz"):
+        raise AssertionError(f"conv_lds: checkpoint {latest}")
+    print(f"conv_lds: elbo/N {hist[0]:.4f} -> {hist[-1]:.4f}; "
+          f"{len(records)} metrics records, step_time_s "
+          f"{np.median([r['step_time_s'] for r in records]):.5f} (median); "
+          f"{os.path.basename(latest)}")
+
+    # a 2-epoch run preempted after epoch 1 and resumed, against the
+    # uninterrupted run
+    full = _conv_main(["--train.num_epochs", "2"])
+    ckdir2 = os.path.join(tmp, "pre")
+    first = _conv_main(["--train.num_epochs", "1", "--train.checkpoint_dir",
+                        ckdir2])
+    rest = _conv_main(["--train.num_epochs", "2", "--train.checkpoint_dir",
+                       ckdir2])
+    resumed = np.asarray(first + rest)
+    gap = float(np.max(np.abs(resumed - full) / np.abs(np.asarray(full))))
+    print(f"conv_lds resume: 2 epochs preempted after 1 and resumed vs "
+          f"uninterrupted, largest ELBO gap rel {gap:.3e} (first epoch "
+          f"{float(np.max(np.abs(np.asarray(first) - full[:steps]))):.3e} "
+          f"abs; no determinism flag set)")
+    if len(resumed) != len(full) or not gap <= 1e-3:
+        raise AssertionError("conv_lds: the resumed run left the "
+                             "uninterrupted trajectory")
+
+    t = conv_step_checks(cfg, device)
+    return launches, t
+
+
+def conv_step_checks(cfg, device="cuda"):
+    """One config-4 batch: the ELBO, natural gradient and net gradients on
+    the kernels and on the float32 plain path, each against the float64
+    CPU path under the same noise, with TF32 off (the nets may use it in
+    training; here it would mask the E-step's error); a bf16 step's gap to
+    the float32 step; the event ms, busy ms, device ops and idle share of
+    a step."""
+    tc = cfg.train
+    data, prior, glob, nets, parts = conv_lds.build(cfg, device)
+    B, N, S = tc.batch_size, data.shape[0], tc.num_samples
+    batch = data[:B]
+    gen = torch.Generator(device=device).manual_seed(4)
+    eps = torch.randn((S, B, cfg.T, cfg.d_latent), generator=gen,
+                      device=device)
+    cpu64 = lambda x: x.detach().double().cpu()
+
+    def grads(run_eps, pgm, nets, batch, prior):
+        fn = elbo.make_gradfun(functools.partial(parts[0], eps=run_eps),
+                               *parts[1:], prior, N, num_samples=S)
+        return fn(pgm, nets, batch, None)
+
+    with f32_linalg():
+        got = grads(eps, glob, nets, batch, prior)
+        with _stationary_twins():
+            plain = grads(eps, glob, nets, batch, prior)
+        torch.cuda.synchronize()
+    nets64 = tuple(copy.deepcopy(m).double().cpu() for m in nets)
+    want = grads(cpu64(eps), tree_map(cpu64, glob), nets64, cpu64(batch),
+                 tree_map(cpu64, prior))
+    errs = {}
+    for name, res in (("kernels", got), ("plain f32", plain)):
+        val, nat, net_grads, _ = res
+        errs[name] = (abs(float(val) / float(want[0]) - 1.0),
+                      _normwise(tree_leaves(nat), tree_leaves(want[1])),
+                      max(_normwise(g, g64)
+                          for g, g64 in zip(net_grads, want[2])))
+    print(f"conv_lds step vs float64 CPU path (elbo rel, natgrad rel, worst "
+          f"net grad rel): kernels {errs['kernels']}, float32 plain "
+          f"{errs['plain f32']}")
+    tiers = (TOL_LOGZ_REL, TOL_ADJ_REL, TOL_ADJ_REL)
+    if not all(_within(k, p, tier) for k, p, tier in
+               zip(errs["kernels"], errs["plain f32"], tiers)):
+        raise AssertionError("the config-4 step disagrees with the f64 "
+                             "reference")
+
+    # a bf16 step and a float32 step from the same state and noise
+    cfg16 = dataclasses.replace(cfg, net_compute_dtype="bfloat16")
+    vals = {}
+    for c in (cfg, cfg16):
+        _, prior_c, glob_c, nets_c, parts_c = conv_lds.build(c, device)
+        opt_init, step = loop.make_train_step(
+            *parts_c, prior_c, N, num_samples=S,
+            net_step_size=tc.net_step_size, pgm_step_size=tc.pgm_step_size)
+        g = torch.Generator(device=device).manual_seed(5)
+        out = step(glob_c, nets_c, opt_init(glob_c, nets_c), batch, g)
+        _finite([out[0], out[3], tuple(out[4].values())],
+                f"the {c.net_compute_dtype} step")
+        vals[c.net_compute_dtype] = float(out[3])
+    gap16 = abs(vals["bfloat16"] - vals["float32"]) / abs(vals["float32"])
+    print(f"conv_lds bf16 step: elbo/N {vals['bfloat16']:.6f} vs float32 "
+          f"{vals['float32']:.6f}, rel gap {gap16:.3e}")
+
+    # the step's times
+    opt_init, step = loop.make_train_step(*parts, prior, N, num_samples=S)
+    st = [glob, nets, opt_init(glob, nets)]
+
+    def one_step():
+        st[0], st[1], st[2], _, _ = step(*st, batch, gen)
+
+    ms = _time_ms(one_step, runs=10)
+    dev_ms, ops = _device_totals(one_step)
+    print(f"time conv_lds_train_step: {ms:.4f} ms = {B * 1e3 / ms:.1f} "
+          f"seqs/s; device {dev_ms:.4f} ms in {ops:.1f} device ops a step "
+          f"(idle {1 - dev_ms / ms:.1%})")
+    return dict(conv_train_step=ms, conv_train_step_device=dev_ms,
+                conv_train_step_ops=ops)
+
+
+def conv_kernels(device="cuda", shape=CONV_SHAPE):
+    """#1-#4 alone at config-4 shape: each kernel (float32) and its plain
+    version in float32 against the plain version in float64 on the same
+    inputs (the forward kernels max abs and the filter's summed ln rel, the
+    adjoints normwise rel and max abs), each held to its T=100 tier or to
+    twice the float32 plain error; their event ms, device ms, plain ms
+    (float32, on the card) and bound. Returns ``{name: row}``."""
+    init, mats, nodes, eps = _problem(shape, 0, device)
+    B = shape["B"]
+    fin = estep.filter_inputs(init, mats, nodes)
+    filt64 = estep.filter_fwd_plain(*fin)
+    sin = _sampler_problem(fin, filt64[:2], mats, eps, B)
+    adj_filt, adj_samp = adjoint_problem(shape, 0, device)
+    runs = {
+        "filter_fwd": (estep.filter_fwd, estep.filter_fwd_plain, fin),
+        "sampler_fwd": (estep.sampler_fwd, estep.sampler_fwd_plain, sin),
+        "filter_adj": (estep.filter_adj, estep.filter_adj_plain, adj_filt),
+        "sampler_adj": (estep.sampler_adj, estep.sampler_adj_plain,
+                        adj_samp)}
+    rows = {}
+    for name, (kernel, plain, args) in runs.items():
+        a32 = _f32(args)
+        want = plain(*args)
+        want = want if isinstance(want, tuple) else (want,)
+        outs = {}
+        for tag, fn in (("kernel", kernel), ("plain", plain)):
+            got = fn(*a32)
+            got = got if isinstance(got, tuple) else (got,)
+            torch.cuda.synchronize()
+            if name.endswith("_adj"):
+                outs[tag] = _rel_err(got, want)
+            elif name == "filter_fwd":
+                outs[tag] = (_max_err(got[:2], want[:2]),
+                             _ln_rel(got[2], want[2]))
+            else:
+                outs[tag] = (_max_err(got, want),)
+        tiers = ((TOL_ADJ_REL, math.inf) if name.endswith("_adj") else
+                 (TOL_ABS, TOL_LOGZ_REL))
+        ok = all(_within(k, p, tier) for k, p, tier in
+                 zip(outs["kernel"], outs["plain"], tiers))
+        dev = _device_ms(lambda: kernel(*a32))
+        row = dict(err=outs["kernel"], plain_err=outs["plain"],
+                   ms=_time_ms(lambda: kernel(*a32)),
+                   device_ms=sum(v for n, v in dev.items()
+                                 if n.startswith(name)),
+                   plain_ms=_time_ms(lambda: plain(*a32), runs=3, warmup=1),
+                   bound=bound(name, *(shape[k] for k in "BTdS")))
+        rows[name] = row
+        print(f"config-4 {name} [{shape}]: error {outs['kernel']}, float32 "
+              f"plain error {outs['plain']} (vs float64); {row['ms']:.4f} "
+              f"ms event, {row['device_ms']:.4f} ms device ("
+              + ", ".join(f"{n} {v:.4f}" for n, v in dev.items())
+              + f"), plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound'][0]:.6g} ms ({row['bound'][1]})")
+        if not ok:
+            raise AssertionError(f"{name} at config-4 shape: {outs}")
+    return rows
+
+
+# the example scripts' *_smoke presets, run on the card (phase 4e)
+EXAMPLES = ("gmm_pinwheel", "lds_dots", "lds_missing", "lds_ragged",
+            "slds_synth", "conv_lds")
+
+
+def example_smokes(device="cuda"):
+    """Each example script of the port at its ``*_smoke`` preset on the
+    card: a finite ELBO history (and the missing-data RMSEs)."""
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"svae_tpu_torch.examples.{name}")
+        t0 = time.perf_counter()
+        out = mod.main(["--device", device, "--preset", f"{name}_smoke"])
+        hist = (out[0] if name == "lds_ragged" else
+                list(out) if name == "lds_missing" else out)
+        if not len(hist) or not np.isfinite(hist).all():
+            raise AssertionError(f"example {name}: {out}")
+        print(f"example {name} ({name}_smoke, {device}): "
+              f"{time.perf_counter() - t0:.1f} s, finite")
+
+
 def elem_problem(shape, seed=0, device="cuda", stiff=False):
     """float64 packed leaves (L, R, B*C) of config-``shape`` chains (the
     expected potentials of random globals and recognizer-like evidence)
@@ -3650,6 +3949,9 @@ def main():
     one_direction_filters()
     gmm_path()
     forecast_path()
+    conv_launches, conv_t = conv_lds_path()
+    conv_rows = conv_kernels()
+    example_smokes()
     t = timings()
     t.update(ragged_timings())
     t.update(slds_timings())
@@ -3697,6 +3999,13 @@ def main():
             f"{k} {bound(k, shape['B'], shape['T'], shape['K'], 1)}"
             for k in sum(HMM_RUNS, ()) + HMM_ADJ_PASSES
             + HMM_STAT_ADJ_PASSES))
+    print("config-4 kernels (" + json.dumps(CONV_SHAPE) + ", launches a "
+          "conv_lds step): " + json.dumps([dict(
+              name=k, launches_per_step=conv_launches[k] / (
+                  PRESETS["conv_lds"].num_seqs
+                  // PRESETS["conv_lds"].train.batch_size), **row)
+              for k, row in conv_rows.items()]))
+    print(f"conv_lds step: {json.dumps(conv_t)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

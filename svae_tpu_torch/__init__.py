@@ -13,7 +13,11 @@ mean-field alternating ``ops.bpairs`` with the HMM forward-backward of
 the MAP decode (``slds.most_likely_states``), with the recognition nets
 and decoders (``nets``), the
 MC-ELBO and its gradients (``train.elbo``), the optimizers and loops
-(``train``) and the data layer (``data``). Every serial recursion is a
+(``train``), the experiment runner with its checkpoints and metrics
+(``train.experiment``, ``train.checkpoint``, ``train.metrics``), the
+configs and presets (``config``), the example scripts (``examples``, the
+conv-LDS of BASELINE config 4 among them) and the data layer (``data``).
+Every serial recursion is a
 hand-written CUDA kernel in ``csrc/`` with a plain PyTorch twin for CPU
 tensors.
 """

@@ -9,9 +9,14 @@ this module needs no JAX:
 * an MLP recognizer ``(hidden ((W, b), ...), ((Wj, bj), (Wh, bh)))`` ->
   :class:`~svae_tpu_torch.nets.recognition.MLPRecognizer`;
 * an MLP decoder ``(hidden, ((Wm, bm), (Ws, bs)))`` ->
-  :class:`~svae_tpu_torch.nets.decoders.MLPDecoder`.
+  :class:`~svae_tpu_torch.nets.decoders.MLPDecoder`;
+* a conv recognizer ``(((Wk, b), ...), ((Wj, bj), (Wh, bh)))`` ->
+  :class:`~svae_tpu_torch.nets.recognition.ConvRecognizer`.
 
-Dense weights keep their (n_in, n_out) layout (svae_tpu_torch/nets/mlp.py).
+Dense weights keep their (n_in, n_out) layout (svae_tpu_torch/nets/mlp.py);
+conv kernels go from the JAX package's (k, k, C_in, C_out) to torch's
+(C_out, C_in, k, k). The conv head needs no change: the port flattens the
+features in the JAX package's H, W, C order.
 Like the ``init_*`` entry points, each function places its tensors on the
 card unless given ``device="cpu"``.
 """
@@ -22,7 +27,8 @@ import torch
 from svae_tpu_torch.nets.decoders import MLPDecoder
 from svae_tpu_torch.nets.mlp import (Dense, GaussianInfoHead,
                                      GaussianMeanHead, MLP)
-from svae_tpu_torch.nets.recognition import MLPRecognizer
+from svae_tpu_torch.nets.recognition import (ConvRecognizer, ConvSame,
+                                             MLPRecognizer)
 from svae_tpu_torch.utils.pytree import tree_map
 
 
@@ -58,3 +64,12 @@ def decoder(params, dtype=None, device="cuda"):
         _hidden(hidden, dtype, device),
         GaussianMeanHead(_dense(mean_layer, dtype, device),
                          _dense(sig_layer, dtype, device)))
+
+
+def conv_recognizer(params, dtype=None, device="cuda"):
+    convs, (j_layer, h_layer) = params
+    return ConvRecognizer(
+        [ConvSame(_tensor(np.transpose(W, (3, 2, 0, 1)), dtype, device),
+                  _tensor(b, dtype, device)) for W, b in convs],
+        GaussianInfoHead(_dense(j_layer, dtype, device),
+                         _dense(h_layer, dtype, device)))

@@ -1,7 +1,8 @@
 """Synthetic data: NumPy copies of svae_tpu/data/synthetic.py's
-``make_pinwheel``, ``make_dot_data``, ``rand_lds`` and ``lds_rollout`` and
-of examples/slds_synth.py's ``make_switching_dot_data``, giving the same
-arrays for the same seed (tested)."""
+``make_pinwheel``, ``make_dot_data``, ``rand_lds`` and ``lds_rollout``, of
+examples/slds_synth.py's ``make_switching_dot_data`` and of
+examples/conv_lds.py's ``make_2d_dot_movies``, giving the same arrays for
+the same seed (tested)."""
 
 import numpy as np
 
@@ -100,3 +101,27 @@ def make_switching_dot_data(seed, num_seqs, T, image_width,
     out += 0.05 * rng.randn(*out.shape)
     out = out.astype(np.float32)
     return (out, states) if return_states else out
+
+
+def make_2d_dot_movies(seed, num_seqs, T, hw):
+    """A Gaussian blob bouncing around a 2D frame of ``hw`` = (H, W)
+    pixels; float32 (num_seqs, T, H * W), frames flattened. The conv-LDS
+    dataset (BASELINE config 4)."""
+    rng = np.random.RandomState(seed)
+    H, W = hw
+    ys, xs = np.mgrid[0:H, 0:W]
+    out = np.empty((num_seqs, T, H * W), np.float32)
+    for s in range(num_seqs):
+        p = rng.uniform([1, 1], [H - 2, W - 2])
+        v = 0.4 * rng.randn(2)
+        for t in range(T):
+            img = np.exp(-0.5 * (((ys - p[0]) ** 2 + (xs - p[1]) ** 2)
+                                 / 1.5 ** 2))
+            out[s, t] = img.ravel()
+            p = p + v
+            for i, lim in enumerate((H - 1, W - 1)):
+                if p[i] < 0 or p[i] > lim:
+                    v[i] = -v[i]
+                    p[i] = np.clip(p[i], 0, lim)
+    out += 0.03 * rng.randn(*out.shape)
+    return out.astype(np.float32)

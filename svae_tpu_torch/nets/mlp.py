@@ -12,6 +12,18 @@ import torch
 from torch import nn
 
 
+def matmul(x, W, compute_dtype=None):
+    """``x @ W``, or with ``compute_dtype`` (``torch.bfloat16``) the
+    product of the operands rounded to it, as a float32 result: the JAX
+    package's ``preferred_element_type=float32``. The rounded operands are
+    multiplied in float32, where each product of two bf16 values is exact
+    (as in ``recognition.ConvSame``). Biases, activations and the PGM
+    algebra stay float32: only the nets take this path."""
+    if compute_dtype is None:
+        return x @ W
+    return x.to(compute_dtype).float() @ W.to(compute_dtype).float()
+
+
 class Dense(nn.Module):
     """``x @ W + b`` with ``W`` (n_in, n_out)."""
 
@@ -20,8 +32,8 @@ class Dense(nn.Module):
         self.W = nn.Parameter(W)
         self.b = nn.Parameter(b)
 
-    def forward(self, x):
-        return x @ self.W + self.b
+    def forward(self, x, compute_dtype=None):
+        return matmul(x, self.W, compute_dtype) + self.b
 
 
 def init_dense(n_in, n_out, generator, scale=1.0, dtype=torch.float32,
@@ -49,9 +61,9 @@ class MLP(nn.Module):
         super().__init__()
         self.layers = nn.ModuleList(layers)
 
-    def forward(self, x):
+    def forward(self, x, compute_dtype=None):
         for layer in self.layers:
-            x = torch.tanh(layer(x))
+            x = torch.tanh(layer(x, compute_dtype))
         return x
 
 
@@ -72,8 +84,9 @@ class GaussianInfoHead(nn.Module):
         self.h_layer = h_layer
         self.eps = eps
 
-    def forward(self, h):
-        return softplus(self.j_layer(h)) + self.eps, self.h_layer(h)
+    def forward(self, h, compute_dtype=None):
+        return (softplus(self.j_layer(h, compute_dtype)) + self.eps,
+                self.h_layer(h, compute_dtype))
 
 
 class GaussianMeanHead(nn.Module):
@@ -85,8 +98,8 @@ class GaussianMeanHead(nn.Module):
         self.mean_layer = mean_layer
         self.sig_layer = sig_layer
 
-    def forward(self, h, mean_fn=None):
-        mu = self.mean_layer(h)
+    def forward(self, h, mean_fn=None, compute_dtype=None):
+        mu = self.mean_layer(h, compute_dtype)
         if mean_fn is not None:
             mu = mean_fn(mu)
-        return mu, self.sig_layer(h)
+        return mu, self.sig_layer(h, compute_dtype)

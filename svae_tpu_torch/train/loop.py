@@ -85,7 +85,7 @@ def make_fused_train_step(run_inference, recognize, loglike, pgm_prior, N,
 
 def run(train_step, pgm_params, net_params, opt_state, data, generator,
         num_epochs, batch_size, callback=None, callback_every=1,
-        shuffle=True):
+        shuffle=True, steps_per_dispatch=1):
     """Host-side epoch loop (reference: svae/optimizers.py:adam loop).
 
     ``data`` is one tensor with a leading sequence axis; batches are
@@ -97,11 +97,19 @@ def run(train_step, pgm_params, net_params, opt_state, data, generator,
     firing), ``terms`` the step's device-side metrics. The ELBO history
     stays on the device and is fetched once at the end.
 
+    ``steps_per_dispatch=k`` keeps the JAX package's callback cadence for
+    its grouped dispatches: there each epoch's steps run in groups of k
+    (a trailing partial group step by step), and the callback fires at the
+    end of a group when a multiple of ``callback_every`` fell within it.
+    Here the steps run one at a time all the same, so the trajectory does
+    not depend on k.
+
     Returns (pgm_params, net_params, opt_state, elbo_history, generator).
     """
     N = data.shape[0]
     num_batches = N // batch_size
     total_steps = num_epochs * num_batches
+    k_grp = max(int(steps_per_dispatch), 1)
     history = []
     step_idx = 0
     for _ in range(num_epochs):
@@ -110,14 +118,20 @@ def run(train_step, pgm_params, net_params, opt_state, data, generator,
                                   device=generator.device).to(data.device)
         else:
             perm = torch.arange(N, device=data.device)
-        for b in range(num_batches):
-            batch = data[perm[b * batch_size:(b + 1) * batch_size]]
-            pgm_params, net_params, opt_state, elbo, terms = train_step(
-                pgm_params, net_params, opt_state, batch, generator)
-            history.append(elbo)  # device scalar: no host sync
-            step_idx += 1
-            if callback is not None and (step_idx % callback_every == 0
-                                         or step_idx == total_steps):
+        b = 0
+        while b < num_batches:
+            advanced = k_grp if b + k_grp <= num_batches else 1
+            for i in range(b, b + advanced):
+                batch = data[perm[i * batch_size:(i + 1) * batch_size]]
+                pgm_params, net_params, opt_state, elbo, terms = train_step(
+                    pgm_params, net_params, opt_state, batch, generator)
+                history.append(elbo)  # device scalar: no host sync
+            step_idx += advanced
+            b += advanced
+            # a multiple of callback_every fell within the steps just run
+            if callback is not None and (
+                    step_idx % callback_every < advanced
+                    or step_idx == total_steps):
                 callback(step_idx - 1, float(elbo),
                          (pgm_params, net_params, opt_state), terms,
                          generator)

@@ -56,6 +56,10 @@ from svae_tpu_torch.utils.pytree import tree_leaves
 from tests.test_oracles import make_lds_potentials
 from tests.test_pallas_chunked import batched_pots
 
+# autouse: this module's JAX references trace the JAX package's
+# Cholesky on its library route
+from tests._jax_cholesky import jax_library_cholesky
+
 torch.set_num_threads(1)
 RTOL, ATOL = 1e-8, 1e-10
 F64 = dict(dtype=torch.float64, device="cpu")

@@ -50,6 +50,10 @@ from svae_tpu_torch.ops import bpairs
 from svae_tpu_torch.train import elbo, loop
 from svae_tpu_torch.utils.pytree import tree_leaves
 
+# autouse: this module's JAX references trace the JAX package's
+# Cholesky on its library route
+from tests._jax_cholesky import jax_library_cholesky
+
 torch.set_num_threads(1)
 RTOL, ATOL = 1e-8, 1e-10
 B, T, d, S = 3, 7, 3, 2

@@ -45,6 +45,10 @@ from svae_tpu_torch.nets import decoders, recognition
 from svae_tpu_torch.train import elbo
 from svae_tpu_torch.utils.pytree import tree_leaves
 
+# autouse: this module's JAX references trace the JAX package's
+# Cholesky on its library route
+from tests._jax_cholesky import jax_library_cholesky
+
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
                                 "examples"))
 

@@ -41,6 +41,10 @@ from svae_tpu_torch.nets import decoders, recognition
 from svae_tpu_torch.train import elbo, loop, optim
 from svae_tpu_torch.utils.pytree import tree_leaves
 
+# autouse: this module's JAX references trace the JAX package's
+# Cholesky on its library route
+from tests._jax_cholesky import jax_library_cholesky
+
 torch.set_num_threads(1)
 RTOL, ATOL = 1e-8, 1e-10
 B, T, d, S, D_OBS, N = 4, 8, 3, 2, 6, 40

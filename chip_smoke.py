@@ -189,7 +189,22 @@ exits non-zero:
    T=500, d=16, S=2), each against float64 beside its float32 plain
    version, with event, device and plain ms and bound (printed as their
    own JSON line before the kernels line); then every example script at
-   its ``*_smoke`` preset on the card, its history finite.
+   its ``*_smoke`` preset on the card, its history finite (``bigdata_dp``
+   launched as ``python -m``, a process of its own);
+4d. BASELINE config 5 (the ``bigdata_dp`` preset: T=50, d_latent=8,
+   16-pixel frames, MLP width 64, global batch 256, S=2, Adam at 1e-3),
+   every rank a process of its own, spawned and joined with a timeout, so
+   that this process never holds a process group: ``examples.bigdata_dp``
+   on a one-rank NCCL group, its corpus cut to 20 global batches, the
+   counters showing #1-#4 once a step at the d=8 builds and nothing else;
+   the first DP step against ``loop.make_train_step`` on the same batch and
+   noise; the DP step's and ``make_train_step``'s event ms, device ms and
+   device ops, and the one all_reduce's bytes and event ms; then two ranks
+   on the one card over gloo: the DP step on the meshes (data=2, mc=1) and
+   (data=1, mc=2) against the single-process step on the global batch,
+   the replicas' fingerprints equal over both axes, and
+   ``lds_smoother_timeshard`` (one sequence, T=512, d=10, float64) against
+   ``kalman.lds_smoother`` on the card at rtol 1e-8.
 
 The line before the last is a JSON object with one entry per kernel (the
 passes of ``sampler_fwd``, ``sampler_bp_fwd``, ``elem_scan_adj``,
@@ -222,6 +237,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from svae_tpu_torch.config import PRESETS
 from svae_tpu_torch.data import loader as data_loader
@@ -2451,22 +2467,356 @@ def conv_kernels(device="cuda", shape=CONV_SHAPE):
 
 # the example scripts' *_smoke presets, run on the card (phase 4e)
 EXAMPLES = ("gmm_pinwheel", "lds_dots", "lds_missing", "lds_ragged",
-            "slds_synth", "conv_lds")
+            "slds_synth", "conv_lds", "bigdata_dp")
+
+
+def _example_subprocess(name, device):
+    """``python -m svae_tpu_torch.examples.<name> --preset <name>_smoke``;
+    its ELBO history from the last line (``first_elbo= last_elbo=``)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", f"svae_tpu_torch.examples.{name}", "--device",
+         device, "--preset", f"{name}_smoke"], capture_output=True,
+        text=True, timeout=DP_TIMEOUT,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"example {name} exited {proc.returncode}:\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+    last = proc.stdout.strip().splitlines()[-1]
+    fields = dict(kv.split("=") for kv in last.split())
+    return [float(fields["first_elbo"]), float(fields["last_elbo"])]
 
 
 def example_smokes(device="cuda"):
     """Each example script of the port at its ``*_smoke`` preset on the
     card: a finite ELBO history (and the missing-data RMSEs)."""
     for name in EXAMPLES:
-        mod = importlib.import_module(f"svae_tpu_torch.examples.{name}")
         t0 = time.perf_counter()
-        out = mod.main(["--device", device, "--preset", f"{name}_smoke"])
+        if name == "bigdata_dp":
+            # it forms a process group: a process of its own, launched as
+            # a user would, so that this one never holds a group
+            out = _example_subprocess(name, device)
+        else:
+            mod = importlib.import_module(f"svae_tpu_torch.examples.{name}")
+            out = mod.main(["--device", device, "--preset",
+                            f"{name}_smoke"])
         hist = (out[0] if name == "lds_ragged" else
                 list(out) if name == "lds_missing" else out)
         if not len(hist) or not np.isfinite(hist).all():
             raise AssertionError(f"example {name}: {out}")
         print(f"example {name} ({name}_smoke, {device}): "
               f"{time.perf_counter() - t0:.1f} s, finite")
+
+
+# BASELINE config 5 (PRESETS["bigdata_dp"]: T=50, d_latent=8, 16-pixel
+# frames, MLP (64,), global batch 256, S=2, Adam at 1e-3): the
+# data-parallel step. Its corpus is cut to DP_BATCHES global batches.
+DP_PRESET = "bigdata_dp"
+DP_BATCHES = 20
+# The DP step against the single-process step on the same batch and noise,
+# float32 on the card: ELBO and terms rel, the updated globals normwise rel,
+# the updated nets max abs (against Adam's first step of lr = 1e-3 a
+# parameter). One rank: the all_reduce over a one-rank group is the
+# identity and both steps run the same float32 ops, so DP_TOL_ONE allows
+# only a few ulps' reassociation. Two ranks: the batch's and the
+# particles' sums are split between the ranks and added back, which moves
+# float32 sums over 256 sequences x 50 steps by ~1e-7-1e-6 relative;
+# DP_TOL_TWO is ten times that (a net parameter 1e-5, 1% of a step).
+DP_TOL_ONE = 1e-6
+DP_TOL_TWO = 1e-5
+# time sharding on the card: one sequence, float64, against
+# kalman.lds_smoother on the card
+TIMESHARD = dict(B=1, T=512, d=10, S=1, ranks=2)
+TIMESHARD_RTOL, TIMESHARD_ATOL = 1e-8, 1e-10
+DP_TIMEOUT = 900
+
+
+def _dp_step_check(cfg, mesh, device, seed=7, reference=True):
+    """One DP step on this rank's shard of a global batch of ``cfg`` and
+    its share of the noise (S particles a shard, the shards' noise the
+    global S*M particles split by mesh index), and (``reference``) the
+    single-process step on the global batch with all S*M particles, from
+    the same initial parameters; returns the differences."""
+    from svae_tpu_torch.examples._common import train_kwargs
+    from svae_tpu_torch.examples.lds_dots import build
+    from svae_tpu_torch.parallel import make_dp_train_step
+
+    tc = cfg.train
+    Bg, S, M = tc.batch_size, tc.num_samples, mesh.shape["mc"]
+    N = DP_BATCHES * Bg
+    batch = torch.from_numpy(make_dot_data(
+        seed=seed, num_seqs=Bg, T=cfg.T, image_width=cfg.image_width)).to(
+            device)
+    eps = torch.randn((S * M, Bg, cfg.T, cfg.d_latent), device=device,
+                      generator=torch.Generator(device).manual_seed(seed))
+    kw = dict(train_kwargs(tc), num_samples=S)
+
+    def step_out(step, pgm, nets, state, b):
+        pgm, nets, _, val, terms = step(pgm, nets, state, b, None)
+        return pgm, nets, float(val), {k: float(v) for k, v in terms.items()}
+
+    prior, glob, nets = build(cfg, torch.Generator().manual_seed(tc.seed),
+                              device)
+    bl = Bg // mesh.shape["data"]
+    rows = slice(mesh.data_index * bl, (mesh.data_index + 1) * bl)
+    shard_eps = eps[mesh.mc_index * S:(mesh.mc_index + 1) * S, rows]
+    init, step = make_dp_train_step(
+        functools.partial(lds.run_inference, eps=shard_eps),
+        recognition.mlp_recognize, decoders.mlp_loglike, prior, N, mesh, Bg,
+        **kw)
+    got = step_out(step, glob, nets, init(glob, nets), batch[rows])
+    if not reference:
+        return got, None
+    prior, glob, nets = build(cfg, torch.Generator().manual_seed(tc.seed),
+                              device)
+    init, step = loop.make_train_step(
+        functools.partial(lds.run_inference, eps=eps),
+        recognition.mlp_recognize, decoders.mlp_loglike, prior, N,
+        **dict(kw, num_samples=S * M))
+    want = step_out(step, glob, nets, init(glob, nets), batch)
+    rel = lambda a, b: abs(a - b) / abs(b)
+    errs = dict(
+        elbo=rel(got[2], want[2]),
+        terms=max(rel(got[3][k], want[3][k]) for k in want[3]),
+        globals=_normwise(tree_leaves(got[0]), [
+            x.detach().double().cpu() for x in tree_leaves(want[0])]),
+        nets=max(float((a - b).detach().abs().max()) for a, b in zip(
+            tree_leaves(elbo.net_parameters(got[1])),
+            tree_leaves(elbo.net_parameters(want[1])))))
+    return got, errs
+
+
+def _dp_one_rank(rank, out, device, preset):
+    """Phase 4d (a), in a process of its own: ``examples.bigdata_dp`` at
+    ``preset``'s width on a one-rank group (NCCL on the card), its corpus
+    cut to DP_BATCHES global batches, with the launch counters; then on a
+    1x1 mesh of a one-rank group the first DP step against
+    ``loop.make_train_step`` on the same batch and noise, and the step's,
+    the single-process step's and the all_reduce's times."""
+    from svae_tpu_torch.examples import bigdata_dp
+    from svae_tpu_torch.parallel import make_mesh, multihost
+
+    cfg = PRESETS[preset]
+    Bg = cfg.train.batch_size
+    res = dict(cut=DP_BATCHES * Bg)
+    _reset_counters()
+    t0 = time.perf_counter()
+    hist = bigdata_dp.main(["--device", device, "--preset", preset,
+                            "--num_seqs", str(DP_BATCHES * Bg),
+                            "--train.num_epochs", "1"])
+    _sync(device)
+    res.update(wall=time.perf_counter() - t0, hist=hist,
+               launches={w.__name__: w.launches for w in WRAPPERS},
+               plain={p.__name__: p.calls for p in ALL_PLAINS if p.calls},
+               other={w.__name__: w.launches for w in ALL_WRAPPERS
+                      if w.launches and w not in WRAPPERS + PASS_WRAPPERS
+                      + FWD_PASS_WRAPPERS})
+
+    multihost.initialize(world_size=1, device=device)
+    try:
+        mesh = make_mesh()
+        res["backend"] = dist.get_backend()
+        _, res["errs"] = _dp_step_check(cfg, mesh, device)
+        if device == "cuda":
+            res.update(_dp_timings(cfg, mesh, device))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out, "one_rank.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _dp_timings(cfg, mesh, device):
+    """Event ms, device ms and device ops of a DP step and of
+    ``make_train_step``'s at the same shape; the all_reduce's bytes, its
+    count a step and its event ms alone."""
+    from svae_tpu_torch.examples._common import train_kwargs
+    from svae_tpu_torch.examples.lds_dots import build
+    from svae_tpu_torch.parallel import make_dp_train_step
+
+    tc = cfg.train
+    Bg, N = tc.batch_size, DP_BATCHES * tc.batch_size
+    batch = torch.from_numpy(make_dot_data(
+        seed=8, num_seqs=Bg, T=cfg.T, image_width=cfg.image_width)).to(device)
+    parts = (lds.run_inference, recognition.mlp_recognize,
+             decoders.mlp_loglike)
+    gen = torch.Generator(device=device).manual_seed(9)
+    out = {}
+    sizes = []
+    all_reduce = dist.all_reduce
+
+    def spy(t, *a, **k):
+        sizes.append(t.numel() * t.element_size())
+        return all_reduce(t, *a, **k)
+
+    for tag in ("dp", "single"):
+        prior, glob, nets = build(
+            cfg, torch.Generator().manual_seed(tc.seed), device)
+        if tag == "dp":
+            init, step = make_dp_train_step(*parts, prior, N, mesh, Bg,
+                                            **train_kwargs(tc))
+        else:
+            init, step = loop.make_train_step(*parts, prior, N,
+                                              **train_kwargs(tc))
+        st = [glob, nets, init(glob, nets)]
+
+        def one_step():
+            st[0], st[1], st[2], _, _ = step(*st, batch, gen)
+
+        if tag == "dp":
+            dist.all_reduce = spy
+            try:
+                one_step()
+            finally:
+                dist.all_reduce = all_reduce
+            _reset_counters()
+            one_step()
+            torch.cuda.synchronize()
+            out["launches_per_step"] = {w.__name__: w.launches
+                                        for w in WRAPPERS}
+        out[f"{tag}_ms"] = _time_ms(one_step, runs=10)
+        out[f"{tag}_device_ms"], out[f"{tag}_ops"] = _device_totals(one_step)
+    out["all_reduce_calls"] = len(sizes)
+    out["all_reduce_bytes"] = sizes[0]
+    buf = torch.zeros(sizes[0] // 4, device=device)
+    out["all_reduce_ms"] = _time_ms(lambda: dist.all_reduce(buf))
+    return out
+
+
+def _dp_two_ranks(rank, store, out, device, preset):
+    """Phase 4d (b, c), two ranks on one card over gloo: the DP step on
+    the meshes (data=2, mc=1) and (data=1, mc=2) against the
+    single-process step on the global batch (rank 0) and the replicas'
+    fingerprints over both axes; then ``lds_smoother_timeshard`` over the
+    two ranks at TIMESHARD's shape in float64 against
+    ``kalman.lds_smoother`` on the card."""
+    from svae_tpu_torch.parallel import make_mesh, multihost
+    from svae_tpu_torch.parallel.time_shard import lds_smoother_timeshard
+
+    multihost.initialize(init_method=f"file://{store}", world_size=2,
+                         rank=rank, backend="gloo", device=device,
+                         timeout_secs=DP_TIMEOUT)
+    res = {}
+    try:
+        cfg = PRESETS[preset]
+        for name, (D, M) in (("data2_mc1", (2, 1)), ("data1_mc2", (1, 2))):
+            mesh = make_mesh(data=D, mc=M)
+            (pgm, nets, _, _), errs = _dp_step_check(cfg, mesh, device,
+                                                     reference=rank == 0)
+            res[name] = dict(errs=errs, fingerprint=[
+                multihost.assert_replicated_consistent((pgm, nets), mesh,
+                                                       axis)
+                for axis in ("data", "mc")])
+
+        ts = TIMESHARD
+        init, mats, pots, _ = _problem(ts, 5, device)
+        pairs, nodes = lds._chain(mats, pots)
+        _sync(device)
+        t0 = time.perf_counter()
+        got = lds_smoother_timeshard(init, pairs, nodes)
+        _sync(device)
+        res["timeshard_s"] = time.perf_counter() - t0
+        if rank == 0:
+            t0 = time.perf_counter()
+            want = kalman.lds_smoother(init, pairs, nodes)
+            _sync(device)
+            res["smoother_s"] = time.perf_counter() - t0
+            res["timeshard_err"] = max(float((a - b).abs().max())
+                                       for a, b in zip(got, want))
+            res["timeshard_close"] = all(
+                torch.allclose(a, b, rtol=TIMESHARD_RTOL,
+                               atol=TIMESHARD_ATOL)
+                for a, b in zip(got, want))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out, f"two_ranks_{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def dp_path(device="cuda", preset=DP_PRESET):
+    """Phase 4d: BASELINE config 5's data-parallel SVI, every rank a process
+    of its own (spawned and joined with a timeout, so this process never
+    holds a process group). Returns the step's timings."""
+    from svae_tpu_torch.parallel import multihost
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    t0 = time.perf_counter()
+    try:
+        multihost.spawn_local(_dp_one_rank, 1, (tmp, device, preset),
+                              DP_TIMEOUT)
+        with open(os.path.join(tmp, "one_rank.json")) as f:
+            one = json.load(f)
+        multihost.spawn_local(_dp_two_ranks, 2,
+                              (os.path.join(tmp, "store"), tmp, device,
+                               preset), DP_TIMEOUT)
+        two = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"two_ranks_{r}.json")) as f:
+                two.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    cfg = PRESETS[preset]
+    steps = DP_BATCHES
+    hist = one["hist"]
+    print(f"dp path (BASELINE config 5, {preset}: T={cfg.T}, "
+          f"d={cfg.d_latent}, {cfg.image_width}-pixel frames, MLP "
+          f"{cfg.hidden}, global batch {cfg.train.batch_size}, S="
+          f"{cfg.train.num_samples}; corpus cut to {one['cut']} sequences, "
+          f"{steps} batches): examples.bigdata_dp on a one-rank "
+          f"{one['backend']} group, {len(hist)} steps in {one['wall']:.1f} s, "
+          f"elbo/N {hist[0]:.4f} -> {hist[-1]:.4f}; launches "
+          f"{one['launches']} ({cfg.d_latent=} build), plain calls "
+          f"{one['plain']}, other kernels {one['other']}")
+    if (len(hist) != steps or not np.isfinite(hist).all()
+            or any(v != steps for v in one["launches"].values())
+            or one["plain"] or one["other"]):
+        raise AssertionError("the bigdata_dp run did not run #1-#4 once a "
+                             "step and nothing else")
+    e = one["errs"]
+    print(f"dp step vs make_train_step, 1x1 mesh, same batch and noise "
+          f"(elbo rel, terms rel, globals normwise rel, nets max abs): "
+          f"{e} (tier {DP_TOL_ONE})")
+    if max(e.values()) > DP_TOL_ONE:
+        raise AssertionError("the one-rank DP step left make_train_step")
+    for name in ("data2_mc1", "data1_mc2"):
+        e = two[0][name]["errs"]
+        fps = [x for r in two for x in r[name]["fingerprint"]]
+        print(f"dp step, 2 ranks on one card (gloo), mesh {name} vs the "
+              f"single-process step on the global batch (elbo rel, terms "
+              f"rel, globals normwise rel, nets max abs): {e} (tier "
+              f"{DP_TOL_TWO}); replicas' fingerprint diff {max(fps)}")
+        if max(e.values()) > DP_TOL_TWO or max(fps) != 0.0:
+            raise AssertionError(f"the DP step on mesh {name}")
+    ts = TIMESHARD
+    print(f"time-sharded smoother over 2 ranks (gloo) on the card, float64, "
+          f"{ts}: max abs {two[0]['timeshard_err']:.3e} against "
+          f"kalman.lds_smoother (rtol {TIMESHARD_RTOL}, atol "
+          f"{TIMESHARD_ATOL}); "
+          f"{two[0]['timeshard_s']:.3f} s against {two[0]['smoother_s']:.3f}"
+          f" s (host clock, first calls)")
+    if not two[0]["timeshard_close"]:
+        raise AssertionError("lds_smoother_timeshard left lds_smoother")
+    t = {k: v for k, v in one.items() if k.endswith(("_ms", "_ops", "_bytes",
+                                                     "_calls"))}
+    if device == "cuda":
+        print(f"time dp_train_step ({preset}, 1x1 mesh, NCCL): "
+              f"{t['dp_ms']:.4f} ms event, {t['dp_device_ms']:.4f} ms "
+              f"device in {t['dp_ops']:.1f} device ops; make_train_step "
+              f"{t['single_ms']:.4f} ms event, {t['single_device_ms']:.4f} "
+              f"ms device in {t['single_ops']:.1f} ops; all_reduce "
+              f"{t['all_reduce_calls']} a step of {t['all_reduce_bytes']} "
+              f"bytes, {t['all_reduce_ms']:.4f} ms event alone; launches a "
+              f"step {one['launches_per_step']}")
+        if t["all_reduce_calls"] != 1 or any(
+                v != 1 for v in one["launches_per_step"].values()):
+            raise AssertionError("a DP step is one all_reduce and #1-#4 "
+                                 "once each")
+    print(f"dp path wall: {time.perf_counter() - t0:.1f} s")
+    return t
 
 
 def elem_problem(shape, seed=0, device="cuda", stiff=False):
@@ -3952,6 +4302,7 @@ def main():
     conv_launches, conv_t = conv_lds_path()
     conv_rows = conv_kernels()
     example_smokes()
+    dp_t = dp_path()
     t = timings()
     t.update(ragged_timings())
     t.update(slds_timings())
@@ -4006,6 +4357,7 @@ def main():
                   // PRESETS["conv_lds"].train.batch_size), **row)
               for k, row in conv_rows.items()]))
     print(f"conv_lds step: {json.dumps(conv_t)}")
+    print(f"bigdata_dp step: {json.dumps(dp_t)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

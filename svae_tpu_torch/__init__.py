@@ -16,7 +16,11 @@ MC-ELBO and its gradients (``train.elbo``), the optimizers and loops
 (``train``), the experiment runner with its checkpoints and metrics
 (``train.experiment``, ``train.checkpoint``, ``train.metrics``), the
 configs and presets (``config``), the example scripts (``examples``, the
-conv-LDS of BASELINE config 4 among them) and the data layer (``data``).
+conv-LDS of BASELINE config 4 and the data-parallel config 5 among them),
+the data layer (``data``) and data-parallel training over
+``torch.distributed`` (``parallel``: rank meshes, the DP train step with
+one all_reduce a step, process-group start-up, the time-sharded
+smoother).
 Every serial recursion is a
 hand-written CUDA kernel in ``csrc/`` with a plain PyTorch twin for CPU
 tensors.

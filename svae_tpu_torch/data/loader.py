@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from svae_tpu_torch.data.masking import pad_batch
+from svae_tpu_torch.parallel.mesh import local_batch_size
 from svae_tpu_torch.utils.pytree import tree_leaves, tree_map
 
 
@@ -126,9 +127,21 @@ def prefetch_to_device(iterator, size=2, device="cuda"):
         yield out
 
 
+def _shard_batch(batch, mesh):
+    """This rank's slice of a global batch (an array or a nested tuple of
+    arrays with a shared leading axis, such as a ragged ``(frames,
+    lengths)`` pair): the ``local_batch_size`` rows at its data index."""
+    n = int(tree_leaves(batch)[0].shape[0])
+    if not mesh.on_mesh:
+        raise ValueError(f"this rank holds no shard of the mesh {mesh.shape}")
+    bl = local_batch_size(n, mesh)
+    lo = mesh.data_index * bl
+    return tree_map(lambda a: a[lo:lo + bl], batch)
+
+
 def make_loader(data_or_sequences, batch_size, seed=0, *, ragged=None,
                 pad_multiple=8, drop_remainder=None, prefetch=2,
-                device="cuda", group_by_shape=False):
+                device="cuda", group_by_shape=False, sharding=None):
     """Epoch-loader factory: ``loader(epoch) -> iterator of batches``.
 
     A dense corpus (array, tensor or nested tuple of them) yields shuffled
@@ -139,7 +152,17 @@ def make_loader(data_or_sequences, batch_size, seed=0, *, ragged=None,
     as they are. Ragged corpora default to ``drop_remainder=False`` (every
     sequence seen each epoch; the objective scales by the actual batch
     size, so a smaller tail batch is exact); ``group_by_shape`` is
-    :func:`ragged_epoch_batches`'."""
+    :func:`ragged_epoch_batches`'.
+
+    ``sharding`` (a :class:`~svae_tpu_torch.parallel.mesh.Mesh`): yield
+    this rank's slice of every global batch of ``batch_size``, taken by its
+    data index. Every rank shuffles with the same seed, ranks of one data
+    index get the same slice, and the slices in data order make up the
+    single-process loader's batch; a ragged batch is padded to its global
+    length first and its frames and lengths are sliced together. For the data-parallel step
+    (``parallel.make_dp_train_step``, which is built for a FIXED global
+    batch) pass ``drop_remainder=True`` so every batch divides the data
+    axis and carries the assumed size."""
     if ragged is None:
         ragged = isinstance(data_or_sequences, (list, tuple))
     if drop_remainder is None:
@@ -154,6 +177,8 @@ def make_loader(data_or_sequences, batch_size, seed=0, *, ragged=None,
         else:
             it = epoch_batches(data_or_sequences, batch_size, seed, epoch,
                                drop_remainder=drop_remainder)
+        if sharding is not None:
+            it = (_shard_batch(b, sharding) for b in it)
         if prefetch:
             return prefetch_to_device(it, size=prefetch, device=device)
         return it

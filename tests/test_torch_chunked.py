@@ -28,8 +28,8 @@ CPU.
   flavor-for-flavor parity of the scans is tests/test_torch_kalman.py's.
 * The kernel wrappers' argument checks, on meta tensors.
 
-Every JAX reference is compiled once, in a module fixture, one sequence
-at a time where a vmap would only add to the trace. Tolerance rtol 1e-8 /
+Every JAX reference comes from one XLA program, compiled once in a module
+fixture without XLA's backend optimizations. Tolerance rtol 1e-8 /
 atol 1e-10 (both sides float64) unless a test says otherwise."""
 
 import functools
@@ -83,14 +83,16 @@ def _close(port, ref, rtol=RTOL, atol=ATOL):
                                    np.asarray(r), rtol=rtol, atol=atol)
 
 
-def jax_eps(key, B, S, T, d):
+def _jax_eps(key, B, S, T, d):
     """The JAX package's per-sequence sampler noise, ``normal(key_b, (S, T,
-    d))`` under ``jax.random.split(key, B)``, as the port's (S, B, T, d)
-    ``eps``."""
-    keys = jax.random.split(key, B)
-    eps = np.stack([np.asarray(jax.random.normal(k, (S, T, d), jnp.float64))
-                    for k in keys])
-    return torch.from_numpy(eps).movedim(0, 1)
+    d))`` under ``jax.random.split(key, B)``, (B, S, T, d)."""
+    return jnp.stack([jax.random.normal(k, (S, T, d), jnp.float64)
+                      for k in jax.random.split(key, B)])
+
+
+def _eps_t(eps):
+    """(B, S, T, d) noise as the port's (S, B, T, d) ``eps``."""
+    return torch.from_numpy(np.array(eps)).movedim(0, 1)
 
 
 # --------------------------------------------------------------------------
@@ -111,24 +113,38 @@ def packed_leaves(d, seed=0):
     return chunked._pack(leaves, STEPS)
 
 
-@pytest.mark.parametrize("d", [2, 3])
-def test_elem_scan_plain_matches_pallas_kernel(d):
-    leaves = packed_leaves(d, seed=d)
-    want = jax.jit(functools.partial(pallas_chunked._scan_fwd_call, d=d,
-                                     interpret=True))(leaves.numpy())
-    _close(chunked.elem_scan_plain(leaves), want)
+SCAN_DS = (2, 3)
 
 
-@pytest.mark.parametrize("d", [2, 3])
-def test_elem_scan_adj_plain_matches_pallas_kernel(d):
+def scan_inputs(d):
+    """The packed leaves of d, their plain prefix scan and random
+    cotangents."""
     leaves = packed_leaves(d, seed=d)
-    pref = chunked.elem_scan_plain(leaves)
     douts = torch.from_numpy(np.random.default_rng(d).standard_normal(
         leaves.shape))
-    want = jax.jit(functools.partial(pallas_chunked._scan_adj_call, d=d,
-                                     interpret=True))(
-        leaves.numpy(), pref.numpy(), douts.numpy())
-    _close(chunked.elem_scan_adj_plain(leaves, pref, douts), want)
+    return leaves, chunked.elem_scan_plain(leaves), douts
+
+
+def _scan_references(scans):
+    """pallas_chunked's two kernels, called directly in interpret mode, on
+    each d's inputs."""
+    return {d: (pallas_chunked._scan_fwd_call(leaves, d=d, interpret=True),
+                pallas_chunked._scan_adj_call(leaves, pref, douts, d=d,
+                                              interpret=True))
+            for d, (leaves, pref, douts) in scans.items()}
+
+
+@pytest.mark.parametrize("d", SCAN_DS)
+def test_elem_scan_plain_matches_pallas_kernel(refs, d):
+    leaves, _, _ = scan_inputs(d)
+    _close(chunked.elem_scan_plain(leaves), refs["scans"][d][0])
+
+
+@pytest.mark.parametrize("d", SCAN_DS)
+def test_elem_scan_adj_plain_matches_pallas_kernel(refs, d):
+    leaves, pref, douts = scan_inputs(d)
+    _close(chunked.elem_scan_adj_plain(leaves, pref, douts),
+           refs["scans"][d][1])
 
 
 def test_wrappers_check_their_arguments():
@@ -160,6 +176,7 @@ def test_wrappers_check_their_arguments():
 # --------------------------------------------------------------------------
 
 CB, CT, CD, CS = 3, 11, 3, 2
+CHUNK_KEY = functools.partial(jax.random.key, 5)
 
 
 def _smoother_loss(outputs):
@@ -169,27 +186,23 @@ def _smoother_loss(outputs):
             + (Exnxt * 0.2).sum())
 
 
-@pytest.fixture(scope="module")
-def pallas_refs():
-    """pallas_chunked.lds_estep at C=4 (interpret mode), the gradient of
-    ``_smoother_loss`` of ``pallas_chunked.lds_smoother`` at C=4 with
-    respect to the node evidence N2, the inputs and the noise."""
-    init, pairs, nodes = batched_pots(CB, CT, CD)
-    key = jax.random.key(5)
-    estep = jax.jit(lambda init, pairs, nodes: pallas_chunked.lds_estep(
-        init, pairs, nodes, key, CS, chunks=4, interpret=True))(
-            init, pairs, nodes)
-    grad = jax.jit(jax.grad(lambda n2: _smoother_loss(
-        pallas_chunked.lds_smoother(init, pairs, (nodes[0], n2), chunks=4,
-                                    interpret=True))))(nodes[1])
-    return (_np(estep), _np(grad), _t(_np((init, pairs, nodes))),
-            jax_eps(key, CB, CS, CT, CD))
+def _pallas_chunked_references(init, pairs, nodes):
+    """pallas_chunked.lds_estep at C=4 (interpret mode) under the key
+    CHUNK_KEY, and the gradient of ``_smoother_loss`` of
+    ``pallas_chunked.lds_smoother`` at C=4 with respect to the node
+    evidence N2."""
+    estep = pallas_chunked.lds_estep(init, pairs, nodes, CHUNK_KEY(), CS,
+                                     chunks=4, interpret=True)
+    grad = jax.grad(lambda n2: _smoother_loss(pallas_chunked.lds_smoother(
+        init, pairs, (nodes[0], n2), chunks=4, interpret=True)))(nodes[1])
+    return estep, grad
 
 
 @pytest.mark.parametrize("C", [1, 2, 4, 10])
-def test_chunked_estep_matches_pallas_chunked(pallas_refs, C):
-    ((samples_r, moments_r, logZ_r), grad_r, (init, pairs, nodes),
-     eps) = pallas_refs
+def test_chunked_estep_matches_pallas_chunked(refs, C):
+    (samples_r, moments_r, logZ_r), grad_r = refs["chunked"]
+    init, pairs, nodes = _t(refs["chunk_pots"])
+    eps = refs["chunk_eps"]
     _close(chunked.lds_smoother(init, pairs, nodes, chunks=C),
            (logZ_r,) + tuple(moments_r))
     _close(chunked.lds_estep(init, pairs, nodes, None, CS, chunks=C,
@@ -209,14 +222,15 @@ D_OBS, N = 6, 40
 MODEL_CASES = ["plain", "mask", "lengths"]
 
 
-@pytest.fixture(scope="module")
-def model():
-    """JAX globals and nets, evidence, a mask, ragged lengths, data; the
-    JAX package's ``run_inference`` and ``posterior_moments``
-    (``backend="xla"``) for each case from one jit (the plain case passes
-    an all-ones mask and full lengths, which leave every potential and
-    weight as it is: multiplications by one, additions of zero), and its
-    ``make_gradfun`` outputs."""
+MODEL_KEY = functools.partial(jax.random.key, 1)
+
+
+def _model_references(m):
+    """JAX globals and nets; the JAX package's ``run_inference`` and
+    ``posterior_moments`` (``backend="xla"``) for each case (the plain
+    case passes an all-ones mask and full lengths, which leave every
+    potential and weight as it is: multiplications by one, additions of
+    zero), and its ``make_gradfun`` outputs."""
     k = jax.random.split(jax.random.key(0), 4)
     prior = jax_lds.init_pgm_param(k[0], MD, dtype=jnp.float64)
     glob = jax_lds.init_pgm_param(k[1], MD, dtype=jnp.float64)
@@ -224,33 +238,58 @@ def model():
                                             dtype=jnp.float64)
     dp = jax_decoders.init_mlp_decode(k[3], MD, (8,), D_OBS,
                                       dtype=jnp.float64)
-    rng = np.random.default_rng(4)
-    jd = np.logaddexp(rng.standard_normal((MB, MT, MD)), 0.0) + 0.4
-    h = rng.standard_normal((MB, MT, MD))
-    mask = (rng.random((MB, MT)) > 0.3).astype(np.float64)
-    lengths = np.array([MT, 4, 2])
-    key = jax.random.key(1)
-
-    @jax.jit
-    def ref(glob, jd, h, mask, lengths):
-        kw = dict(backend="xla", mask=mask, lengths=lengths)
-        return (jax_lds.run_inference(prior, glob, (jd, h), key, MS, **kw),
-                jax_lds.posterior_moments(glob, (jd, h), **kw))
-
-    ones, full = np.ones((MB, MT)), np.full(MB, MT)
-    cases = {"plain": (ones, full), "mask": (mask, full),
-             "lengths": (ones, lengths)}
-    y = jax_synthetic.make_dot_data(seed=2, num_seqs=MB, T=MT,
-                                    image_width=D_OBS).astype(np.float64)
+    ones, full = jnp.ones((MB, MT)), jnp.full(MB, MT)
+    cases = {"plain": (ones, full), "mask": (m["mask"], full),
+             "lengths": (ones, m["lengths"])}
+    refs = {}
+    for c in MODEL_CASES:
+        kw = dict(backend="xla", mask=cases[c][0], lengths=cases[c][1])
+        refs[c] = (jax_lds.run_inference(prior, glob, (m["jd"], m["h"]),
+                                         MODEL_KEY(), MS, **kw),
+                   jax_lds.posterior_moments(glob, (m["jd"], m["h"]), **kw))
     gradfun = jax_elbo.make_gradfun(
         functools.partial(jax_lds.run_inference, backend="xla"),
         jax_recognition.mlp_recognize, jax_decoders.mlp_loglike, prior, N,
         num_samples=MS)
-    return dict(
-        prior=prior, glob=glob, nets=(rp, dp), jd=jd, h=h, mask=mask,
-        lengths=lengths, y=y, eps=jax_eps(key, MB, MS, MT, MD),
-        refs={c: ref(glob, jd, h, *cases[c]) for c in MODEL_CASES},
-        grad_out=jax.jit(gradfun)(glob, (rp, dp), jnp.asarray(y), key))
+    return dict(prior=prior, glob=glob, nets=(rp, dp), refs=refs,
+                grad_out=gradfun(glob, (rp, dp), m["y"], MODEL_KEY()),
+                eps=_jax_eps(MODEL_KEY(), MB, MS, MT, MD))
+
+
+@pytest.fixture(scope="module")
+def refs():
+    """Every JAX reference of this module from one XLA program, compiled
+    once without XLA's backend optimizations (which change no float64
+    value): the element-scan kernels at each d, pallas_chunked's E-step
+    and gradient, and the model's routes and gradient."""
+    rng = np.random.default_rng(4)
+    m = dict(jd=np.logaddexp(rng.standard_normal((MB, MT, MD)), 0.0) + 0.4,
+             h=rng.standard_normal((MB, MT, MD)),
+             mask=(rng.random((MB, MT)) > 0.3).astype(np.float64),
+             lengths=np.array([MT, 4, 2]),
+             y=jax_synthetic.make_dot_data(
+                 seed=2, num_seqs=MB, T=MT,
+                 image_width=D_OBS).astype(np.float64))
+    scans = {d: tuple(x.numpy() for x in scan_inputs(d)) for d in SCAN_DS}
+    chunk_pots = _np(batched_pots(CB, CT, CD))
+
+    def references(scans, chunk_pots, m):
+        return dict(scans=_scan_references(scans),
+                    chunked=_pallas_chunked_references(*chunk_pots),
+                    chunk_eps=_jax_eps(CHUNK_KEY(), CB, CS, CT, CD),
+                    model=_model_references(m))
+
+    out = _np(jax.jit(references).lower(scans, chunk_pots, m).compile(
+        {"xla_backend_optimization_level": 0})(scans, chunk_pots, m))
+    out["chunk_pots"] = chunk_pots
+    out["chunk_eps"] = _eps_t(out["chunk_eps"])
+    out["model"].update(m, eps=_eps_t(out["model"]["eps"]))
+    return out
+
+
+@pytest.fixture(scope="module")
+def model(refs):
+    return refs["model"]
 
 
 @pytest.mark.parametrize("case", MODEL_CASES)

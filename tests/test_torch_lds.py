@@ -7,7 +7,8 @@ the packed E-step. Its samples come from JAX's generator, so only the
 statistics and KLs are compared there; samples under a shared noise are
 compared through the slice test, which composes recognize -> E-step ->
 decode -> ELBO as svae_tpu/train/elbo.py does. Tolerance rtol 1e-8 /
-atol 1e-10 (both sides float64)."""
+atol 1e-10 (both sides float64). Every JAX reference comes from one XLA
+program, compiled once in a module fixture."""
 
 import functools
 
@@ -52,31 +53,83 @@ def _close(port, ref):
                                    np.asarray(r), rtol=RTOL, atol=ATOL)
 
 
-@pytest.fixture(scope="module")
-def model():
-    k1, k2 = jax.random.split(jax.random.key(0))
-    prior = jax_lds.init_pgm_param(k1, d, dtype=jnp.float64)
-    glob = jax_lds.init_pgm_param(k2, d, dtype=jnp.float64)
-    rng = np.random.default_rng(0)
-    jd = np.logaddexp(rng.standard_normal((B, T, d)), 0.0) + 0.4
-    h = rng.standard_normal((B, T, d))
-    mask = (rng.random((B, T)) > 0.3).astype(np.float64)
-    to_t = functools.partial(convert.natparam, dtype=torch.float64,
-                             device="cpu")
-    return dict(prior_j=prior, glob_j=glob, prior=to_t(_np(prior)),
-                glob=to_t(_np(glob)), jd=jd, h=h, mask=mask)
-
-
-def test_prior_kl_matches_jax(model):
-    _close(lds.prior_kl(model["glob"], model["prior"]),
-           jax_lds.prior_kl(model["glob_j"], model["prior_j"]))
-
-
 INPUTS = {
     "batched": lambda m: (m["jd"], m["h"], None),
     "masked": lambda m: (m["jd"], m["h"], m["mask"]),
     "single": lambda m: (m["jd"][1], m["h"][1], m["mask"][1]),
 }
+MOMENT_CASES = ("masked", "single")
+D_OBS, N = 6, 40
+
+
+@pytest.fixture(scope="module")
+def model():
+    """The JAX package's globals and nets, evidence, a mask, data and
+    noise, and every JAX reference of this module, from one XLA program
+    compiled once without XLA's backend optimizations (which change no
+    float64 value): ``prior_kl``, ``run_inference`` and
+    ``posterior_moments`` on the scan path for each case, and the slice's
+    ELBO composition."""
+    rng = np.random.default_rng(0)
+    m = dict(jd=np.logaddexp(rng.standard_normal((B, T, d)), 0.0) + 0.4,
+             h=rng.standard_normal((B, T, d)),
+             mask=(rng.random((B, T)) > 0.3).astype(np.float64),
+             y=jax_synthetic.make_dot_data(
+                 seed=0, num_seqs=B, T=T,
+                 image_width=D_OBS).astype(np.float64),
+             eps=np.random.default_rng(4).standard_normal((S, B, T, d)))
+
+    def references(m):
+        k1, k2 = jax.random.split(jax.random.key(0))
+        prior = jax_lds.init_pgm_param(k1, d, dtype=jnp.float64)
+        glob = jax_lds.init_pgm_param(k2, d, dtype=jnp.float64)
+        out = dict(prior=prior, glob=glob,
+                   prior_kl=jax_lds.prior_kl(glob, prior))
+        for case, inputs in INPUTS.items():
+            jd, h, mask = inputs(m)
+            out[f"run_inference_{case}"] = jax_lds.run_inference(
+                prior, glob, (jd, h), jax.random.key(1), S, backend="xla",
+                mask=mask)
+            if case in MOMENT_CASES:
+                out[f"posterior_moments_{case}"] = (
+                    jax_lds.posterior_moments(glob, (jd, h), mask=mask,
+                                              backend="xla"))
+        out["slice"] = _slice_reference(glob, prior, m["y"], m["eps"])
+        return out
+
+    refs = jax.jit(references).lower(m).compile(
+        {"xla_backend_optimization_level": 0})(m)
+    to_t = functools.partial(convert.natparam, dtype=torch.float64,
+                             device="cpu")
+    return dict(m, refs=refs, prior=to_t(_np(refs["prior"])),
+                glob=to_t(_np(refs["glob"])))
+
+
+def _slice_reference(glob, prior, y, eps):
+    """svae_tpu/train/elbo.py:95-107 with run_inference(backend="pallas")
+    spelled out, the Pallas kernels in interpret mode: the nets, the ELBO,
+    the statistics and the terms."""
+    k1, k2 = jax.random.split(jax.random.key(3))
+    rp = jax_recognition.init_mlp_recognize(k1, D_OBS, (8,), d,
+                                            dtype=jnp.float64)
+    dp = jax_decoders.init_mlp_decode(k2, d, (8,), D_OBS, dtype=jnp.float64)
+    pots = jax_recognition.mlp_recognize(rp, y)
+    (I1, I2), Ic = jax_niw.expected_gaussian_natparam(glob[0])
+    mats = jax_mniw.expected_pair_potential(glob[1])
+    samples, stats_r, lkl = pallas_estep.lds_estep_stationary(
+        (I1, I2, Ic), mats, pots, None, S, block_b=8, interpret=True,
+        eps=eps)
+    gkl = jax_lds.prior_kl(glob, prior)
+    ll = jax_decoders.mlp_loglike(dp, samples, y)
+    elbo_r = ((N / B) * (ll - lkl) - gkl) / N
+    return dict(nets=(rp, dp), elbo=elbo_r, stats=stats_r,
+                terms={"loglike": ll / B, "local_kl": lkl / B,
+                       "global_kl": gkl / N})
+
+
+def test_prior_kl_matches_jax(model):
+    _close(lds.prior_kl(model["glob"], model["prior"]),
+           model["refs"]["prior_kl"])
 
 
 @pytest.mark.parametrize("case", sorted(INPUTS))
@@ -87,11 +140,7 @@ def test_run_inference_matches_jax_scan_path(model, case):
                                         torch.from_numpy(h)),
         torch.Generator().manual_seed(0), S,
         mask=None if mask is None else torch.from_numpy(mask))
-    s_r, stats_r, gkl_r, lkl_r = jax.jit(
-        lambda prior, glob, pots, mask: jax_lds.run_inference(
-            prior, glob, pots, jax.random.key(1), S, backend="xla",
-            mask=mask))(model["prior_j"], model["glob_j"],
-                        (jnp.asarray(jd), jnp.asarray(h)), mask)
+    s_r, stats_r, gkl_r, lkl_r = model["refs"][f"run_inference_{case}"]
     assert samples.shape == s_r.shape
     assert bool(torch.isfinite(samples).all())
     _close(stats, stats_r)
@@ -99,16 +148,13 @@ def test_run_inference_matches_jax_scan_path(model, case):
     _close(lkl, lkl_r)
 
 
-@pytest.mark.parametrize("case", ["masked", "single"])
+@pytest.mark.parametrize("case", MOMENT_CASES)
 def test_posterior_moments_match_jax_scan_path(model, case):
     jd, h, mask = INPUTS[case](model)
     out = lds.posterior_moments(
         model["glob"], (torch.from_numpy(jd), torch.from_numpy(h)),
         mask=torch.from_numpy(mask))
-    ref = jax.jit(lambda glob, pots, mask: jax_lds.posterior_moments(
-        glob, pots, mask=mask, backend="xla"))(
-            model["glob_j"], (jnp.asarray(jd), jnp.asarray(h)), mask)
-    _close(out, ref)
+    _close(out, model["refs"][f"posterior_moments_{case}"])
 
 
 @pytest.mark.parametrize("entry", ["run_inference", "posterior_moments"])
@@ -145,44 +191,19 @@ def test_slice_elbo_matches_jax_composition(model):
     port's make_objective against the same composition in JAX
     (svae_tpu/train/elbo.py objective, lds.run_inference(backend="pallas")
     with the Pallas kernels in interpret mode)."""
-    d_obs, N = 6, 40
-    k1, k2 = jax.random.split(jax.random.key(3))
-    rp = jax_recognition.init_mlp_recognize(k1, d_obs, (8,), d,
-                                            dtype=jnp.float64)
-    dp = jax_decoders.init_mlp_decode(k2, d, (8,), d_obs, dtype=jnp.float64)
-    y = jax_synthetic.make_dot_data(seed=0, num_seqs=B, T=T,
-                                    image_width=d_obs).astype(np.float64)
-    eps = np.random.default_rng(4).standard_normal((S, B, T, d))
-
-    # JAX: elbo.py:95-107 with run_inference(backend="pallas") spelled out
-    @jax.jit     # one compile: eager dispatch takes several times longer
-    def reference(glob, prior, rp, dp, y, eps):
-        pots = jax_recognition.mlp_recognize(rp, y)
-        (I1, I2), Ic = jax_niw.expected_gaussian_natparam(glob[0])
-        mats = jax_mniw.expected_pair_potential(glob[1])
-        samples, stats_r, lkl = pallas_estep.lds_estep_stationary(
-            (I1, I2, Ic), mats, pots, None, S, block_b=8, interpret=True,
-            eps=eps)
-        gkl = jax_lds.prior_kl(glob, prior)
-        ll = jax_decoders.mlp_loglike(dp, samples, y)
-        elbo_r = ((N / B) * (ll - lkl) - gkl) / N
-        return elbo_r, stats_r, {"loglike": ll / B, "local_kl": lkl / B,
-                                 "global_kl": gkl / N}
-
-    elbo_r, stats_r, terms_r = reference(model["glob_j"], model["prior_j"],
-                                         rp, dp, jnp.asarray(y),
-                                         jnp.asarray(eps))
-
+    ref = model["refs"]["slice"]
+    rp, dp = ref["nets"]
     objective = elbo.make_objective(
-        functools.partial(lds.run_inference, eps=torch.from_numpy(eps)),
+        functools.partial(lds.run_inference,
+                          eps=torch.from_numpy(model["eps"])),
         recognition.mlp_recognize, decoders.mlp_loglike, model["prior"], N,
         num_samples=S)
     f64 = dict(dtype=torch.float64, device="cpu")
     nets = (convert.recognizer(_np(rp), **f64),
             convert.decoder(_np(dp), **f64))
     value, (stats, terms) = objective(model["glob"], nets,
-                                      torch.from_numpy(y), None)
-    _close(value, elbo_r)
-    _close(stats, stats_r)
-    for k in terms_r:
-        _close(terms[k], terms_r[k])
+                                      torch.from_numpy(model["y"]), None)
+    _close(value, ref["elbo"])
+    _close(stats, ref["stats"])
+    for k in ref["terms"]:
+        _close(terms[k], ref["terms"][k])

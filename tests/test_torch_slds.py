@@ -102,7 +102,6 @@ def model():
         functools.partial(run, backend="xla"), jax_recognition.mlp_recognize,
         jax_decoders.mlp_loglike, prior, N, num_samples=S)
 
-    @jax.jit
     def references(jd, h, mask, y):
         pots = (jd, h)
         out = dict(xla=run(prior, glob, pots, key, S, backend="xla",
@@ -128,7 +127,9 @@ def model():
                 prior=natparam(_np(prior)), glob=natparam(_np(glob)),
                 nets=(convert.recognizer(_np(rp), **F64),
                       convert.decoder(_np(dp), **F64)),
-                jd=jd, h=h, mask=mask, y=y, **references(jd, h, mask, y))
+                jd=jd, h=h, mask=mask, y=y,
+                **jax.jit(references).lower(jd, h, mask, y).compile(
+                    {"xla_backend_optimization_level": 0})(jd, h, mask, y))
 
 
 def _pots(m):

@@ -78,36 +78,44 @@ JAX_PARTS = (_jax_run_inference, jax_recognition.mlp_recognize,
              jax_decoders.mlp_loglike)
 
 
+STEP_OPTIMIZERS = ("adam", "sga")
+
+
 @pytest.fixture(scope="module")
 def jax_model():
-    k = jax.random.split(jax.random.key(7), 4)
-    prior = jax_lds.init_pgm_param(k[0], d, dtype=jnp.float64)
-    glob = jax_lds.init_pgm_param(k[1], d, dtype=jnp.float64)
-    rp = jax_recognition.init_mlp_recognize(k[2], D_OBS, (8,), d,
-                                            dtype=jnp.float64)
-    dp = jax_decoders.init_mlp_decode(k[3], d, (8,), D_OBS,
-                                      dtype=jnp.float64)
+    """The JAX package's model, data and noise, its ``make_gradfun``
+    outputs and its train step with each of STEP_OPTIMIZERS, from one XLA
+    program compiled once without XLA's backend optimizations (which
+    change no float64 value)."""
     y = jax_synthetic.make_dot_data(seed=2, num_seqs=B, T=T,
                                     image_width=D_OBS).astype(np.float64)
     eps = np.random.default_rng(5).standard_normal((S, B, T, d))
-    gradfun = jax_elbo.make_gradfun(*JAX_PARTS, prior, N, num_samples=S)
-    grad_out = jax.jit(gradfun)(glob, (rp, dp), jnp.asarray(y),
-                                jnp.asarray(eps))
-    return dict(prior=prior, glob=glob, nets=(rp, dp), y=y, eps=eps,
-                grad_out=grad_out, steps={})
+
+    def references(y, eps):
+        k = jax.random.split(jax.random.key(7), 4)
+        prior = jax_lds.init_pgm_param(k[0], d, dtype=jnp.float64)
+        glob = jax_lds.init_pgm_param(k[1], d, dtype=jnp.float64)
+        nets = (jax_recognition.init_mlp_recognize(k[2], D_OBS, (8,), d,
+                                                   dtype=jnp.float64),
+                jax_decoders.init_mlp_decode(k[3], d, (8,), D_OBS,
+                                             dtype=jnp.float64))
+        gradfun = jax_elbo.make_gradfun(*JAX_PARTS, prior, N, num_samples=S)
+        steps = {}
+        for name in STEP_OPTIMIZERS:
+            init, step = jax_loop.make_train_step(
+                *JAX_PARTS, prior, N, num_samples=S, net_optimizer=name,
+                net_step_size=LR, donate=False)
+            steps[name] = step(glob, nets, init(glob, nets), y, eps)
+        return dict(prior=prior, glob=glob, nets=nets,
+                    grad_out=gradfun(glob, nets, y, eps), steps=steps)
+
+    out = jax.jit(references).lower(y, eps).compile(
+        {"xla_backend_optimization_level": 0})(y, eps)
+    return dict(out, y=y, eps=eps)
 
 
 def _jax_step(jax_model, name):
-    """The JAX package's jitted train step with net optimizer ``name``
-    (cached per name)."""
-    if name not in jax_model["steps"]:
-        m = jax_model
-        init, step = jax_loop.make_train_step(
-            *JAX_PARTS, m["prior"], N, num_samples=S, net_optimizer=name,
-            net_step_size=LR, donate=False)
-        state = init(m["glob"], m["nets"])
-        m["steps"][name] = step(m["glob"], m["nets"], state,
-                                jnp.asarray(m["y"]), jnp.asarray(m["eps"]))
+    """The JAX package's train step with net optimizer ``name``."""
     return jax_model["steps"][name]
 
 
@@ -141,7 +149,7 @@ def test_gradfun_matches_jax(jax_model):
     assert all(p.grad is None for net in nets for p in net.parameters())
 
 
-@pytest.mark.parametrize("name", ["adam", "sga"])
+@pytest.mark.parametrize("name", STEP_OPTIMIZERS)
 def test_train_step_matches_jax(jax_model, name):
     """Parameters after the natgrad + net-optimizer update, ELBO and
     terms, against the JAX package's jitted train step."""

@@ -76,10 +76,12 @@ exits non-zero:
    path: at a small odd shape, at the slds_synth sweep shape (B=16, T=80,
    K=4; stationary, time-varying with ragged pair weights, and a forced
    near-forbidden switch), at bench.py measure_hmm's (B=128, T=100, K=8)
-   and at every built K (B=37, T=9: a partial last warp); then
+   and at every built K, 1 to 32 (B=37, T=9: a partial last warp); then
    ``hmm_posterior(kernel="stationary")`` with its gradient, the path that
    runs the stationary kernels, against float64, and its outputs bit for
-   bit against ``kernel="streamed"``;
+   bit against ``kernel="streamed"``; then the four kernels at
+   measure_hmm's B and T with K=16 and K=32 against their plain versions,
+   with their event, device and plain ms and bounds;
 4s. SLDS-SVAE training at the slds_synth preset (svae_tpu/config.py
    SLDSConfig, examples/slds_synth.py: ``make_switching_dot_data`` with
    N=256, T=80, 16-pixel frames, K=4, d_latent=4, MLP width 64, 12
@@ -172,6 +174,27 @@ exits non-zero:
    against the float64 CPU path under the same noise (abs <= 2e-3), the
    discrete paths on >= 99% of entries, the rollouts where the z paths
    agree; the event ms of each call;
+4v. the serving path: ``lds.make_online_filter`` at config 2 (the seeded
+   globals and MLP recognizer of phase 4, 64 streams of T=100 dot frames)
+   a frame at a time in float32, the summed log-evidence against the
+   stationary E-step's logZ (kernel #1) within rel 2e-4 and the filtered
+   means against float64 ``kalman.lds_filter`` within abs 2e-3;
+   ``streaming.make_window_filter`` at W=16 and W=64 bit for bit the
+   single frames; ``slds.make_online_filter`` (GPB2) at slds_synth's
+   globals on 16 streams of T=80: weights summing to 1 within 1e-6,
+   covariances positive definite, the outputs against its float64 CPU run
+   within abs 2e-3, and at K=1 against the LDS filter; the event ms of a
+   step for 1 and 64 streams, of a frame in windows of 64, a step's
+   device ms and ops, and the switching filter's step;
+4q. ``slds.run_inference`` at slds_synth (B=16, 12 sweeps, S=2) in
+   float32 at ``parallel=True`` and ``parallel=8`` against
+   ``parallel=False`` under the same noise (local KL and statistics rel
+   <= 2e-4, samples abs <= 2e-3) and one ``make_gradfun`` step each
+   (ELBO rel <= 2e-4, natural and net gradients normwise <= 1e-3), the
+   counters showing #19 and #20 at ``parallel=8`` and no bpairs or HMM
+   kernel on either parallel route; ``most_likely_states(parallel=True)``
+   on >= 99% of entries; a train step's event ms, device ms and ops at
+   ``parallel=8`` and ``parallel=False``;
 4e. the conv-LDS at BASELINE config 4 (the ``conv_lds`` preset of
    ``svae_tpu_torch.config``: N=128, B=8, T=500, d_latent=16, 16x16
    frames, stride-2 convs of (16, 32) channels, decoder width 128, S=2,
@@ -244,7 +267,7 @@ from svae_tpu_torch.data import loader as data_loader
 from svae_tpu_torch.data.synthetic import (make_dot_data, make_pinwheel,
                                            make_switching_dot_data)
 from svae_tpu_torch.expfam import mniw, niw
-from svae_tpu_torch.models import gmm, lds, slds
+from svae_tpu_torch.models import gmm, lds, slds, streaming
 from svae_tpu_torch.nets import decoders, recognition
 from svae_tpu_torch.ops import (_build, bpairs, chunked, estep, hmm,
                                 hmm_fb, kalman, kalman_fwd)
@@ -2221,6 +2244,283 @@ def forecast_path(device="cuda", cfg=SLDS_CONFIG, steps=FORECAST_STEPS):
     return out
 
 
+# the serving path (phase 4v): 64 streams of config 2's T=100 frames, served
+# a frame or a window at a time; the switching filter at slds_synth's
+# globals on 16 streams of its T=80 frames
+STREAMS = dict(B=64, T=100, windows=(16, 64), slds_B=16)
+# the regime weights sum to 1 to float32 rounding after the filter's
+# renormalization
+TOL_WEIGHTS = 1e-6
+
+
+def _filter_run(init_fn, step_fn, pots):
+    """Every frame of ``pots`` (B, T, d) through an online filter a frame
+    at a time: the per-frame outputs stacked on axis 1, and the last
+    state."""
+    jd, h = pots
+    state, out = init_fn((jd[:, 0], h[:, 0]))
+    outs = [out]
+    for t in range(1, jd.shape[1]):
+        state, out = step_fn(state, (jd[:, t], h[:, t]))
+        outs.append(out)
+    return tuple(torch.stack(o, 1) for o in zip(*outs)), state
+
+
+def _windows(init_fn, step_fn, pots, W):
+    """The frames of ``pots`` through ``streaming.make_window_filter`` in
+    windows of W (the last one shorter): the outputs concatenated, and the
+    last state."""
+    win_init, win_step = streaming.make_window_filter(init_fn, step_fn)
+    jd, h = pots
+    state, out = win_init((jd[:, :W], h[:, :W]))
+    outs = [out]
+    for t0 in range(W, jd.shape[1], W):
+        state, out = win_step(state, (jd[:, t0:t0 + W], h[:, t0:t0 + W]))
+        outs.append(out)
+    return tuple(torch.cat(o, 1) for o in zip(*outs)), state
+
+
+def _max_abs(a, b):
+    """:func:`_max_err` of tensors on two devices, on the CPU."""
+    return _max_err([x.detach().cpu() for x in a],
+                    [y.double().cpu() for y in b])
+
+
+def streaming_path(device="cuda", cfg=STREAMS, scfg=SLDS_CONFIG):
+    """Phase 4v: the serving path. At config 2 (the seeded globals and MLP
+    recognizer of phase 4, d=10), 64 streams of T=100 dot frames through
+    ``lds.make_online_filter`` a frame at a time in float32: the summed
+    log-evidence of each stream against the stationary E-step's logZ
+    (kernel #1) within TOL_LOGZ_REL, the filtered means against float64
+    ``kalman.lds_filter`` on the CPU within TOL_ABS; the window filter at
+    W=16 and W=64 equal to the single frames bit for bit. Then
+    ``slds.make_online_filter`` (GPB2) at slds_synth's globals (K=4, d=4)
+    on 16 streams of T=80: weights summing to 1 within TOL_WEIGHTS,
+    covariances positive definite, log-evidence finite, every output
+    against its float64 CPU run within TOL_ABS; at K=1 against the LDS
+    filter on the same globals within TOL_ABS. Prints the event ms of a
+    step for 1 and for 64 streams, the ms a frame at W=64, a step's device
+    ms and ops, and the switching filter's step. Returns the timings."""
+    B, T = cfg["B"], cfg["T"]
+    _, glob, rec, _ = _config2_models(device)
+    frames = torch.from_numpy(make_dot_data(seed=3, num_seqs=B, T=T,
+                                            image_width=20)).to(device)
+    cpu64 = lambda t: t.detach().double().cpu()
+    with torch.no_grad():
+        pots = rec(frames)
+        init_fn, step_fn = lds.make_online_filter(glob)
+        _reset_counters()
+        (mean, cov, logev), state = _filter_run(init_fn, step_fn, pots)
+        torch.cuda.synchronize()
+        launched = {w.__name__: w.launches for w in ALL_WRAPPERS
+                    if w.launches}
+        logZ = lds.posterior_moments(glob, pots)[3]
+        glob64, pots64 = tree_map(cpu64, glob), tree_map(cpu64, pots)
+        init, pairs = lds.expected_chain_potentials(glob64, T)
+        _, Jf, hf = kalman.lds_filter(
+            init, pairs, (-0.5 * torch.diag_embed(pots64[0]), pots64[1]))
+        mean64 = torch.linalg.solve(Jf, hf)
+    _finite((mean, cov, logev), "lds online filter")
+    ev_rel = float(((logev.sum(1).double() - logZ.double()).abs()
+                    / logZ.double().abs()).max())
+    mean_err = _max_abs((mean,), (mean64,))
+    print(f"lds online filter [{B} streams, T={T}, d=10]: launches "
+          f"{launched}; summed logev vs the E-step's logZ (kernel #1) max "
+          f"rel {ev_rel:.3e}; filtered means vs float64 lds_filter max abs "
+          f"{mean_err:.3e}")
+    if ev_rel > TOL_LOGZ_REL or mean_err > TOL_ABS:
+        raise AssertionError("the LDS online filter disagrees with the "
+                             "E-step or the float64 filter")
+    with torch.no_grad():
+        for W in cfg["windows"]:
+            got, st = _windows(init_fn, step_fn, pots, W)
+            same = (all(torch.equal(a, b) for a, b in zip(
+                got, (mean, cov, logev)))
+                and all(torch.equal(a, b) for a, b in zip(st, state)))
+            print(f"window filter W={W}: outputs and state bit for bit the "
+                  f"single frames': {same}")
+            if not same:
+                raise AssertionError(f"the window filter at W={W} is not "
+                                     f"the single-frame steps bit for bit")
+
+    t = {}
+    with torch.no_grad():
+        frame = tuple(p[:, T // 2] for p in pots)
+        one = (tuple(s[:1] for s in state), tuple(p[:1] for p in frame))
+        t["lds_online_step_1"] = _time_ms(lambda: step_fn(*one))
+        t["lds_online_step_64"] = _time_ms(lambda: step_fn(state, frame))
+        _, win_step = streaming.make_window_filter(init_fn, step_fn)
+        W = max(cfg["windows"])
+        win = tuple(p[:, :W] for p in pots)
+        t["lds_online_window_frame"] = _time_ms(
+            lambda: win_step(state, win), runs=10) / W
+        busy, ops = _device_totals(lambda: step_fn(state, frame))
+    print(f"lds online filter step: {t['lds_online_step_1']:.4f} ms for 1 "
+          f"stream, {t['lds_online_step_64']:.4f} ms for {B} streams "
+          f"(device {busy:.4f} ms in {ops:.1f} device ops); "
+          f"{t['lds_online_window_frame']:.4f} ms a frame in windows of "
+          f"{W} for {B} streams")
+
+    # the switching filter (GPB2) at slds_synth's globals
+    K, d, Ts, Bs = scfg["K"], scfg["d"], scfg["T"], cfg["slds_B"]
+    _, sglob, srec, _ = _slds_models(device, K, d, scfg["width"],
+                                     scfg["hidden"])
+    sframes = torch.from_numpy(make_switching_dot_data(
+        4, Bs, Ts, scfg["width"])).to(device)
+    with torch.no_grad():
+        spots = srec(sframes)
+        sfilt = slds.make_online_filter(sglob)
+        outs, sstate = _filter_run(*sfilt, spots)
+        torch.cuda.synchronize()
+        outs64, _ = _filter_run(
+            *slds.make_online_filter(tree_map(cpu64, sglob),
+                                     dtype=torch.float64),
+            tree_map(cpu64, spots))
+    w, smean, scov, slogev = outs
+    _finite(outs, "slds online filter")
+    w_sum = float((w.double().sum(-1) - 1.0).abs().max())
+    psd = int((torch.linalg.cholesky_ex(scov.double()).info != 0).sum())
+    gpb2_err = _max_abs(outs, outs64)
+    # K=1: the switching filter is the LDS filter
+    g = torch.Generator().manual_seed(9)
+    glob1 = slds.init_pgm_param(1, d, g, device=device)
+    with torch.no_grad():
+        one_state, _ = _filter_run(*slds.make_online_filter(glob1), spots)
+        lds_out, _ = _filter_run(*lds.make_online_filter(
+            (glob1[2], tuple(x[0] for x in glob1[3]))), spots)
+    k1_err = _max_abs(one_state[1:], lds_out)
+    print(f"slds online filter (GPB2) [{Bs} streams, T={Ts}, K={K}, d={d}]: "
+          f"weights sum to 1 within {w_sum:.3e}, {psd} covariances not "
+          f"positive definite, vs float64 CPU max abs {gpb2_err:.3e}; K=1 "
+          f"vs the LDS filter max abs {k1_err:.3e}")
+    if (w_sum > TOL_WEIGHTS or psd or gpb2_err > TOL_ABS
+            or k1_err > TOL_ABS):
+        raise AssertionError("the SLDS online filter failed a check")
+    with torch.no_grad():
+        frame = tuple(p[:, Ts // 2] for p in spots)
+        t["slds_online_step_16"] = _time_ms(lambda: sfilt[1](sstate, frame))
+        busy, ops = _device_totals(lambda: sfilt[1](sstate, frame))
+    print(f"slds online filter step: {t['slds_online_step_16']:.4f} ms for "
+          f"{Bs} streams (device {busy:.4f} ms in {ops:.1f} device ops)")
+    return t
+
+
+# SLDS_CONFIG's run_inference on the parallel-in-time routes (phase 4q)
+SLDS_PARALLEL = (True, CHUNKS)
+
+
+def slds_parallel_path(device="cuda", cfg=SLDS_CONFIG):
+    """Phase 4q: ``slds.run_inference`` at slds_synth (B=16, T=80, K=4,
+    d=4, 12 sweeps, S=2; seeded weights, switching dot frames) in float32
+    at ``parallel=True`` (the log-depth trees of ``ops.kalman`` and
+    ``ops.hmm``, torch ops) and at ``parallel=8`` (the x-steps on the
+    element-scan kernels #19/#20) against ``parallel=False`` (the bpairs
+    and HMM kernels) under the same noise: local KL and the statistics
+    (each leaf's max abs error over its largest entry) within
+    TOL_LOGZ_REL, samples within TOL_ABS; one ``make_gradfun`` step
+    each, the ELBO within TOL_LOGZ_REL and the natural and net gradients
+    normwise within TOL_ADJ_REL; the counters of each run: #19 and #20 at
+    ``parallel=8``, no bpairs or HMM kernel on either parallel route, no
+    plain version; ``most_likely_states(parallel=True)`` against
+    ``parallel=False`` on >= 99% of entries. Prints the train step's event
+    ms, device ms and device ops at ``parallel=8`` and ``False``. Returns
+    the timings."""
+    K, d, T, B, S, N = (cfg[k] for k in ("K", "d", "T", "B", "S", "N"))
+    data = torch.from_numpy(make_switching_dot_data(
+        5, B, T, cfg["width"])).to(device)
+    prior, glob, rec, dec = _slds_models(device, K, d, cfg["width"],
+                                         cfg["hidden"])
+    run = functools.partial(slds.run_inference,
+                            num_meanfield_iters=cfg["sweeps"])
+    gen = torch.Generator(device=device).manual_seed(11)
+    eps = torch.randn((S, B, T, d), generator=gen, device=device)
+    with torch.no_grad():
+        pots = rec(data)
+    sequential = RAGGED_WRAPPERS + HMM_WRAPPERS
+    outs, grads, launches = {}, {}, {}
+    for parallel in (False,) + SLDS_PARALLEL:
+        _reset_counters()
+        with torch.no_grad():
+            outs[parallel] = run(prior, glob, pots, None, S,
+                                 parallel=parallel, eps=eps)
+        grad = elbo.make_gradfun(
+            functools.partial(run, parallel=parallel, eps=eps),
+            recognition.mlp_recognize, decoders.mlp_loglike, prior, N,
+            num_samples=S)
+        grads[parallel] = grad(glob, (rec, dec), data, gen)[:3]
+        torch.cuda.synchronize()
+        launches[parallel] = {w.__name__: w.launches for w in ALL_WRAPPERS
+                              if w.launches}
+        plain = sum(p.calls for p in ALL_PLAINS)
+        if plain:
+            raise AssertionError(f"slds parallel={parallel} called a plain "
+                                 f"version")
+    print(f"slds run_inference and make_gradfun launches by route: "
+          f"{launches}")
+    if (launches[CHUNKS].get("elem_scan", 0) < 1
+            or launches[CHUNKS].get("elem_scan_adj", 0) < 1
+            or any(w.__name__ in launches[p] for w in sequential
+                   for p in SLDS_PARALLEL)):
+        raise AssertionError("the parallel SLDS routes did not run their "
+                             "kernels alone")
+    ref, ref_grad = outs[False], grads[False]
+    for parallel in SLDS_PARALLEL:
+        samples, stats, _, lkl = outs[parallel]
+        kl_rel = abs(float(lkl) - float(ref[3])) / abs(float(ref[3]))
+        err = _max_abs((samples,), (ref[0],))
+        # the statistics are sums over the batch's frames: each leaf's
+        # error relative to its largest entry, as phase 4 holds them
+        stat_rel = max(_max_abs((a,), (b,)) / float(b.abs().max())
+                       for a, b in zip(tree_leaves(stats),
+                                       tree_leaves(ref[1])))
+        val, nat, net = grads[parallel]
+        val_rel = abs(float(val) - float(ref_grad[0])) / abs(
+            float(ref_grad[0]))
+        cpu = lambda tree: [x.detach().double().cpu()
+                            for x in tree_leaves(tree)]
+        nat_rel = _normwise(tree_leaves(nat), cpu(ref_grad[1]))
+        net_rel = max(_normwise(g, cpu(g0)) for g, g0 in zip(net,
+                                                           ref_grad[2]))
+        print(f"slds parallel={parallel} vs parallel=False: local KL rel "
+              f"{kl_rel:.3e}, samples max abs {err:.3e}, statistics rel "
+              f"{stat_rel:.3e}; elbo rel {val_rel:.3e}, natgrad rel "
+              f"{nat_rel:.3e}, net grad rel {net_rel:.3e}")
+        if (max(kl_rel, stat_rel, val_rel) > TOL_LOGZ_REL or err > TOL_ABS
+                or max(nat_rel, net_rel) > TOL_ADJ_REL):
+            raise AssertionError(f"slds parallel={parallel} disagrees with "
+                                 f"parallel=False")
+    with torch.no_grad():
+        paths = [slds.most_likely_states(glob, pots, cfg["sweeps"],
+                                         parallel=p) for p in (True, False)]
+    agree = _agree(*paths)
+    print(f"most_likely_states(parallel=True) vs parallel=False: "
+          f"{agree:.2%} of entries agree")
+    if agree < 0.99:
+        raise AssertionError("most_likely_states(parallel=True) disagrees")
+
+    t = {}
+    for parallel in (CHUNKS, False):
+        opt_init, step = loop.make_train_step(
+            functools.partial(run, parallel=parallel),
+            recognition.mlp_recognize, decoders.mlp_loglike, prior, N,
+            num_samples=S, pgm_step_size=cfg["pgm_step_size"],
+            net_step_size=cfg["net_step_size"])
+        nets = tuple(copy.deepcopy(m) for m in (rec, dec))
+        st = [glob, nets, opt_init(glob, nets)]
+
+        def one_step():
+            st[0], st[1], st[2], _, _ = step(*st, data, gen)
+
+        key = f"slds_train_step_parallel_{parallel}"
+        t[key] = _time_ms(one_step, runs=5, warmup=1)
+        # two calls: the profiler's host cost grows with the 16,000 ops of
+        # a parallel=8 step
+        busy, ops = _device_totals(one_step, calls=2)
+        print(f"slds_synth train step, parallel={parallel}: {t[key]:.4f} "
+              f"ms, device {busy:.4f} ms in {ops:.1f} device ops")
+    return t
+
+
 # BASELINE config 4 (svae_tpu_torch.config.PRESETS["conv_lds"]): the
 # conv-LDS's E-step shape, and the ELBO tier there. The float32 tiers of
 # tests/test_f32_parity.py were set at T=100; past it the long-T rule of
@@ -3511,6 +3811,45 @@ def slds_timings(device="cuda", cfg=SLDS_CONFIG, epochs=2):
     return t
 
 
+# the HMM kernels past K=8, at measure_hmm's B and T (phase 3h)
+HMM_LARGE_K = (16, 32)
+
+
+def hmm_large_k(device="cuda", Ks=HMM_LARGE_K):
+    """Phase 3h, the largest built K: at measure_hmm's B=128, T=100 with K
+    states, the four HMM kernels against their plain versions
+    (:func:`check_hmm`), then each kernel's event and device time, its
+    plain version's event time and its bound. Returns ``{K: {kernel:
+    {...}}}``."""
+    rows = {}
+    for K in Ks:
+        shape = dict(HMM_SHAPES["measure_hmm"], K=K)
+        errs = check_hmm(shape, "stationary", K, device)
+        li, lt, lo, _ = hmm_problem(shape, K, device)
+        g = torch.Generator(device=device).manual_seed(K)
+        rows[K] = {}
+        for fwd, adj in HMM_RUNS:
+            args = hmm_kernel_args(li, lt, lo)[fwd]
+            outs = getattr(hmm_fb, fwd + "_plain")(*args)
+            adj_args = _f32((*args, *outs) + tuple(
+                torch.randn(o.shape, generator=g, dtype=o.dtype,
+                            device=device) for o in outs))
+            for name, a in ((fwd, _f32(args)), (adj, adj_args)):
+                fn, plain = (getattr(hmm_fb, name),
+                             getattr(hmm_fb, name + "_plain"))
+                dev = _device_ms(lambda: fn(*a))
+                b_ms, b_by = bound(name, shape["B"], shape["T"], K, 1)
+                rows[K][name] = dict(
+                    err=errs[name], ms=_time_ms(lambda: fn(*a)),
+                    device_ms=sum(dev.values()) if dev else math.nan,
+                    plain_ms=_time_ms(lambda: plain(*a), runs=10),
+                    bound_ms=b_ms, bound_by=b_by)
+        print(f"hmm kernels at K={K} [{shape}] (normwise rel, max abs; "
+              f"event ms, device ms, plain ms, bound): "
+              f"{json.dumps(rows[K])}")
+    return rows
+
+
 def _pass_times(t, tag, name, whole, passes, plains=None, kernels=None):
     """Into ``t``: the event time of ``name``, a function run as passes (a
     no-argument call ``whole``), and its device time in its passes'
@@ -4266,6 +4605,10 @@ def main():
             if k in e:
                 errs[k] = max(errs.get(k, 0.0), e[k][1])
     stat_launches = hmm_stationary_path()
+    large_k = hmm_large_k()
+    for K, rows in large_k.items():
+        for k, row in rows.items():
+            errs[k] = max(errs.get(k, 0.0), row["err"][1])
     for name, shape in ELEM_SHAPES.items():
         e = check_elem_scan(shape)
         print(f"element-scan kernels vs plain versions [{name} {shape}] "
@@ -4299,6 +4642,8 @@ def main():
     one_direction_filters()
     gmm_path()
     forecast_path()
+    serving_t = streaming_path()
+    serving_t.update(slds_parallel_path())
     conv_launches, conv_t = conv_lds_path()
     conv_rows = conv_kernels()
     example_smokes()
@@ -4357,6 +4702,10 @@ def main():
                   // PRESETS["conv_lds"].train.batch_size), **row)
               for k, row in conv_rows.items()]))
     print(f"conv_lds step: {json.dumps(conv_t)}")
+    print(f"hmm kernels at measure_hmm's B and T, K in {list(large_k)}: "
+          f"{json.dumps(large_k)}")
+    print(f"serving path and slds parallel= steps (ms): "
+          f"{json.dumps(serving_t)}")
     print(f"bigdata_dp step: {json.dumps(dp_t)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,14 @@ inference and training paths (``models.lds`` on the packed E-step of
 ``ops.estep`` or, for ragged batches, the per-sequence-pairs E-step of
 ``ops.bpairs``) and SLDS-SVAE training (``models.slds``, a structured
 mean-field alternating ``ops.bpairs`` with the HMM forward-backward of
-``ops.hmm_fb``), the forecast and state-sampling APIs (``lds.predict``,
-``slds.sample_states``, ``slds.predict``, ``ops.hmm.hmm_sample``) and
-the MAP decode (``slds.most_likely_states``), with the recognition nets
-and decoders (``nets``), the
+``ops.hmm_fb``, or with ``parallel=`` on the parallel-in-time scans of
+``ops.kalman``, ``ops.chunked`` and ``ops.hmm``), the forecast and
+state-sampling APIs (``lds.predict``, ``slds.sample_states``,
+``slds.predict``, ``ops.hmm.hmm_sample``) and the MAP decode
+(``slds.most_likely_states``), the serving path (the online filters
+``lds.make_online_filter`` and ``slds.make_online_filter``, and
+``models.streaming``'s window filter and replay), with the recognition
+nets and decoders (``nets``: MLP, residual, linear and conv), the
 MC-ELBO and its gradients (``train.elbo``), the optimizers and loops
 (``train``), the experiment runner with its checkpoints and metrics
 (``train.experiment``, ``train.checkpoint``, ``train.metrics``), the

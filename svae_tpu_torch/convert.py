@@ -11,7 +11,14 @@ this module needs no JAX:
 * an MLP decoder ``(hidden, ((Wm, bm), (Ws, bs)))`` ->
   :class:`~svae_tpu_torch.nets.decoders.MLPDecoder`;
 * a conv recognizer ``(((Wk, b), ...), ((Wj, bj), (Wh, bh)))`` ->
-  :class:`~svae_tpu_torch.nets.recognition.ConvRecognizer`.
+  :class:`~svae_tpu_torch.nets.recognition.ConvRecognizer`;
+* a residual recognizer ``(((Wp, bp), (((W1, b1), (W2, b2)), ...)),
+  ((Wj, bj), (Wh, bh)))`` -> an
+  :class:`~svae_tpu_torch.nets.recognition.MLPRecognizer` over a
+  :class:`~svae_tpu_torch.nets.mlp.ResNet`;
+* a linear recognizer or decoder (the MLP layouts with an empty hidden
+  stack, as the JAX package's ``init_linear_*`` make them) -> the MLP
+  modules with an empty stack (``linear_recognizer``, ``linear_decoder``).
 
 Dense weights keep their (n_in, n_out) layout (svae_tpu_torch/nets/mlp.py);
 conv kernels go from the JAX package's (k, k, C_in, C_out) to torch's
@@ -26,7 +33,7 @@ import torch
 
 from svae_tpu_torch.nets.decoders import MLPDecoder
 from svae_tpu_torch.nets.mlp import (Dense, GaussianInfoHead,
-                                     GaussianMeanHead, MLP)
+                                     GaussianMeanHead, MLP, ResNet)
 from svae_tpu_torch.nets.recognition import (ConvRecognizer, ConvSame,
                                              MLPRecognizer)
 from svae_tpu_torch.utils.pytree import tree_map
@@ -64,6 +71,20 @@ def decoder(params, dtype=None, device="cuda"):
         _hidden(hidden, dtype, device),
         GaussianMeanHead(_dense(mean_layer, dtype, device),
                          _dense(sig_layer, dtype, device)))
+
+
+# a linear recognizer or decoder is the MLP layout with no hidden layer
+linear_recognizer = recognizer
+linear_decoder = decoder
+
+
+def resnet_recognizer(params, dtype=None, device="cuda"):
+    (proj, blocks), (j_layer, h_layer) = params
+    return MLPRecognizer(
+        ResNet(_dense(proj, dtype, device),
+               [tuple(_dense(p, dtype, device) for p in b) for b in blocks]),
+        GaussianInfoHead(_dense(j_layer, dtype, device),
+                         _dense(h_layer, dtype, device)))
 
 
 def conv_recognizer(params, dtype=None, device="cuda"):

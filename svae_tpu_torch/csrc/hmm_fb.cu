@@ -20,8 +20,9 @@
 // lanes [B, 2B) the beta recursion of the same sequences (independent
 // chains; the Pallas kernel interleaves them only to fill a grid step).
 // Both kernels give each chain segment_lanes(K) adjacent lanes of a warp
-// (K = 3 leaves one idle), lane j owning state j of the carry, and run the
-// same chain step (chain_steps): it takes the K carried values by shuffles
+// (K = 3 leaves one idle, K = 5 three; K is at most 32, a whole warp),
+// lane j owning state j of the carry, and run the same chain step
+// (chain_steps): it takes the K carried values by shuffles
 // within the segment, adds them to the lane's K elements of the step (the
 // lane's column of M_t, its row for beta) and computes one logsumexp of K
 // terms, K expf and one logf where a thread per chain ran K^2 and K. The
@@ -76,9 +77,9 @@ constexpr int kHmmStatRing = 8;
 
 // A lane's place in a chain kernel, one warp a block: segment_lanes(K)
 // lanes a chain, chain c = alpha lane c < B or beta lane c - B. In the last
-// warp, lanes past the last chain (and K = 3's idle lane) shadow a real
-// lane and are not live: they compute, so that every shuffle has its
-// lanes, and store nothing. A warp past the last chain leaves whole
+// warp, lanes past the last chain (and the idle lanes of a K that is not
+// a power of two) shadow a real lane and are not live: they compute, so
+// that every shuffle has its lanes, and store nothing. A warp past the last chain leaves whole
 // first (warp_past_chains).
 struct ChainLane {
   bool live, fwd;
@@ -239,7 +240,34 @@ inline dim3 segment_grid(int B) {
     CASE(2)                              \
     CASE(3)                              \
     CASE(4)                              \
+    CASE(5)                              \
+    CASE(6)                              \
+    CASE(7)                              \
     CASE(8)                              \
+    CASE(9)                              \
+    CASE(10)                             \
+    CASE(11)                             \
+    CASE(12)                             \
+    CASE(13)                             \
+    CASE(14)                             \
+    CASE(15)                             \
+    CASE(16)                             \
+    CASE(17)                             \
+    CASE(18)                             \
+    CASE(19)                             \
+    CASE(20)                             \
+    CASE(21)                             \
+    CASE(22)                             \
+    CASE(23)                             \
+    CASE(24)                             \
+    CASE(25)                             \
+    CASE(26)                             \
+    CASE(27)                             \
+    CASE(28)                             \
+    CASE(29)                             \
+    CASE(30)                             \
+    CASE(31)                             \
+    CASE(32)                             \
     default:                             \
       return (int)cudaErrorInvalidValue; \
   }

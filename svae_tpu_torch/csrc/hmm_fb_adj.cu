@@ -70,7 +70,9 @@
 namespace {
 
 // How many steps ahead a lane of the chain pass loads (chip_variants.py;
-// the chain pass runs one warp a block: four ran slower).
+// the chain pass runs one warp a block: four ran slower). The ring holds
+// R (K + 1) floats a lane: 33.8 KB a block at K = 32, under the 48 KB of
+// static shared memory.
 constexpr int kHmmAdjRing = 8;
 
 // How many threads a block of the stationary adjoint's sums pass runs.
@@ -154,7 +156,8 @@ hmm_fb_adj_chain_kernel(int B, int T1, const float* __restrict__ W,
   const int lane = threadIdx.x;
   const int gid = blockIdx.x * kThreads + lane;
   // as hmm_fb_fwd_kernel: a warp past the last chain leaves whole; lanes
-  // past it and K = 3's idle lane shadow a real lane and store nothing
+  // past it and the idle lanes of a K that is not a power of two shadow
+  // a real lane and store nothing
   if ((gid - lane) / S >= 2 * B) return;
   const bool live = gid / S < 2 * B && gid % S < K;
   const int chain = min(gid / S, 2 * B - 1);
@@ -383,7 +386,34 @@ int launch_adj(int B, int T1, const float* a0, const float* M,
     CASE(2)                              \
     CASE(3)                              \
     CASE(4)                              \
+    CASE(5)                              \
+    CASE(6)                              \
+    CASE(7)                              \
     CASE(8)                              \
+    CASE(9)                              \
+    CASE(10)                             \
+    CASE(11)                             \
+    CASE(12)                             \
+    CASE(13)                             \
+    CASE(14)                             \
+    CASE(15)                             \
+    CASE(16)                             \
+    CASE(17)                             \
+    CASE(18)                             \
+    CASE(19)                             \
+    CASE(20)                             \
+    CASE(21)                             \
+    CASE(22)                             \
+    CASE(23)                             \
+    CASE(24)                             \
+    CASE(25)                             \
+    CASE(26)                             \
+    CASE(27)                             \
+    CASE(28)                             \
+    CASE(29)                             \
+    CASE(30)                             \
+    CASE(31)                             \
+    CASE(32)                             \
     default:                             \
       return (int)cudaErrorInvalidValue; \
   }

@@ -13,6 +13,8 @@ frames, and runs the per-sequence E-step of :mod:`svae_tpu_torch.ops.bpairs`.
 (torch ops), an int C the chunked scan of :mod:`svae_tpu_torch.ops.chunked`.
 All run CUDA kernels on a card (the tree flavor has none, as the JAX package
 runs ``lax.associative_scan`` there) and plain twins on the CPU.
+:func:`make_online_filter` filters a stream one frame at a time (torch
+ops; the JAX package runs it as XLA).
 
 Statistics are congruent with the global natparams and summed over the
 batch:
@@ -30,7 +32,7 @@ import torch
 from svae_tpu_torch.expfam import mniw, niw
 from svae_tpu_torch.ops import bpairs, chunked, estep, kalman
 from svae_tpu_torch.utils import smallchol
-from svae_tpu_torch.utils.psd import f32_linalg
+from svae_tpu_torch.utils.psd import eye_like, f32_linalg, symmetrize
 from svae_tpu_torch.utils.pytree import tree_dot, tree_map, tree_sub
 
 def init_pgm_param(d, generator, niw_conc=10.0, mniw_conc=10.0, A_scale=0.9,
@@ -135,6 +137,8 @@ def prior_kl(global_natparam, prior_natparam):
 
 
 def _expected_potentials(global_natparam, dtype):
+    """((I1, I2, Ic), (P1, P2, P3, Pc)) under q(theta), in ``dtype``
+    (kept as they are for None)."""
     niw_np, mniw_np = global_natparam
     (I1, I2), Ic = niw.expected_gaussian_natparam(niw_np)
     pair_mats = mniw.expected_pair_potential(mniw_np)
@@ -286,6 +290,76 @@ def posterior_moments(global_natparam, nn_potentials, parallel=False,
     if not batched:
         return Ex[0], ExxT[0], Exnxt[0], logZ[0]
     return Ex, ExxT, Exnxt, logZ
+
+
+def expected_chain_potentials(global_natparam, T, dtype=None):
+    """``(init, pairs)`` chain potentials under q(theta): init = (I1, I2,
+    Ic) and the shared pairs (P1, P2, P3, Pc) with a leading (T-1) axis,
+    cast to ``dtype`` when it is given."""
+    init, pair_mats = _expected_potentials(global_natparam, dtype)
+    return init, tuple(p.expand((T - 1,) + p.shape) for p in pair_mats)
+
+
+def _mean_cov(J, h):
+    """Mean and covariance of the information-form Gaussian (J, h)."""
+    L = smallchol.chol(symmetrize(J))
+    return (smallchol.cho_solve(L, h),
+            symmetrize(smallchol.cho_solve_mat(L, eye_like(J))))
+
+
+def _frame_nodes(potentials, dtype):
+    """One frame's diagonal evidence (J_diag, h), (..., d) each, as node
+    potentials (N1 = -1/2 diag J_diag, h) in ``dtype``."""
+    J_diag, h = (x.to(dtype) for x in potentials)
+    return -0.5 * torch.diag_embed(J_diag), h
+
+
+def make_online_filter(global_natparam, dtype=torch.float32):
+    """Streaming (serving-side) filter: one frame's recognition potentials
+    in at a time, the filtered posterior and the incremental predictive
+    log-evidence ``log p(y_t | y_{1:t-1})`` out (an online surprise score).
+    It runs the chain-element algebra of :mod:`~svae_tpu_torch.ops.kalman`
+    (one leaf a frame, marginalized at once), so it matches its filter.
+
+    Returns ``(init_fn, step_fn)``::
+
+      state, (mean, cov, logev) = init_fn((J_diag_1, h_1))   # frame 1
+      state, (mean, cov, logev) = step_fn(state, (J_diag_t, h_t))
+
+    ``(J_diag_t, h_t)`` are one frame's diagonal evidence, (..., d) each:
+    any leading axes serve that many independent streams at once (the JAX
+    package vmaps its (d,) filter instead). The outputs and the state
+    carry the same leading axes. Both run in ``dtype`` on the globals'
+    device, with no TF32."""
+    init, pairs = expected_chain_potentials(global_natparam, 2, dtype=dtype)
+    I1, I2, Ic = init
+    P1, P2, P3, Pc = (p[0] for p in pairs)  # the one homogeneous pair
+
+    @f32_linalg()
+    def init_fn(potentials):
+        n1, n2 = _frame_nodes(potentials, dtype)
+        J = -2.0 * (I1 + n1)
+        h = I2 + n2
+        c = Ic.expand(h.shape[:-1])
+        logZ = kalman._gauss_logZ_info(J, h, c)
+        mean, cov = _mean_cov(J, h)
+        return (J, h, c, logZ), (mean, cov, logZ)
+
+    @f32_linalg()
+    def step_fn(state, potentials):
+        J, h, c, logZ_prev = state
+        n1, n2 = _frame_nodes(potentials, dtype)
+        # one chain leaf over (x_t, x_{t+1}) owning node t+1, with the
+        # running filtered potential folded into its (J11, h1, c) slots
+        # (kalman.build_leaves' ownership)
+        e = (-2.0 * P3 + J, (-P2.mT).expand(J.shape), -2.0 * (P1 + n1), h,
+             n2, Pc + c)
+        Jn, hn, cn = kalman.marginalize_first(e)
+        logZ = kalman._gauss_logZ_info(Jn, hn, cn)
+        mean, cov = _mean_cov(Jn, hn)
+        return (Jn, hn, cn, logZ), (mean, cov, logZ - logZ_prev)
+
+    return init_fn, step_fn
 
 
 @f32_linalg()

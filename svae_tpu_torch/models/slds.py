@@ -1,5 +1,6 @@
 """SLDS-SVAE prior: a switching linear dynamical system (port of
-svae_tpu/models/slds.py, the algebra of its ``backend="pallas"`` path).
+svae_tpu/models/slds.py: the algebra of its ``backend="pallas"`` path and,
+with ``parallel=``, of its ``backend="xla"`` one).
 
 Generative model: a discrete Markov chain z_{1:T} over K states, with
 Dirichlet priors on its initial distribution and on each transition row,
@@ -18,7 +19,13 @@ with a z-step, the HMM forward-backward of
 expected pair energies under q(x). Warm sweeps run without a graph; the
 last ``num_diff_iters`` sweeps and the final x- and z-steps carry the
 gradient. On a card every recursion is a CUDA kernel, on the CPU a plain
-twin. The local KL reduces to
+twin. ``parallel=`` routes the sweeps to the parallel-in-time scans
+instead (the JAX package's ``backend="xla"`` path): the log-depth trees
+of :mod:`svae_tpu_torch.ops.kalman` and :mod:`svae_tpu_torch.ops.hmm`
+for ``True``, the chunked element-scan kernels of
+:mod:`svae_tpu_torch.ops.chunked` for the x-steps of a chunk count.
+:func:`local_meanfield` serves one sequence; :func:`make_online_filter`
+is the streaming GPB2 switching filter. The local KL reduces to
 
   local_kl = <L, r> + <psi, x-stats> - logZ_hmm - logZ_lds
 
@@ -33,9 +40,9 @@ import torch
 
 from svae_tpu_torch.expfam import dirichlet, mniw, niw
 from svae_tpu_torch.models import lds
-from svae_tpu_torch.ops import bpairs, estep, hmm, hmm_fb
+from svae_tpu_torch.ops import bpairs, estep, hmm, kalman
 from svae_tpu_torch.utils import smallchol
-from svae_tpu_torch.utils.psd import f32_linalg
+from svae_tpu_torch.utils.psd import eye_like, f32_linalg, symmetrize
 from svae_tpu_torch.utils.pytree import tree_dot, tree_map, tree_sub
 
 
@@ -133,14 +140,22 @@ def _uniform_rows(log_trans, pair_weights):
     return w * log_trans + (1.0 - w) * -math.log(K)
 
 
-def _x_step(E_pair, chain_init, nodes, r_next, pair_weights=None):
+def _x_step(E_pair, chain_init, nodes, r_next, pair_weights=None,
+            parallel=False):
     """q(x) given q(z)'s next-state marginals ``r_next`` (B, T-1, K): the
-    per-sequence LDS E-step on the state-averaged pair potentials (the
-    normalized dummy at pad transitions). Returns ``(logZ_x, pairs,
-    (Ex, ExxT, Exnxt), (Jf, hf))``."""
+    per-sequence LDS smoother on the state-averaged pair potentials (the
+    normalized dummy at pad transitions), on the route ``parallel`` names:
+    the bpairs kernels for ``False``, else ``lds._route(parallel)``'s
+    smoother (the log-depth tree for ``True``, the chunked element scans
+    for a chunk count). Returns ``(logZ_x, pairs, (Ex, ExxT, Exnxt),
+    filt)`` with filt the forward messages (Jf, hf) of the bpairs route
+    (None on the others)."""
     pairs = _averaged_pairs_b(E_pair, r_next)
     if pair_weights is not None:
         pairs = lds.dummy_blend_pairs(pairs, pair_weights)
+    if parallel:
+        logZ_x, *moments = lds._route(parallel)[1](chain_init, pairs, nodes)
+        return logZ_x, pairs, tuple(moments), None
     logZ_x, Jf, hf, Jb, hb = bpairs.fb_pass(chain_init, pairs, nodes)
     moments = estep.smoother_assembly(pairs, nodes, Jf, hf, Jb, hb)
     return logZ_x, pairs, moments, (Jf, hf)
@@ -153,31 +168,37 @@ def _log_obs(L):
     return torch.cat([L.new_zeros(L.shape[0], 1, L.shape[2]), L], 1)
 
 
-def _z_step(E_pair, e_pi0, log_trans, moments, pair_weights=None):
+def _z_step(E_pair, e_pi0, log_trans, moments, pair_weights=None,
+            parallel=False):
     """q(z) given q(x)'s ``moments``: the HMM forward-backward whose
-    observations are the pair energies (zeroed at pad transitions).
-    Returns ``(logZ_z, L, r, pair_sum, r1)``."""
+    observations are the pair energies (zeroed at pad transitions), on the
+    kernels for ``parallel=False``, else on the log-depth scans of
+    :func:`~svae_tpu_torch.ops.hmm.hmm_posterior`. Returns ``(logZ_z, L,
+    r, pair_sum, r1)``."""
     L = _pair_energies_b(E_pair, _x_pair_stats_b(*moments))
     if pair_weights is not None:
         L = L * pair_weights[..., None]
-    logZ_z, r, pair_sum, r1 = hmm_fb.hmm_posterior(
-        e_pi0, log_trans, _log_obs(L), pair_weights=pair_weights)
+    logZ_z, r, pair_sum, r1 = hmm.hmm_posterior(
+        e_pi0, log_trans, _log_obs(L), parallel=parallel,
+        pair_weights=pair_weights)
     return logZ_z, L, r, pair_sum, r1
 
 
 def _batched_meanfield(global_natparam, nn_potentials, num_iters=15,
-                       num_diff_iters=1, pair_weights=None):
+                       num_diff_iters=1, pair_weights=None, parallel=False):
     """Structured mean-field for a minibatch (port of
-    slds._batched_meanfield_pallas). ``nn_potentials`` = (J_diag, h), each
-    (B, T, d). ``pair_weights`` (B, T-1) marks the real transitions of a
-    ragged batch: pad transitions get the normalized dummy factors (N(0, I)
-    on the continuous chain, uniform rows on the discrete one) and their
-    pair energies are zeroed. From uniform q(z), ``num_iters`` sweeps of
-    an x-step and a z-step run, the first ``num_iters - num_diff_iters``
-    of them without a graph; then a final x-step and z-step. Returns
-    ``(hmm_post, lds_post, local_kl)`` with ``hmm_post = (logZ_z, r,
-    pair_sum, r1)`` and ``lds_post = (logZ_x, (init, pairs, nodes),
-    (Ex, ExxT, Exnxt), (Jf, hf))``."""
+    slds._batched_meanfield_pallas and, with ``parallel``, of the vmapped
+    local_meanfield). ``nn_potentials`` = (J_diag, h), each (B, T, d).
+    ``pair_weights`` (B, T-1) marks the real transitions of a ragged
+    batch: pad transitions get the normalized dummy factors (N(0, I) on
+    the continuous chain, uniform rows on the discrete one) and their pair
+    energies are zeroed. ``parallel`` routes every x-step and z-step
+    (:func:`_x_step`, :func:`_z_step`). From uniform q(z), ``num_iters``
+    sweeps of an x-step and a z-step run, the first ``num_iters -
+    num_diff_iters`` of them without a graph; then a final x-step and
+    z-step. Returns ``(hmm_post, lds_post, local_kl)`` with ``hmm_post =
+    (logZ_z, r, pair_sum, r1)`` and ``lds_post = (logZ_x, (init, pairs,
+    nodes), (Ex, ExxT, Exnxt), filt)``."""
     J_diag, h = nn_potentials
     e_pi0, e_Pi, chain_init, E_pair = _expected_globals(global_natparam,
                                                         h.dtype)
@@ -186,9 +207,9 @@ def _batched_meanfield(global_natparam, nn_potentials, num_iters=15,
     nodes = (N1, h)
     log_trans = _uniform_rows(e_Pi, pair_weights)
     x_step = functools.partial(_x_step, E_pair, chain_init, nodes,
-                               pair_weights=pair_weights)
+                               pair_weights=pair_weights, parallel=parallel)
     z_step = functools.partial(_z_step, E_pair, e_pi0, log_trans,
-                               pair_weights=pair_weights)
+                               pair_weights=pair_weights, parallel=parallel)
 
     def sweep(r):
         return z_step(x_step(r[:, 1:])[2])[2]
@@ -212,19 +233,53 @@ def _batched_meanfield(global_natparam, nn_potentials, num_iters=15,
     return hmm_post, lds_post, local_kl
 
 
+@f32_linalg()
+def local_meanfield(global_natparam, nn_potentials, num_iters=15,
+                    num_diff_iters=1, parallel=False, pair_weight=None):
+    """Structured mean-field for one sequence: :func:`_batched_meanfield`
+    on a batch of one. ``nn_potentials`` = (J_diag, h), each (T, d);
+    ``pair_weight`` (T-1,) {0,1} marks the real transitions of a sequence
+    padded to T; ``parallel`` as in :func:`run_inference`. Returns the JAX
+    package's ``(hmm_post, lds_post, local_kl)`` with ``hmm_post =
+    (logZ_z, r (T, K), pair_sum (K, K), r1 (K,))`` and ``lds_post =
+    (logZ_x, (init, pairs, nodes), (Ex, ExxT, Exnxt))``."""
+    parallel = lds._check_parallel(parallel)
+    one = lambda x: None if x is None else x[None]
+    hmm_post, lds_post, local_kl = _batched_meanfield(
+        global_natparam, tuple(x[None] for x in nn_potentials), num_iters,
+        num_diff_iters, one(pair_weight), parallel)
+    first = lambda tree: tuple(x[0] for x in tree)
+    logZ_x, (chain_init, pairs, nodes), moments, _ = lds_post
+    return (first(hmm_post),
+            (logZ_x[0], (chain_init, first(pairs), first(nodes)),
+             first(moments)), local_kl)
+
+
+def _sample_x(lds_post, generator, num_samples, parallel, eps=None):
+    """Samples (S, B, T, d) of the converged q(x): on the bpairs sampler
+    from the final x-step's forward messages, or the E-step of
+    ``lds._route(parallel)`` on its pairs."""
+    _, (chain_init, pairs_bar, nodes), _, filt = lds_post
+    if parallel:
+        return lds._route(parallel)[0](chain_init, pairs_bar, nodes,
+                                       generator, num_samples, eps=eps)[0]
+    return bpairs.lds_sample(pairs_bar, filt, generator, num_samples,
+                             eps=eps)
+
+
 def _batched_inference(global_natparam, nn_potentials, generator,
                        num_samples, num_iters, num_diff_iters,
-                       pair_weights=None, eps=None):
+                       pair_weights=None, eps=None, parallel=False):
     """Mean-field, samples (S, B, T, d) from the converged q(x) and the
     statistics summed over the batch, with pad transitions weighted out
-    (port of slds._batched_inference_pallas)."""
+    (port of slds._batched_inference_pallas and of the vmapped
+    _sequence_inference)."""
     hmm_post, lds_post, local_kl = _batched_meanfield(
         global_natparam, nn_potentials, num_iters, num_diff_iters,
-        pair_weights)
+        pair_weights, parallel)
     _, r, pair_sum, r1 = hmm_post
-    _, (_, pairs_bar, _), (Ex, ExxT, Exnxt), filt = lds_post
-    samples = bpairs.lds_sample(pairs_bar, filt, generator, num_samples,
-                                eps=eps)
+    Ex, ExxT, Exnxt = lds_post[2]
+    samples = _sample_x(lds_post, generator, num_samples, parallel, eps)
     r_next = r[:, 1:]                                    # (B, T-1, K)
     if pair_weights is not None:
         r_next = r_next * pair_weights[..., None]
@@ -258,20 +313,23 @@ def run_inference(prior_natparam, global_natparam, nn_potentials, generator,
     lengths of a batch padded to a common T (batched input only): pad
     transitions become normalized dummies on both chains and leave every
     statistic, so the result equals that of the unpadded sequences. Both
-    compose. ``parallel=True`` (the JAX package's per-sequence scan path)
-    is not ported and raises. Raises ``FloatingPointError`` if a Cholesky
-    factor failed (one host sync per call)."""
-    if parallel:
-        raise NotImplementedError(
-            "slds.run_inference(parallel=...): the per-sequence scan path "
-            "is not ported; the batched structured mean-field serves every "
-            "batch (ROADMAP.md Queue 1)")
+    compose. ``parallel``: ``False`` (or 0) runs every x-step on the
+    bpairs kernels and every z-step on the HMM kernels; ``True`` the
+    log-depth trees of :mod:`~svae_tpu_torch.ops.kalman` and
+    :mod:`~svae_tpu_torch.ops.hmm` (torch ops); a chunk count C the
+    chunked element scans of :mod:`~svae_tpu_torch.ops.chunked` for the
+    x-steps and the HMM trees for the z-steps (the JAX package's
+    ``backend="xla"`` path with the same ``parallel``). Raises
+    ``FloatingPointError`` if a Cholesky factor failed (one host sync per
+    call)."""
+    parallel = lds._check_parallel(parallel)
     J_diag, h, batched = lds._prepare(nn_potentials, mask, lengths)
     pair_w = (None if lengths is None else
               lds._pair_weight(lengths, h.shape[1], h.dtype, h.device))
     samples, stats, local_kl = _batched_inference(
         global_natparam, (J_diag, h), generator, num_samples,
-        num_meanfield_iters, num_diff_iters, pair_weights=pair_w, eps=eps)
+        num_meanfield_iters, num_diff_iters, pair_weights=pair_w, eps=eps,
+        parallel=parallel)
     if not batched:
         samples = samples[:, 0]
     out = (samples, stats, prior_kl(global_natparam, prior_natparam),
@@ -289,57 +347,65 @@ def _z_chain_inputs(global_natparam, moments, dtype):
         E_pair, _x_pair_stats_b(*moments)))
 
 
-def _converged_meanfield(global_natparam, J_diag, h, num_meanfield_iters):
+def _converged_meanfield(global_natparam, J_diag, h, num_meanfield_iters,
+                         parallel=False):
     """The structured mean-field with no gradient sweep, and the discrete
     chain's inputs under it: ``(lds_post, (e_pi0, e_Pi, log_obs))``."""
     _, lds_post, _ = _batched_meanfield(
         global_natparam, (J_diag, h), num_iters=num_meanfield_iters,
-        num_diff_iters=0)
+        num_diff_iters=0, parallel=parallel)
     return lds_post, _z_chain_inputs(global_natparam, lds_post[2], h.dtype)
 
 
 @f32_linalg()
 def most_likely_states(global_natparam, nn_potentials,
-                       num_meanfield_iters=15, mask=None):
+                       num_meanfield_iters=15, parallel=False, mask=None):
     """MAP discrete-state paths under the converged structured mean-field
     q(z): the Viterbi decode of the HMM factor whose observations are the
     pair energies at q(x). ``nn_potentials`` = (J_diag, h), (T, d) or
-    (B, T, d); returns int32 paths (T,) or (B, T). ``mask`` marks missing
-    frames (their evidence zeroed; the decode bridges them through the
-    dynamics). No gradient is taken."""
+    (B, T, d); returns int32 paths (T,) or (B, T). ``parallel`` routes the
+    mean-field as in :func:`run_inference` and runs the decode's messages
+    as a max-plus tree when truthy. ``mask`` marks missing frames (their
+    evidence zeroed; the decode bridges them through the dynamics). No
+    gradient is taken."""
+    parallel = lds._check_parallel(parallel)
     J_diag, h, batched = lds._prepare(nn_potentials, mask, None)
     with torch.no_grad():
         _, z_inputs = _converged_meanfield(global_natparam, J_diag, h,
-                                           num_meanfield_iters)
-        path, _ = hmm.hmm_viterbi(*z_inputs)
+                                           num_meanfield_iters, parallel)
+        path, _ = hmm.hmm_viterbi(*z_inputs, parallel=parallel)
     return path if batched else path[0]
 
 
 @f32_linalg()
 def sample_states(global_natparam, nn_potentials, generator, num_samples=(),
-                  num_meanfield_iters=15, mask=None, gumbel_noise=None):
+                  num_meanfield_iters=15, parallel=False, mask=None,
+                  gumbel_noise=None):
     """Posterior samples of the discrete paths under the converged
     structured mean-field q(z): Gumbel-argmax backward sampling
     (:func:`~svae_tpu_torch.ops.hmm.hmm_sample`) through the HMM factor
     whose observations are the pair energies at q(x). ``nn_potentials`` =
     (J_diag, h), (T, d) or (B, T, d); returns int32 paths S + (T,) or
     (B,) + S + (T,) (``num_samples`` an int or a shape tuple S).
+    ``parallel`` routes the mean-field as in :func:`run_inference` and the
+    sampler's backward messages (a suffix scan when truthy).
     ``gumbel_noise`` overrides the noise in ``hmm_sample``'s layout (B = 1
     for one sequence). ``mask`` marks missing frames. No gradient is
     taken."""
+    parallel = lds._check_parallel(parallel)
     J_diag, h, batched = lds._prepare(nn_potentials, mask, None)
     with torch.no_grad():
         _, z_inputs = _converged_meanfield(global_natparam, J_diag, h,
-                                           num_meanfield_iters)
+                                           num_meanfield_iters, parallel)
         paths = hmm.hmm_sample(*z_inputs, generator, num_samples,
-                               gumbel_noise=gumbel_noise)
+                               parallel=parallel, gumbel_noise=gumbel_noise)
     return paths if batched else paths[0]
 
 
 @f32_linalg()
 def predict(global_natparam, nn_potentials, generator, num_steps,
-            num_samples=1, num_meanfield_iters=15, mask=None, eps=None,
-            gumbel_noise=None, step_eps=None, step_gumbel=None):
+            num_samples=1, num_meanfield_iters=15, parallel=False, mask=None,
+            eps=None, gumbel_noise=None, step_eps=None, step_gumbel=None):
     """Regime-switching forecast: condition on an observed window through
     the structured mean-field, sample joint posterior paths (z, x) of the
     window, then roll forward ``num_steps`` with z_{n+1} ~ Cat(E[Pi]_{z_n})
@@ -357,8 +423,11 @@ def predict(global_natparam, nn_potentials, generator, num_steps,
     four draws: ``eps`` (S, B, T, d) for the window's x, ``gumbel_noise``
     for its z paths (``hmm_sample``'s layout), ``step_eps``
     (num_steps, S, B, d) and ``step_gumbel`` (num_steps, S, B, K) for the
-    rollout (B = 1 for one sequence). ``mask`` marks missing frames. No
-    gradient is taken."""
+    rollout (B = 1 for one sequence). ``parallel`` routes the mean-field,
+    the window's x samples (the E-step of ``lds._route(parallel)``) and
+    its z paths as in :func:`run_inference` and :func:`sample_states`.
+    ``mask`` marks missing frames. No gradient is taken."""
+    parallel = lds._check_parallel(parallel)
     J_diag, h, batched = lds._prepare(nn_potentials, mask, None)
     _, trans_dir, _, mniw_np = global_natparam
     with torch.no_grad():
@@ -370,11 +439,11 @@ def predict(global_natparam, nn_potentials, generator, num_steps,
                                 mniw.posterior_mean_params(mniw_np))
         Ls_k = smallchol.chol(Sigma_k)
         lds_post, z_inputs = _converged_meanfield(
-            global_natparam, J_diag, h, num_meanfield_iters)
-        _, (_, pairs_bar, _), _, filt = lds_post
-        xs = bpairs.lds_sample(pairs_bar, filt, generator, num_samples,
-                               eps=eps)                    # (S, B, T, d)
+            global_natparam, J_diag, h, num_meanfield_iters, parallel)
+        xs = _sample_x(lds_post, generator, num_samples, parallel,
+                       eps)                                # (S, B, T, d)
         zs = hmm.hmm_sample(*z_inputs, generator, num_samples,
+                            parallel=parallel,
                             gumbel_noise=gumbel_noise)     # (B, S, T)
         S, B, _, d = xs.shape
         K = log_Pi.shape[-1]
@@ -395,3 +464,112 @@ def predict(global_natparam, nn_potentials, generator, num_steps,
     x_traj = torch.cat(x_frames, 2).transpose(0, 1)
     z_traj = torch.cat(z_frames, 2).transpose(0, 1).to(torch.int32)
     return (x_traj, z_traj) if batched else (x_traj[0], z_traj[0])
+
+
+# --------------------------------------------------------------------------
+# the streaming (serving-side) switching filter
+# --------------------------------------------------------------------------
+
+
+def _collapse(w, mean, cov):
+    """Moment-match a weighted Gaussian mixture to one Gaussian: ``w``
+    (..., J) normalized over its last axis, ``mean`` (..., J, d), ``cov``
+    (..., J, d, d) -> (..., d), (..., d, d)."""
+    m = torch.einsum("...j,...jd->...d", w, mean)
+    dm = mean - m[..., None, :]
+    C = (torch.einsum("...j,...jde->...de", w, cov)
+         + torch.einsum("...j,...jd,...je->...de", w, dm, dm))
+    return m, symmetrize(C)
+
+
+def make_online_filter(global_natparam, dtype=torch.float32):
+    """Streaming switching-state filter: one frame's recognition potentials
+    in at a time; the regime probabilities, the filtered latent posterior
+    and the incremental predictive log-evidence ``log p(y_t | y_{1:t-1})``
+    out. Exact inference is exponential in T, so this is the GPB2
+    (interacting-multiple-model) collapse of the JAX package: one filtered
+    Gaussian a regime and the regime weights are carried, the K x K
+    transition branches expanded with the expected dynamics under q(theta)
+    (the ``exp E[log]`` potentials of the mean-field), and each
+    destination regime's branch mixture moment-matched back to one
+    Gaussian. At K=1 it is the LDS online filter
+    (:func:`svae_tpu_torch.models.lds.make_online_filter`).
+
+    Returns ``(init_fn, step_fn)``::
+
+      state, (w, mean, cov, logev) = init_fn((J_diag_1, h_1))
+      state, (w, mean, cov, logev) = step_fn(state, (J_diag_t, h_t))
+
+    ``(J_diag_t, h_t)`` are (..., d): any leading axes serve that many
+    streams at once. ``w`` (..., K) is q(z_t), ``(mean, cov)`` the
+    regime-collapsed filtered posterior of x_t, ``logev`` (...) the
+    predictive log-evidence increment. Both run in ``dtype`` on the
+    globals' device, with no TF32."""
+    e_pi0, e_Pi, (I1, I2, Ic), (E1, E2, E3, Ec) = _expected_globals(
+        global_natparam, dtype)
+    K, d = E2.shape[0], E2.shape[-1]
+
+    def _regime_outputs(w, J, h):
+        return _collapse(w, *lds._mean_cov(J, h))
+
+    @f32_linalg()
+    def init_fn(potentials):
+        n1, n2 = lds._frame_nodes(potentials, dtype)
+        J1 = -2.0 * (I1 + n1)
+        h1 = I2 + n2
+        logZ1 = kalman._gauss_logZ_info(J1, h1, Ic)
+        lead = h1.shape[:-1]
+        logw = torch.log_softmax(e_pi0, -1).expand(lead + (K,))
+        w = torch.exp(logw)
+        logev = logZ1 + torch.logsumexp(e_pi0, -1)
+        J = J1[..., None, :, :].expand(lead + (K, d, d))
+        h = h1[..., None, :].expand(lead + (K, d))
+        mean, cov = _regime_outputs(w, J, h)
+        return (logw, J, h), (w, mean, cov, logev)
+
+    @f32_linalg()
+    def step_fn(state, potentials):
+        logw, J, h = state                  # (..., K), (..., K, d, d), ...
+        n1, n2 = lds._frame_nodes(potentials, dtype)
+        lead = n2.shape[:-1]
+        mat, vec = lead + (K, K, d, d), lead + (K, K, d)
+        # each regime's Gaussian is carried normalized: the constant c_j =
+        # -logZ(J_j, h_j, 0) goes into its branches' c slot
+        cnorm = -kalman._gauss_logZ_info(J, h, J.new_zeros(lead + (K,)))
+        # branch (j -> k), axes (..., j, k): one chain leaf on (x_t,
+        # x_{t+1}) under regime k's expected dynamics, regime j's
+        # normalized filtered potential in its (J11, h1) slots: the LDS
+        # online step a branch
+        e = ((-2.0 * E3 + J[..., :, None, :, :]).expand(mat),
+             (-E2.mT).expand(mat),
+             (-2.0 * (E1 + n1[..., None, :, :]))[..., None, :, :, :].expand(
+                 mat),
+             h[..., :, None, :].expand(vec),
+             n2[..., None, None, :].expand(vec),
+             Ec + cnorm[..., :, None])
+        Jb, hb, cb = kalman.marginalize_first(e)
+        logZb = kalman._gauss_logZ_info(Jb, hb, cb)         # (..., j, k)
+        # branch log-weights; the carried Gaussians are normalized, so
+        # logZb is the branch's evidence increment
+        lw = logw[..., :, None] + e_Pi + logZb
+        logev = torch.logsumexp(lw, (-2, -1))
+        lw = lw - logev[..., None, None]
+        logw_new = torch.logsumexp(lw, -2)                   # (..., k)
+        # each destination k's responsibilities over the source j, and its
+        # branch mixture collapsed over j
+        r = torch.exp(lw - logw_new[..., None, :])
+        means, covs = lds._mean_cov(Jb, hb)
+        mean_k, cov_k = _collapse(r.mT, means.transpose(-3, -2),
+                                  covs.transpose(-4, -3))
+        # back to normalized information form
+        Lc = smallchol.chol(cov_k)
+        J_new = symmetrize(smallchol.cho_solve_mat(Lc, eye_like(cov_k)))
+        h_new = torch.einsum("...kde,...ke->...kd", J_new, mean_k)
+        # the emitted weights renormalized: logsumexp keeps them within
+        # ~1e-4 of the simplex in float32, and the outputs sum to 1
+        w = torch.exp(logw_new)
+        w = w / w.sum(-1, keepdim=True)
+        mean, cov = _collapse(w, mean_k, cov_k)
+        return (logw_new, J_new, h_new), (w, mean, cov, logev)
+
+    return init_fn, step_fn

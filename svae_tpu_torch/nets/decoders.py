@@ -1,12 +1,13 @@
-"""Decoder: latent samples -> log-likelihood of data (port of
-svae_tpu/nets/decoders.py, MLP decoder)."""
+"""Decoders: latent samples -> log-likelihood of data (port of
+svae_tpu/nets/decoders.py: the MLP and linear decoders)."""
 
 import math
 
 import torch
 from torch import nn
 
-from svae_tpu_torch.nets.mlp import GaussianMeanHead, init_dense, init_mlp
+from svae_tpu_torch.nets.mlp import (MLP, GaussianMeanHead, init_dense,
+                                     init_mlp)
 
 LOG2PI = math.log(2 * math.pi)
 
@@ -24,16 +25,28 @@ class MLPDecoder(nn.Module):
                          compute_dtype=compute_dtype)
 
 
+def _mean_head(n_in, d_obs, generator, dtype, device):
+    return GaussianMeanHead(
+        init_dense(n_in, d_obs, generator, dtype=dtype, device=device),
+        init_dense(n_in, d_obs, generator, dtype=dtype, device=device))
+
+
 def init_mlp_decode(d_latent, hidden_sizes, d_obs, generator,
                     dtype=torch.float32, device=None):
     """Random MLP decoder on ``device`` (default ``"cuda"``; pass ``"cpu"``
     to run on the CPU), drawn from ``generator``."""
     sizes = (d_latent,) + tuple(hidden_sizes)
     hidden = init_mlp(sizes, generator, dtype=dtype, device=device)
-    head = GaussianMeanHead(
-        init_dense(sizes[-1], d_obs, generator, dtype=dtype, device=device),
-        init_dense(sizes[-1], d_obs, generator, dtype=dtype, device=device))
-    return MLPDecoder(hidden, head)
+    return MLPDecoder(hidden, _mean_head(sizes[-1], d_obs, generator, dtype,
+                                         device))
+
+
+def init_linear_decode(d_latent, d_obs, generator, dtype=torch.float32,
+                       device=None):
+    """Random linear decoder (the head alone, on an empty hidden stack) on
+    ``device`` (default ``"cuda"``), drawn from ``generator``."""
+    return MLPDecoder(MLP([]), _mean_head(d_latent, d_obs, generator, dtype,
+                                          device))
 
 
 def mlp_decode(net, x, mean_fn=None, compute_dtype=None):
@@ -41,6 +54,11 @@ def mlp_decode(net, x, mean_fn=None, compute_dtype=None):
     ``compute_dtype=torch.bfloat16`` runs the products on bf16 operands
     with a float32 result (nets.mlp.matmul)."""
     return net(x, mean_fn=mean_fn, compute_dtype=compute_dtype)
+
+
+def linear_decode(net, x, mean_fn=None):
+    """x (..., d_latent) -> (mu, log_sigmasq) each (..., d_obs)."""
+    return net(x, mean_fn=mean_fn)
 
 
 def diag_gaussian_loglike(y, mu, log_sigmasq):
@@ -59,8 +77,19 @@ def mlp_loglike(net, samples, y, mean_fn=None, mask=None,
     batch axes, {0,1} or bool) drops missing frames from the sum.
     ``compute_dtype`` as in :func:`mlp_decode`; the log-density itself
     stays float32."""
-    mu, log_sigmasq = mlp_decode(net, samples, mean_fn=mean_fn,
-                                 compute_dtype=compute_dtype)
+    return _mc_loglike(*mlp_decode(net, samples, mean_fn=mean_fn,
+                                   compute_dtype=compute_dtype), y, mask)
+
+
+def linear_loglike(net, samples, y, mean_fn=None, mask=None):
+    """:func:`mlp_loglike` of a linear decoder (no ``compute_dtype``)."""
+    return _mc_loglike(*linear_decode(net, samples, mean_fn=mean_fn), y,
+                       mask)
+
+
+def _mc_loglike(mu, log_sigmasq, y, mask):
+    """The log-density of ``y`` averaged over the sample axes of (mu,
+    log_sigmasq) and summed over the batch, ``mask`` dropping frames."""
     ll = diag_gaussian_loglike(y, mu, log_sigmasq)
     extra = ll.dim() - (y.dim() - 1)
     if extra > 0:

@@ -1,5 +1,5 @@
-"""MLP stack and Gaussian output heads as ``nn.Module``s (port of
-svae_tpu/nets/mlp.py).
+"""MLP and residual stacks and Gaussian output heads as ``nn.Module``s
+(port of svae_tpu/nets/mlp.py), and the isometric decoder init.
 
 A dense layer holds ``W`` as (n_in, n_out) and computes ``x @ W + b``, the
 JAX package's layout, so parameters carry over without a transpose
@@ -103,3 +103,68 @@ class GaussianMeanHead(nn.Module):
         if mean_fn is not None:
             mu = mean_fn(mu)
         return mu, self.sig_layer(h, compute_dtype)
+
+
+class ResNet(nn.Module):
+    """Residual hidden stack: h = tanh(proj(x)), then per block
+    h <- h + tanh(W2 tanh(W1 h + b1) + b2). The identity skips keep the
+    gradients well-conditioned at depth."""
+
+    def __init__(self, proj, blocks):
+        super().__init__()
+        self.proj = proj
+        self.blocks = nn.ModuleList(nn.ModuleList(b) for b in blocks)
+
+    def forward(self, x, compute_dtype=None):
+        h = torch.tanh(self.proj(x, compute_dtype))
+        for inner, outer in self.blocks:
+            h = h + torch.tanh(outer(torch.tanh(inner(h, compute_dtype)),
+                                     compute_dtype))
+        return h
+
+
+def init_resnet(d_in, width, depth, generator, scale=1.0,
+                dtype=torch.float32, device=None):
+    """An input projection to ``width`` and ``depth`` two-layer residual
+    blocks, Glorot-normal, on ``device`` (default ``"cuda"``)."""
+    layer = lambda m, n: init_dense(m, n, generator, scale, dtype, device)
+    return ResNet(layer(d_in, width),
+                  [(layer(width, width), layer(width, width))
+                   for _ in range(depth)])
+
+
+def resnet(net, x, compute_dtype=None):
+    """Apply the residual stack; ``compute_dtype`` as in :func:`matmul`."""
+    return net(x, compute_dtype)
+
+
+def rand_partial_isometry(m, n, generator, dtype=torch.float32, device=None):
+    """A random (m, n) partial isometry, the leading block of the Q factor
+    of a standard normal max(m, n) square (orthonormal rows or columns),
+    drawn on ``generator``'s device and placed on ``device`` (default
+    ``"cuda"``)."""
+    d = max(m, n)
+    Q, _ = torch.linalg.qr(torch.randn((d, d), generator=generator,
+                                       dtype=dtype, device=generator.device))
+    return Q[:m, :n].to("cuda" if device is None else device)
+
+
+def init_gaussian_mlp_isometric(sizes, generator, scale=1.0, sigma_init=-2.0,
+                                dtype=torch.float32, device=None):
+    """A decoder (:class:`~svae_tpu_torch.nets.decoders.MLPDecoder`) for
+    sizes = (d_latent, h1, ..., hk, d_obs) whose mean map is a random
+    partial isometry and whose log-variance head starts at the constant
+    ``sigma_init`` (zero weights): the norm-preserving init that keeps the
+    first reconstructions at the data's scale. On ``device`` (default
+    ``"cuda"``)."""
+    # decoders imports this module
+    from svae_tpu_torch.nets.decoders import MLPDecoder
+    device = "cuda" if device is None else device
+    hidden = init_mlp(sizes[:-1], generator, scale, dtype, device)
+    n_in, n_out = sizes[-2], sizes[-1]
+    kw = dict(dtype=dtype, device=device)
+    mean = Dense(rand_partial_isometry(n_in, n_out, generator, dtype, device),
+                 torch.zeros(n_out, **kw))
+    sig = Dense(torch.zeros((n_in, n_out), **kw),
+                torch.full((n_out,), float(sigma_init), **kw))
+    return MLPDecoder(hidden, GaussianMeanHead(mean, sig))

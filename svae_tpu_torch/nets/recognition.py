@@ -1,5 +1,6 @@
 """Recognition networks: data -> diagonal Gaussian evidence potentials
-(port of svae_tpu/nets/recognition.py: the MLP and conv recognizers)."""
+(port of svae_tpu/nets/recognition.py: the MLP, residual, linear and conv
+recognizers)."""
 
 import math
 
@@ -7,7 +8,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from svae_tpu_torch.nets.mlp import GaussianInfoHead, init_dense, init_mlp
+from svae_tpu_torch.nets.mlp import (MLP, GaussianInfoHead, init_dense,
+                                     init_mlp, init_resnet)
 
 
 class MLPRecognizer(nn.Module):
@@ -22,22 +24,58 @@ class MLPRecognizer(nn.Module):
         return self.head(self.hidden(data, compute_dtype), compute_dtype)
 
 
+def _info_head(n_in, d_latent, generator, dtype, device):
+    return GaussianInfoHead(
+        init_dense(n_in, d_latent, generator, dtype=dtype, device=device),
+        init_dense(n_in, d_latent, generator, dtype=dtype, device=device))
+
+
 def init_mlp_recognize(d_obs, hidden_sizes, d_latent, generator,
                        dtype=torch.float32, device=None):
     """Random MLP recognizer on ``device`` (default ``"cuda"``; pass ``"cpu"``
     to run on the CPU), drawn from ``generator``."""
     sizes = (d_obs,) + tuple(hidden_sizes)
     hidden = init_mlp(sizes, generator, dtype=dtype, device=device)
-    head = GaussianInfoHead(
-        init_dense(sizes[-1], d_latent, generator, dtype=dtype, device=device),
-        init_dense(sizes[-1], d_latent, generator, dtype=dtype, device=device))
-    return MLPRecognizer(hidden, head)
+    return MLPRecognizer(hidden, _info_head(sizes[-1], d_latent, generator,
+                                            dtype, device))
 
 
 def mlp_recognize(net, data, compute_dtype=None):
     """The training core's recognize function: ``net(data)``;
     ``compute_dtype`` as in nets.mlp.matmul."""
     return net(data, compute_dtype)
+
+
+def init_resnet_recognize(d_obs, width, depth, d_latent, generator,
+                          dtype=torch.float32, device=None):
+    """Random residual recognizer (:class:`MLPRecognizer` over a
+    :class:`~svae_tpu_torch.nets.mlp.ResNet` of ``depth`` blocks of
+    ``width``) on ``device`` (default ``"cuda"``), drawn from
+    ``generator``: the identity skips keep the evidence map
+    well-conditioned at depth."""
+    stack = init_resnet(d_obs, width, depth, generator, dtype=dtype,
+                        device=device)
+    return MLPRecognizer(stack, _info_head(width, d_latent, generator, dtype,
+                                           device))
+
+
+def resnet_recognize(net, data, compute_dtype=None):
+    """data (..., d_obs) -> (J_diag, h) each (..., d_latent);
+    ``compute_dtype`` as in nets.mlp.matmul."""
+    return net(data, compute_dtype)
+
+
+def init_linear_recognize(d_obs, d_latent, generator, dtype=torch.float32,
+                          device=None):
+    """Random linear recognizer (the head alone, on an empty hidden stack)
+    on ``device`` (default ``"cuda"``), drawn from ``generator``."""
+    return MLPRecognizer(MLP([]), _info_head(d_obs, d_latent, generator,
+                                             dtype, device))
+
+
+def linear_recognize(net, data):
+    """data (..., d_obs) -> (J_diag, h) each (..., d_latent)."""
+    return net(data)
 
 
 class ConvSame(nn.Module):

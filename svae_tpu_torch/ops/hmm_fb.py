@@ -45,7 +45,8 @@ from svae_tpu_torch.ops import _build
 from svae_tpu_torch.ops.estep import (_check_kernel_args, _forward, _launch,
                                       _vjp)
 
-KERNEL_STATES = (1, 2, 3, 4, 8)
+# every K a chain of whose states fits on one warp (segment_lanes(K) <= 32)
+KERNEL_STATES = tuple(range(1, 33))
 
 
 # --------------------------------------------------------------------------
@@ -543,7 +544,14 @@ def hmm_posterior(log_init, log_trans, log_obs, pair_weights=None,
         alpha_f, beta_f = _forward(hmm_fb_fwd, hmm_fb_fwd_plain, HmmFb, args)
     alpha = torch.cat([a0[:, None], alpha_f.permute(2, 0, 1)], 1)
     beta = torch.cat([beta_f.permute(2, 0, 1), a0.new_zeros(B, 1, K)], 1)
+    return marginals(alpha, beta, M, pair_weights)
 
+
+def marginals(alpha, beta, M, pair_weights=None):
+    """``(logZ, node, pair_sum, init_marginal)`` from the messages alpha,
+    beta (B, T, K) and the chain elements M (B, T-1, K, K) (the pair
+    marginals weighted by ``pair_weights`` (B, T-1) in their sum), in the
+    materialized form of :func:`hmm_posterior`."""
     logZ = torch.logsumexp(alpha[:, -1], -1)
     node = torch.exp(alpha + beta - logZ[:, None, None])
     pair = torch.exp(alpha[:, :-1, :, None] + M + beta[:, 1:, None, :]
@@ -551,5 +559,6 @@ def hmm_posterior(log_init, log_trans, log_obs, pair_weights=None,
     if pair_weights is None:
         pair_sum = pair.sum(1)
     else:
-        pair_sum = torch.einsum("bt,btij->bij", pair_weights.to(dt), pair)
+        pair_sum = torch.einsum("bt,btij->bij", pair_weights.to(M.dtype),
+                                pair)
     return logZ, node, pair_sum, node[:, 0]

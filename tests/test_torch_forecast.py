@@ -153,8 +153,9 @@ def test_hmm_sample_matches_jax(model):
 
 def test_hmm_sample_draws_with_the_generator():
     """Without an override the generator draws the noise: the same seed
-    gives the same paths, a near-deterministic chain gives its one path,
-    and ``parallel=`` is not ported."""
+    gives the same paths, with the backward messages from the loop or
+    (``parallel=True``) from the suffix scan, and a near-deterministic
+    chain gives its one path."""
     lo = torch.full((2, 5, 3), -30.0, dtype=torch.float64)
     lo[:, :, 1] = 0.0
     args = (torch.zeros(3, dtype=torch.float64),
@@ -163,8 +164,8 @@ def test_hmm_sample_draws_with_the_generator():
     paths = draw()
     assert torch.equal(paths, draw())
     assert bool((paths == 1).all())
-    with pytest.raises(NotImplementedError):
-        hmm.hmm_sample(*args, None, 4, parallel=True)
+    assert torch.equal(paths, hmm.hmm_sample(
+        *args, torch.Generator().manual_seed(1), 4, parallel=True))
 
 
 def test_sample_states_matches_jax(model):

@@ -170,10 +170,10 @@ def test_hmm_fb_adj_pass_wrappers_reject_what_the_kernels_do_not_take():
         bad[1] = torch.empty((shape[0] + 1, *shape[1:]), device="meta")
         with pytest.raises(ValueError, match="inconsistent shapes"):
             fn(*bad)
-    W5 = torch.empty((6, 25, 5), device="meta")
-    v5 = torch.empty((6, 5, 5), device="meta")
-    with pytest.raises(ValueError, match="K=5"):
-        hmm_fb.hmm_fb_adj_chain(W5, W5, v5, v5)
+    W33 = torch.empty((6, 33 * 33, 5), device="meta")
+    v33 = torch.empty((6, 33, 5), device="meta")
+    with pytest.raises(ValueError, match="K=33"):
+        hmm_fb.hmm_fb_adj_chain(W33, W33, v33, v33)
 
 
 @pytest.mark.parametrize("K,T", CASES)
@@ -244,11 +244,11 @@ def test_hmm_fb_stat_adj_pass_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="inconsistent shapes"):
         hmm_fb.hmm_fb_stat_adj_weights(*bad)
     # a state count with no kernel
-    W5 = torch.empty((6, 25, 5), device="meta")
-    v5 = torch.empty((6, 5, 5), device="meta")
-    with pytest.raises(ValueError, match="K=5"):
-        hmm_fb.hmm_fb_stat_adj_sums(W5, W5, v5, v5)
-    with pytest.raises(ValueError, match="K=5"):
+    W33 = torch.empty((6, 33 * 33, 5), device="meta")
+    v33 = torch.empty((6, 33, 5), device="meta")
+    with pytest.raises(ValueError, match="K=33"):
+        hmm_fb.hmm_fb_stat_adj_sums(W33, W33, v33, v33)
+    with pytest.raises(ValueError, match="K=33"):
         hmm_fb.hmm_fb_stat_adj_weights(
-            torch.empty((5, 5), device="meta"),
-            torch.empty((5, 5), device="meta"), v5, v5, v5)
+            torch.empty((33, 5), device="meta"),
+            torch.empty((33, 33), device="meta"), v33, v33, v33)

@@ -353,8 +353,8 @@ def test_hmm_wrappers_reject_what_the_kernels_do_not_take(smoke):
     mixed[1] = mixed[1].cpu()
     with pytest.raises(ValueError, match="CUDA"):
         hmm_fb.hmm_fb_stat_fwd(*mixed)
-    li, lt, lo, _ = smoke.hmm_problem(dict(B=3, T=7, K=5), 0, "cuda")
-    with pytest.raises(ValueError, match="K=5"):
+    li, lt, lo, _ = smoke.hmm_problem(dict(B=3, T=7, K=33), 0, "cuda")
+    with pytest.raises(ValueError, match="K=33"):
         hmm_fb.hmm_fb_fwd(*smoke._f32(smoke.hmm_kernel_args(
             li, lt, lo)["hmm_fb_fwd"]))
 
@@ -758,17 +758,18 @@ def test_hmm_stat_adj_pass_launch_counters(smoke):
 
 def test_redesigned_stationary_c_entries_reject_an_unbuilt_size(smoke):
     """The C entries of sampler_shared, its factor pass and the stationary
-    HMM adjoint and its passes refuse d=5 / K=5 (cudaErrorInvalidValue)
+    HMM adjoint and its passes refuse d=5 / K=33 (cudaErrorInvalidValue)
     before they read a pointer."""
     from svae_tpu_torch.ops import _build
     lib = _build.load_library()
-    for name in ("svae_sampler_shared_f32", "svae_sampler_shared_factor_f32",
-                 "svae_hmm_fb_stat_adj_f32",
-                 "svae_hmm_fb_stat_adj_weights_f32",
-                 "svae_hmm_fb_stat_adj_sums_f32"):
+    for name, size in (("svae_sampler_shared_f32", 5),
+                       ("svae_sampler_shared_factor_f32", 5),
+                       ("svae_hmm_fb_stat_adj_f32", 33),
+                       ("svae_hmm_fb_stat_adj_weights_f32", 33),
+                       ("svae_hmm_fb_stat_adj_sums_f32", 33)):
         fn = getattr(lib, name)
         ints = sum(t is ctypes.c_int for t in fn.argtypes)
-        assert fn(5, *[3] * (ints - 1),
+        assert fn(size, *[3] * (ints - 1),
                   *[None] * (len(fn.argtypes) - ints)) != 0, name
 
 

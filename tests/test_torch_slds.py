@@ -251,7 +251,9 @@ def test_one_state_slds_is_the_lds(model):
 
 def test_run_inference_options(model):
     """An unbatched (T, d) input runs as a batch of one; lengths= needs a
-    batch; parallel=True is not ported and raises."""
+    batch; parallel= takes False, True or a chunk count and raises on
+    anything else (tests/test_torch_slds_parallel.py holds its routes to
+    the JAX package)."""
     eps = _t(model["eps_xla"])[:, :1]
     pots = tuple(x[:1] for x in _pots(model))
     run = functools.partial(slds.run_inference, model["prior"],
@@ -264,8 +266,9 @@ def test_run_inference_options(model):
                                g2.numpy(), k2.numpy()), dict(rtol=0, atol=0))
     with pytest.raises(ValueError, match="batched"):
         run(tuple(x[0] for x in pots), None, S, lengths=torch.tensor([T]))
-    with pytest.raises(NotImplementedError, match="parallel"):
-        run(pots, None, S, parallel=True)
+    for bad in (-1, 1.5, None):
+        with pytest.raises(ValueError, match="parallel"):
+            run(pots, None, S, parallel=bad)
 
 
 # --------------------------------------------------------------------------

@@ -456,6 +456,8 @@ KFWD_SHAPES = {"small": dict(B=3, T=7, d=3, S=2),
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 TIMING_RUNS = 25
+# the plain versions' timings: each call takes 1-1,400 ms, so fewer runs
+PLAIN_RUNS = 5
 
 
 def _problem(shape, seed, device):
@@ -591,12 +593,13 @@ def _lane_rel(ln, lnp):
     return float(((ln.double() - lnp).abs() / lnp.abs()).max())
 
 
-def check_stiff(shape=SHAPES["config2"], seed=12, device="cuda"):
+def check_stiff(shape=SHAPES["config2"], seed=12, device="cuda", d=None):
     """The stiff case: node precisions over [1e-2, 1e3] at ``shape`` (the
     per-sequence sampler at RAGGED_SHAPES["ragged"], the element scan at
     the config-2 fold of ELEM_SHAPES, the shared-pair filters and sampler
-    at KFWD_SHAPES["config2"]). The forward kernels' explicit
-    eliminations and inverses against float64, beside the float32 plain
+    at KFWD_SHAPES["config2"]; each at latent size ``d`` where given). The
+    forward kernels' explicit eliminations and inverses against float64,
+    beside the float32 plain
     versions' error on the same device: each kernel's error may be at most
     STIFF_FACTOR times the float32 plain version's. The errors are
     normwise per step and lane (``_step_rel``) for the filters' J and h,
@@ -604,6 +607,8 @@ def check_stiff(shape=SHAPES["config2"], seed=12, device="cuda"):
     for the filters' ln and, normwise over the steps, the elements' c
     (``_elem_stiff``).
     Returns ``{name: (kernel error, float32 plain error)}``."""
+    at = lambda sh: sh if d is None else dict(sh, d=d)
+    shape = at(shape)
     fin, mats, eps = stiff_problem(shape, seed, device)
     B = shape["B"]
     want = estep.filter_fwd_plain(*fin)
@@ -621,17 +626,17 @@ def check_stiff(shape=SHAPES["config2"], seed=12, device="cuda"):
     torch.cuda.synchronize()
     errs["sampler_fwd"] = (_step_rel(x, xp), _step_rel(
         estep.sampler_fwd_plain(*_f32(sin)), xp))
-    samp = bpairs_problem(RAGGED_SHAPES["ragged"], seed, device,
+    samp = bpairs_problem(at(RAGGED_SHAPES["ragged"]), seed, device,
                           stiff=True)[1][:6]
     xp = bpairs.sampler_bp_fwd_plain(*samp)
     x = bpairs.sampler_bp_fwd(*_f32(samp))
     torch.cuda.synchronize()
     errs["sampler_bp_fwd"] = (_step_rel(x, xp), _step_rel(
         bpairs.sampler_bp_fwd_plain(*_f32(samp)), xp))
-    errs.update(_elem_stiff(elem_problem(ELEM_SHAPES["config2"], seed, device,
-                                         stiff=True)))
-    errs.update(_kfwd_stiff(kfwd_problem(KFWD_SHAPES["config2"], seed, device,
-                                         stiff=True), device))
+    errs.update(_elem_stiff(elem_problem(at(ELEM_SHAPES["config2"]), seed,
+                                         device, stiff=True)))
+    errs.update(_kfwd_stiff(kfwd_problem(at(KFWD_SHAPES["config2"]), seed,
+                                         device, stiff=True), device))
     if not all(k <= STIFF_FACTOR * p for k, p in errs.values()):
         raise AssertionError(f"a forward kernel's error in the stiff case "
                              f"passes {STIFF_FACTOR}x the float32 plain "
@@ -696,16 +701,16 @@ def _elem_stiff(leaves):
     return errs
 
 
-def check_non_spd(device="cuda", seed=13):
+def check_non_spd(device="cuda", seed=13, d=3):
     """A step whose precision is not positive definite must come back
-    non-finite, in the lanes it reaches and no others: the filter and the
-    two shared-pair filters with a large negative node precision at one
-    frame of one sequence, the three
-    samplers with one step's Jf of one sequence made indefinite, the
-    element scan with one combine's M of one lane made indefinite. Returns
-    the count of non-finite outputs of each."""
-    shape = dict(B=4, T=9, d=3, S=2)
-    B, d = shape["B"], shape["d"]
+    non-finite, in the lanes it reaches and no others, at latent size
+    ``d``: the filter and the two shared-pair filters with a large negative
+    node precision at one frame of one sequence, the three samplers with
+    one step's Jf of one sequence made indefinite, the element scan with
+    one combine's M of one lane made indefinite. Returns the count of
+    non-finite outputs of each."""
+    shape = dict(B=4, T=9, d=d, S=2)
+    B = shape["B"]
     b0, f0, t0 = 1, 4, 3  # the sequence, its filter frame, its sampler step
     init, mats, (jd, h), eps = _problem(shape, seed, device)
     fin_spd = estep.filter_inputs(init, mats, (jd, h))
@@ -1409,6 +1414,12 @@ def _time_ms(fn, runs=TIMING_RUNS, warmup=3):
         pairs.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def _plain_ms(fn):
+    """Median CUDA-event time of a plain version's ``fn()`` in ms, over
+    PLAIN_RUNS calls after one."""
+    return _time_ms(fn, runs=PLAIN_RUNS, warmup=1)
 
 
 def _device_spans(fn, calls=20, warmup=3, tries=3):
@@ -2632,46 +2643,15 @@ def conv_step_checks(cfg, device="cuda"):
     """One config-4 batch: the ELBO, natural gradient and net gradients on
     the kernels and on the float32 plain path, each against the float64
     CPU path under the same noise, with TF32 off (the nets may use it in
-    training; here it would mask the E-step's error); a bf16 step's gap to
-    the float32 step; the event ms, busy ms, device ops and idle share of
-    a step."""
+    training; here it would mask the E-step's error; _conv_grads_check); a
+    bf16 step's gap to the float32 step; the event ms, busy ms, device ops
+    and idle share of a step."""
+    _conv_grads_check(cfg, device)
     tc = cfg.train
     data, prior, glob, nets, parts = conv_lds.build(cfg, device)
     B, N, S = tc.batch_size, data.shape[0], tc.num_samples
     batch = data[:B]
     gen = torch.Generator(device=device).manual_seed(4)
-    eps = torch.randn((S, B, cfg.T, cfg.d_latent), generator=gen,
-                      device=device)
-    cpu64 = lambda x: x.detach().double().cpu()
-
-    def grads(run_eps, pgm, nets, batch, prior):
-        fn = elbo.make_gradfun(functools.partial(parts[0], eps=run_eps),
-                               *parts[1:], prior, N, num_samples=S)
-        return fn(pgm, nets, batch, None)
-
-    with f32_linalg():
-        got = grads(eps, glob, nets, batch, prior)
-        with _stationary_twins():
-            plain = grads(eps, glob, nets, batch, prior)
-        torch.cuda.synchronize()
-    nets64 = tuple(copy.deepcopy(m).double().cpu() for m in nets)
-    want = grads(cpu64(eps), tree_map(cpu64, glob), nets64, cpu64(batch),
-                 tree_map(cpu64, prior))
-    errs = {}
-    for name, res in (("kernels", got), ("plain f32", plain)):
-        val, nat, net_grads, _ = res
-        errs[name] = (abs(float(val) / float(want[0]) - 1.0),
-                      _normwise(tree_leaves(nat), tree_leaves(want[1])),
-                      max(_normwise(g, g64)
-                          for g, g64 in zip(net_grads, want[2])))
-    print(f"conv_lds step vs float64 CPU path (elbo rel, natgrad rel, worst "
-          f"net grad rel): kernels {errs['kernels']}, float32 plain "
-          f"{errs['plain f32']}")
-    tiers = (TOL_LOGZ_REL, TOL_ADJ_REL, TOL_ADJ_REL)
-    if not all(_within(k, p, tier) for k, p, tier in
-               zip(errs["kernels"], errs["plain f32"], tiers)):
-        raise AssertionError("the config-4 step disagrees with the f64 "
-                             "reference")
 
     # a bf16 step and a float32 step from the same state and noise
     cfg16 = dataclasses.replace(cfg, net_compute_dtype="bfloat16")
@@ -3577,13 +3557,13 @@ def kalman_fwd_timings(device="cuda"):
     ``sampler_bp_fwd`` and its passes on the pairs expanded per sequence
     (the routes the shared-pair kernels could have been served by), at
     config-2 width and at the long T; both E-steps on the same chain (CUDA
-    events; the plain versions 10 runs at config 2, 3 at the long T; the
-    device time of the three shared-pair kernels, of ``bidir_fwd`` and of
-    ``sampler_bp_fwd`` on the same chains too)."""
+    events; the plain versions PLAIN_RUNS runs at config 2, 3 at the long
+    T; the device time of the three shared-pair kernels, of ``bidir_fwd``
+    and of ``sampler_bp_fwd`` on the same chains too)."""
     t = {}
     for tag, name in (("", "config2"), ("_longT", "longT")):
         shape = KFWD_SHAPES[name]
-        runs = 10 if not tag else 3
+        runs = PLAIN_RUNS if not tag else 3
         init, pairs, nodes, eps = kfwd_problem(shape, 0, device)
         fin = kalman_fwd.filter_inputs(init, pairs, nodes)
         bin_ = kalman_fwd.backward_inputs(pairs, nodes)
@@ -3812,7 +3792,7 @@ def slds_timings(device="cuda", cfg=SLDS_CONFIG, epochs=2):
 
 
 # the HMM kernels past K=8, at measure_hmm's B and T (phase 3h)
-HMM_LARGE_K = (16, 32)
+HMM_LARGE_K = (16, 32, 64, 100)
 
 
 def hmm_large_k(device="cuda", Ks=HMM_LARGE_K):
@@ -3842,7 +3822,7 @@ def hmm_large_k(device="cuda", Ks=HMM_LARGE_K):
                 rows[K][name] = dict(
                     err=errs[name], ms=_time_ms(lambda: fn(*a)),
                     device_ms=sum(dev.values()) if dev else math.nan,
-                    plain_ms=_time_ms(lambda: plain(*a), runs=10),
+                    plain_ms=_plain_ms(lambda: plain(*a)),
                     bound_ms=b_ms, bound_by=b_by)
         print(f"hmm kernels at K={K} [{shape}] (normwise rel, max abs; "
               f"event ms, device ms, plain ms, bound): "
@@ -3868,7 +3848,7 @@ def _pass_times(t, tag, name, whole, passes, plains=None, kernels=None):
         t[k + tag] = _time_ms(fn)
         t[k + "_device" + tag] = dev.get(kernel(k), math.nan)
     for k, fn in (plains or {}).items():
-        t[k + "_plain" + tag] = _time_ms(fn, runs=10)
+        t[k + "_plain" + tag] = _plain_ms(fn)
     print(f"device {name}{tag}: {t[name + '_device' + tag]:.4f} ms in its "
           f"kernels, {sum(dev.values()):.4f} ms in all: "
           + ", ".join(f"{n} {v:.4f}" for n, v in dev.items()))
@@ -3904,10 +3884,10 @@ def chunked_timings(device="cuda", cfg=LONG_T):
                       fac, args[2])}
         plains = None
         if not tag:
-            t["elem_scan_plain"] = _time_ms(
-                lambda: chunked.elem_scan_plain(args[0]), runs=10)
-            t["elem_scan_adj_plain"] = _time_ms(
-                lambda: chunked.elem_scan_adj_plain(*args), runs=10)
+            t["elem_scan_plain"] = _plain_ms(
+                lambda: chunked.elem_scan_plain(args[0]))
+            t["elem_scan_adj_plain"] = _plain_ms(
+                lambda: chunked.elem_scan_adj_plain(*args))
             plains = {
                 "elem_scan_adj_factor":
                     lambda: chunked.elem_scan_adj_factor_plain(*args[:2]),
@@ -3977,12 +3957,12 @@ def timings(device="cuda"):
     gen = torch.Generator(device=device).manual_seed(2)
     t = {
         "filter_fwd": _time_ms(lambda: estep.filter_fwd(*fin)),
-        "filter_fwd_plain": _time_ms(lambda: estep.filter_fwd_plain(*fin)),
+        "filter_fwd_plain": _plain_ms(lambda: estep.filter_fwd_plain(*fin)),
         "sampler_fwd": _time_ms(lambda: estep.sampler_fwd(*sin)),
-        "sampler_fwd_plain": _time_ms(lambda: estep.sampler_fwd_plain(*sin)),
+        "sampler_fwd_plain": _plain_ms(lambda: estep.sampler_fwd_plain(*sin)),
         "estep_kernels": _time_ms(lambda: estep.lds_estep_stationary(
             init, mats, nodes, gen, S)),
-        "estep_twins": _time_ms(lambda: estep.lds_estep_stationary(
+        "estep_twins": _plain_ms(lambda: estep.lds_estep_stationary(
             init, mats, nodes, gen, S, plain=True)),
     }
     glob = lds.init_pgm_param(shape["d"], torch.Generator().manual_seed(0),
@@ -3997,9 +3977,9 @@ def timings(device="cuda"):
         "sampler_fwd_factor": lambda: estep.sampler_fwd_factor(
             P3, Jfs, hfs, eps_f),
         "sampler_fwd_chain": lambda: estep.sampler_fwd_chain(*Wc, P2, xT)}
-    t["sampler_fwd_factor_plain"] = _time_ms(
+    t["sampler_fwd_factor_plain"] = _plain_ms(
         lambda: estep.sampler_fwd_factor_plain(P3, Jfs, hfs, eps_f))
-    t["sampler_fwd_chain_plain"] = _time_ms(
+    t["sampler_fwd_chain_plain"] = _plain_ms(
         lambda: estep.sampler_fwd_chain_plain(*Wc, P2, xT))
     # the forward kernels' device time by kernel, beside their event times
     for k, fn in (("filter_fwd", lambda: estep.filter_fwd(*fin)),
@@ -4016,9 +3996,9 @@ def timings(device="cuda"):
     # the adjoints, on float32 copies of the float64 check inputs
     filt, samp = (_f32(a) for a in adjoint_problem(shape, 0, device))
     t["filter_adj"] = _time_ms(lambda: estep.filter_adj(*filt))
-    t["filter_adj_plain"] = _time_ms(lambda: estep.filter_adj_plain(*filt))
+    t["filter_adj_plain"] = _plain_ms(lambda: estep.filter_adj_plain(*filt))
     t["sampler_adj"] = _time_ms(lambda: estep.sampler_adj(*samp))
-    t["sampler_adj_plain"] = _time_ms(lambda: estep.sampler_adj_plain(
+    t["sampler_adj_plain"] = _plain_ms(lambda: estep.sampler_adj_plain(
         *samp))
     # their passes alone (the wrappers' scratch and outputs allocated
     # inside each call, as in the adjoints)
@@ -4139,14 +4119,14 @@ def ragged_timings(device="cuda", seqs=None, B=RAGGED_B, pad=RAGGED_PAD):
         _pass_times(t, tag, "bidir_adj",
                             lambda: bpairs.bidir_adj(*filt), passes, plains)
         if not tag:
-            t["bidir_fwd_plain"] = _time_ms(
-                lambda: bpairs.bidir_fwd_plain(*filt[:8]), runs=10)
-            t["bidir_adj_plain"] = _time_ms(
-                lambda: bpairs.bidir_adj_plain(*filt), runs=10)
-            t["sampler_bp_fwd_plain"] = _time_ms(
-                lambda: bpairs.sampler_bp_fwd_plain(*samp[:6]), runs=10)
-            t["sampler_bp_adj_plain"] = _time_ms(
-                lambda: bpairs.sampler_bp_adj_plain(*samp), runs=10)
+            t["bidir_fwd_plain"] = _plain_ms(
+                lambda: bpairs.bidir_fwd_plain(*filt[:8]))
+            t["bidir_adj_plain"] = _plain_ms(
+                lambda: bpairs.bidir_adj_plain(*filt))
+            t["sampler_bp_fwd_plain"] = _plain_ms(
+                lambda: bpairs.sampler_bp_fwd_plain(*samp[:6]))
+            t["sampler_bp_adj_plain"] = _plain_ms(
+                lambda: bpairs.sampler_bp_adj_plain(*samp))
     # bidir_adj at its other shapes
     for name, shape in BIDIR_ADJ_SHAPES.items():
         filt = _f32(one_direction_problem(shape, 0, device)
@@ -4202,6 +4182,456 @@ def ragged_timings(device="cuda", seqs=None, B=RAGGED_B, pad=RAGGED_PAD):
     print(f"ragged epoch walls (ms): bucketed {walls[RAGGED_PAD]}, padded "
           f"to {RAGGED_CORPUS['T_max']} {walls[RAGGED_CORPUS['T_max']]}")
     return t
+
+
+# --------------------------------------------------------------------------
+# every latent size up to 32 and every HMM state count on the card
+# --------------------------------------------------------------------------
+
+# The E-step routes that pad an unbuilt d to estep.kernel_dim(d): the
+# forward wrapper, its twin, its autograd Function (None: forward only), its
+# padding, and its adjoint wrapper.
+ROUTES = {
+    "filter_fwd": (estep.filter_fwd, estep.filter_fwd_plain, estep.FilterFwd,
+                   estep.FILTER_PADDING, estep.filter_adj),
+    "sampler_fwd": (estep.sampler_fwd, estep.sampler_fwd_plain,
+                    estep.SamplerFwd, estep.SAMPLER_PADDING,
+                    estep.sampler_adj),
+    "bidir_fwd": (bpairs.bidir_fwd, bpairs.bidir_fwd_plain, bpairs.BidirFwd,
+                  bpairs.BIDIR_PADDING, bpairs.bidir_adj),
+    "sampler_bp_fwd": (bpairs.sampler_bp_fwd, bpairs.sampler_bp_fwd_plain,
+                       bpairs.SamplerBp, bpairs.SAMPLER_PADDING,
+                       bpairs.sampler_bp_adj),
+    "elem_scan": (chunked.elem_scan, chunked.elem_scan_plain,
+                  chunked.ElemScan, chunked.LEAF_PADDING,
+                  chunked.elem_scan_adj),
+    "filter_shared": (kalman_fwd.filter_shared,
+                      kalman_fwd.filter_shared_plain, None,
+                      kalman_fwd.FILTER_PADDING, None),
+    "backward_shared": (kalman_fwd.backward_shared,
+                        kalman_fwd.backward_shared_plain, None,
+                        kalman_fwd.BACKWARD_PADDING, None),
+    "sampler_shared": (kalman_fwd.sampler_shared,
+                       kalman_fwd.sampler_shared_plain, None,
+                       kalman_fwd.SAMPLER_PADDING, None),
+}
+# the routes whose outputs end in a summed log-normalizer
+ROUTES_LN = ("filter_fwd", "bidir_fwd", "filter_shared")
+ROUTE_SHAPE = dict(B=5, T=9, S=3)
+
+
+def route_problems(d, seed=0, device="cuda", shape=ROUTE_SHAPE):
+    """float64 arguments of every route of ROUTES at latent size ``d``: the
+    stationary filter's and sampler's, the bpairs filter's and sampler's
+    (shared pairs broadcast per sequence), the chunked element scan's (3
+    chunks) and the shared-pair filters' and sampler's."""
+    shape = dict(shape, d=d)
+    init, mats, nodes, eps = _problem(shape, seed, device)
+    fin = estep.filter_inputs(init, mats, nodes)
+    sin = _sampler_problem(fin, estep.filter_fwd_plain(*fin)[:2], mats, eps,
+                           shape["B"])
+    pairs, bnodes = lds._chain(mats, nodes)
+    bin_ = bpairs.bidir_inputs(init, pairs, bnodes)
+    J, h, _ = bpairs.bidir_fwd_plain(*bin_)
+    bsin = bpairs.sampler_inputs(pairs, *bpairs.messages(bin_, J, h)[:2],
+                                 eps)[0]
+    fold, _, L = chunked._fold(kalman.build_leaves(init, pairs, bnodes), 3)
+    kinit, kpairs, knodes, _ = kfwd_problem(shape, seed, device)
+    kin = kalman_fwd.filter_inputs(kinit, kpairs, knodes)
+    kJ, kh, _ = kalman_fwd.filter_shared_plain(*kin)
+    ksin = kalman_fwd.sampler_inputs(
+        kpairs, *bpairs._alpha(kin[0], kin[1], kJ, kh), eps)[0]
+    return {"filter_fwd": fin, "sampler_fwd": sin, "bidir_fwd": bin_,
+            "sampler_bp_fwd": bsin, "elem_scan": (chunked._pack(fold, L),),
+            "filter_shared": kin,
+            "backward_shared": kalman_fwd.backward_inputs(kpairs, knodes),
+            "sampler_shared": ksin}
+
+
+def _tup(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def check_routes(d, seed=0, device="cuda"):
+    """Every E-step route of ROUTES at latent size ``d`` (1 to 32) as the
+    models call it (``estep._forward``: at an unbuilt d padded to
+    estep.kernel_dim(d)), float32 on the card, against its twin in float64
+    at d on the same inputs: the forward outputs (max abs; the summed ln
+    rel; the element scan normwise) and, through the autograd Function and
+    so the adjoint kernel, the gradients of every input against random
+    cotangents (normwise); each route launching its kernel and its adjoint
+    once and calling no plain version. Raises past TOL_ABS, TOL_LOGZ_REL,
+    TOL_MSG_REL (the scan) and TOL_ADJ_REL. Returns ``{route: errors}``."""
+    g = torch.Generator(device=device).manual_seed(seed + 2000)
+    errs = {}
+    for name, args in route_problems(d, seed, device).items():
+        kernel, twin, fn, padding, adj = ROUTES[name]
+        want = _tup(twin(*args))
+        cots = [torch.randn(w.shape, generator=g, dtype=w.dtype,
+                            device=device) for w in want]
+        a32 = tuple(a.float().requires_grad_(fn is not None) for a in args)
+        wgrads = estep._vjp(twin, args, cots) if fn is not None else None
+        torch.cuda.synchronize()
+        counts = lambda: (kernel.launches, adj.launches if adj else 0,
+                          sum(p.calls for p in ALL_PLAINS))
+        before = counts()
+        with torch.set_grad_enabled(fn is not None):
+            got = _tup(estep._forward(kernel, twin, fn, a32,
+                                      padding=padding))
+            grads = (torch.autograd.grad(got, a32, [c.float() for c in cots],
+                                         allow_unused=True)
+                     if fn is not None else None)
+        torch.cuda.synchronize()
+        moved = [x - y for x, y in zip(counts(), before)]
+        got = tuple(x.detach() for x in got)
+        if name == "elem_scan":
+            e = {"fwd": _rel_err(got, want)[0]}
+            ok = e["fwd"] <= TOL_MSG_REL
+        else:
+            nout = 2 if name in ROUTES_LN else len(want)
+            e = {"fwd": _max_err(got[:nout], want[:nout])}
+            ok = e["fwd"] <= TOL_ABS
+            if name in ROUTES_LN:
+                e["ln_rel"] = _ln_rel(got[2], want[2])
+                ok = ok and e["ln_rel"] <= TOL_LOGZ_REL
+        if fn is not None:
+            # the noise gets no cotangent from the samplers' Functions
+            used = [(a, b) for a, b in zip(grads, wgrads) if a is not None]
+            e["adj"] = _rel_err(*zip(*used))[0]
+            ok = ok and e["adj"] <= TOL_ADJ_REL
+        if moved != [1, 1 if adj else 0, 0]:
+            raise AssertionError(f"route {name} at d={d} did not launch its "
+                                 f"kernels once each (kernel, adjoint, plain "
+                                 f"calls moved {moved})")
+        if not ok:
+            raise AssertionError(f"route {name} at d={d} disagrees with its "
+                                 f"twin: {e}")
+        errs[name] = e
+    return errs
+
+
+def check_routes_refuse(d, device="cuda"):
+    """Past the largest built d every route of ROUTES raises ValueError
+    naming d on the card, launching nothing; returns the routes' count."""
+    for name, args in route_problems(d, 0, device).items():
+        kernel, twin, fn, padding, _ = ROUTES[name]
+        before = kernel.launches
+        try:
+            estep._forward(kernel, twin, fn, _f32(args), padding=padding)
+        except ValueError as e:
+            if f"d={d}" not in str(e):
+                raise AssertionError(f"route {name} at d={d} raised without "
+                                     f"naming d: {e}") from e
+        else:
+            raise AssertionError(f"route {name} ran at d={d}")
+        if kernel.launches != before:
+            raise AssertionError(f"route {name} launched at d={d}")
+    return len(ROUTES)
+
+
+# the largest latent size of the *_wide.cu instances (the checks' d past
+# 16; the stiff and non-SPD cases run at 24 too), and the state counts past
+# a warp that phase 3h holds: K in {33, 48, 64, 100} and one past the
+# runtime-K kernels' block of 128 threads
+WIDE_D = 32
+HMM_WIDE_K = (33, 48, 64, 100, 160)
+# BASELINE config 4 at the top of its latent range, and a latent size the
+# kernels serve padded (to 32)
+CONV_WIDE_D = WIDE_D
+CONV_PAD_D = 28
+CONV_WIDE_STEPS = 3
+
+
+def _conv_steps(cfg, device, steps):
+    """``steps`` config-``cfg`` train steps through ``loop.make_train_step``
+    on seeded weights: every step launches #1-#4 once and calls no plain
+    version. Returns the step's ELBOs."""
+    data, prior, glob, nets, parts = conv_lds.build(cfg, device)
+    tc = cfg.train
+    opt_init, step = loop.make_train_step(
+        *parts, prior, data.shape[0], num_samples=tc.num_samples,
+        net_step_size=tc.net_step_size, pgm_step_size=tc.pgm_step_size)
+    st = [glob, nets, opt_init(glob, nets)]
+    gen = torch.Generator(device=device).manual_seed(9)
+    B = tc.batch_size
+    _reset_counters()
+    vals = []
+    for i in range(steps):
+        j = i % (data.shape[0] // B)
+        st[0], st[1], st[2], val, _ = step(*st, data[j * B:(j + 1) * B], gen)
+        vals.append(float(val))
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in WRAPPERS}
+    plain_calls = {p.__name__: p.calls for p in ALL_PLAINS if p.calls}
+    if any(v != steps for v in launches.values()) or plain_calls:
+        raise AssertionError(f"config 4 at d={cfg.d_latent}: {steps} steps "
+                             f"did not run #1-#4 once a step: {launches} "
+                             f"{plain_calls}")
+    if not np.isfinite(vals).all():
+        raise AssertionError(f"config 4 at d={cfg.d_latent}: ELBOs {vals}")
+    return vals, launches
+
+
+def conv_estep_check(d, device="cuda", seed=3):
+    """The stationary E-step at config-4 shape (B=8, T=500, S=2) and latent
+    size ``d``: ``lds_estep_stationary`` in float32 on the card (the
+    kernels, padded where d is unbuilt) and on its float32 twins, each
+    against the twins in float64 on the CPU under the same noise: the
+    samples (max abs), the statistics (each leaf's max abs over its
+    largest entry) and the local KL (rel), as logZ enters it; the long-T
+    rule (PERF.md §2) holds the kernels to their tier or to twice the
+    float32 twins' error. Returns ``{"kernels": errs, "plain": errs}``."""
+    shape = dict(CONV_SHAPE, d=d)
+    init, mats, nodes, eps = _problem(shape, seed, device)
+    cpu = lambda xs: tuple(x.cpu() for x in xs)
+    ref = estep.lds_estep_stationary(cpu(init), cpu(mats), cpu(nodes), None,
+                                     shape["S"], eps=eps.cpu())
+    errs = {}
+    for tag, plain in (("kernels", False), ("plain", True)):
+        out = estep.lds_estep_stationary(_f32(init), _f32(mats),
+                                         _f32(nodes), None, shape["S"],
+                                         eps=eps.float(), plain=plain)
+        torch.cuda.synchronize()
+        stats = tree_leaves(out[1])
+        errs[tag] = (
+            float((out[0].double().cpu() - ref[0]).abs().max()),
+            max(float((a.double().cpu() - b).abs().max() / b.abs().max())
+                for a, b in zip(stats, tree_leaves(ref[1]))),
+            abs(float(out[2]) - float(ref[2])) / abs(float(ref[2])))
+    if not all(_within(k, p, tier) for k, p, tier in zip(
+            errs["kernels"], errs["plain"],
+            (TOL_ABS, TOL_LOGZ_REL, TOL_LOGZ_REL))):
+        raise AssertionError(f"the config-4 E-step at d={d} disagrees with "
+                             f"float64: {errs}")
+    return errs
+
+
+def _conv_grads_check(cfg, device="cuda"):
+    """One config-``cfg`` batch: the ELBO, natural gradient and net
+    gradients on the kernels and on the float32 plain path, each against
+    the float64 CPU path under the same noise, with TF32 off; raises past
+    the tiers (or twice the float32 plain path's error). Returns the
+    errors (elbo rel, natgrad rel, worst net grad rel) of each."""
+    tc = cfg.train
+    data, prior, glob, nets, parts = conv_lds.build(cfg, device)
+    B, N, S = tc.batch_size, data.shape[0], tc.num_samples
+    batch = data[:B]
+    gen = torch.Generator(device=device).manual_seed(4)
+    eps = torch.randn((S, B, cfg.T, cfg.d_latent), generator=gen,
+                      device=device)
+    cpu64 = lambda x: x.detach().double().cpu()
+
+    def grads(run_eps, pgm, nets, batch, prior):
+        fn = elbo.make_gradfun(functools.partial(parts[0], eps=run_eps),
+                               *parts[1:], prior, N, num_samples=S)
+        return fn(pgm, nets, batch, None)
+
+    with f32_linalg():
+        got = grads(eps, glob, nets, batch, prior)
+        with _stationary_twins():
+            plain = grads(eps, glob, nets, batch, prior)
+        torch.cuda.synchronize()
+    nets64 = tuple(copy.deepcopy(m).double().cpu() for m in nets)
+    want = grads(cpu64(eps), tree_map(cpu64, glob), nets64, cpu64(batch),
+                 tree_map(cpu64, prior))
+    errs = {}
+    for name, res in (("kernels", got), ("plain f32", plain)):
+        val, nat, net_grads, _ = res
+        errs[name] = (abs(float(val) / float(want[0]) - 1.0),
+                      _normwise(tree_leaves(nat), tree_leaves(want[1])),
+                      max(_normwise(g, g64)
+                          for g, g64 in zip(net_grads, want[2])))
+    print(f"conv_lds step at d={cfg.d_latent} vs float64 CPU path (elbo "
+          f"rel, natgrad rel, worst net grad rel): kernels "
+          f"{errs['kernels']}, float32 plain {errs['plain f32']}")
+    tiers = (TOL_LOGZ_REL, TOL_ADJ_REL, TOL_ADJ_REL)
+    if not all(_within(k, p, tier) for k, p, tier in
+               zip(errs["kernels"], errs["plain f32"], tiers)):
+        raise AssertionError(f"the config-4 step at d={cfg.d_latent} "
+                             f"disagrees with the f64 reference")
+    return errs
+
+
+def conv_wide_path(device="cuda"):
+    """Phase 4w: BASELINE config 4 (the conv_lds preset: N=128, B=8, T=500,
+    convs (16, 32), S=2) at d_latent=32 on the d=32 instances of #1-#4:
+    CONV_WIDE_STEPS train steps, each launching #1-#4 once; the E-step
+    (conv_estep_check) and a step's ELBO and gradients against float64
+    (conv_step_checks, with its bf16 step and the step's times); #1-#4
+    alone at that shape (conv_kernels) and on inputs padded from d=28 to
+    the same instance; then the same steps, E-step and step check at
+    d_latent=CONV_PAD_D (28), through the padded route. Returns
+    ``(launches of the d=32 steps, {kernel: row}, timings)``."""
+    cfg = dataclasses.replace(PRESETS["conv_lds"], d_latent=CONV_WIDE_D)
+    vals, launches = _conv_steps(cfg, device, CONV_WIDE_STEPS)
+    print(f"config 4 at d={CONV_WIDE_D}: {CONV_WIDE_STEPS} train steps, "
+          f"elbo/N {vals}, launches {launches}")
+    print(f"config-4 E-step at d={CONV_WIDE_D} vs float64 (samples max "
+          f"abs, statistics rel, local KL rel): "
+          f"{conv_estep_check(CONV_WIDE_D, device)}")
+    t = conv_step_checks(cfg, device)
+    shape = dict(CONV_SHAPE, d=CONV_WIDE_D)
+    rows = conv_kernels(device, shape)
+    # the same instances on inputs padded from CONV_PAD_D
+    init, mats, nodes, eps = _problem(dict(shape, d=CONV_PAD_D), 0, device)
+    fin = estep.filter_inputs(init, mats, nodes)
+    sin = _sampler_problem(fin, estep.filter_fwd_plain(*fin)[:2], mats, eps,
+                           shape["B"])
+    for name, args, padding in (
+            ("filter_fwd", fin, estep.FILTER_PADDING),
+            ("sampler_fwd", sin, estep.SAMPLER_PADDING)):
+        a32 = padding.pad(_f32(args), CONV_PAD_D, CONV_WIDE_D)
+        kernel = getattr(estep, name)
+        dev = _device_ms(lambda: kernel(*a32))
+        rows[name]["padded_device_ms"] = sum(
+            v for n, v in dev.items() if n.startswith(name))
+        print(f"config-4 {name} on inputs padded from d={CONV_PAD_D} to "
+              f"{CONV_WIDE_D}: {rows[name]['padded_device_ms']:.4f} ms "
+              f"device")
+    cfgp = dataclasses.replace(PRESETS["conv_lds"], d_latent=CONV_PAD_D)
+    vals, lp = _conv_steps(cfgp, device, 1)
+    print(f"config 4 at d={CONV_PAD_D} (padded to {CONV_WIDE_D}): a train "
+          f"step, elbo/N {vals}, launches {lp}; E-step vs float64 "
+          f"{conv_estep_check(CONV_PAD_D, device)}")
+    _conv_grads_check(cfgp, device)
+    return launches, rows, t
+
+
+def wide_kernel_timings(device="cuda", d=WIDE_D, pad_d=CONV_PAD_D):
+    """The d-templated kernels off config 4's path at d=32 and config 4's B
+    and T (B=8, T=500, S=2; the element scans at the CHUNKS-chunk fold):
+    each kernel's event ms, its device ms (every kernel of the call), its
+    float32 plain version's event ms and its bound; each forward kernel's
+    device ms also on inputs padded from d=28 to the same instance (the
+    adjoints run that instance on the same shapes). Returns ``{name:
+    row}``."""
+    shape = dict(CONV_SHAPE, d=d)
+    B, T, S, C = shape["B"], shape["T"], shape["S"], CHUNKS
+    g = torch.Generator(device=device).manual_seed(21)
+
+    def problems(dd):
+        sh = dict(shape, d=dd)
+        filt, samp, _ = bpairs_problem(sh, 0, device)
+        leaves = elem_problem(dict(sh, C=C), 0, device)
+        pref = chunked.elem_scan_plain(leaves)
+        douts = torch.randn(pref.shape, generator=g, dtype=pref.dtype,
+                            device=device)
+        init, pairs, nodes, eps = kfwd_problem(sh, 0, device)
+        kin = kalman_fwd.filter_inputs(init, pairs, nodes)
+        J, h, _ = kalman_fwd.filter_shared_plain(*kin)
+        ksin = kalman_fwd.sampler_inputs(
+            pairs, *bpairs._alpha(kin[0], kin[1], J, h), eps)[0]
+        return {
+            "bidir_fwd": (filt[:8], bpairs.BIDIR_PADDING),
+            "bidir_adj": (filt, None),
+            "sampler_bp_fwd": (samp[:6], bpairs.SAMPLER_PADDING),
+            "sampler_bp_adj": (samp, None),
+            "elem_scan": ((leaves,), chunked.LEAF_PADDING),
+            "elem_scan_adj": ((leaves, pref, douts), None),
+            "filter_shared": (kin, kalman_fwd.FILTER_PADDING),
+            "backward_shared": (kalman_fwd.backward_inputs(pairs, nodes),
+                                kalman_fwd.BACKWARD_PADDING),
+            "sampler_shared": (ksin, kalman_fwd.SAMPLER_PADDING)}
+
+    modules = {"elem_scan": chunked, "elem_scan_adj": chunked,
+               "filter_shared": kalman_fwd, "backward_shared": kalman_fwd,
+               "sampler_shared": kalman_fwd}
+    padded = problems(pad_d)
+    rows = {}
+    for name, (args, padding) in problems(d).items():
+        mod = modules.get(name, bpairs)
+        fn, plain = getattr(mod, name), getattr(mod, name + "_plain")
+        a32 = _f32(args)
+        dev = _device_ms(lambda: fn(*a32))
+        bshape = ((B * C, -(-(T - 1) // C), d, 1)
+                  if name.startswith("elem_scan") else (B, T, d, S))
+        row = dict(ms=_time_ms(lambda: fn(*a32)),
+                   device_ms=sum(dev.values()) if dev else math.nan,
+                   plain_ms=_time_ms(lambda: plain(*a32), runs=2, warmup=1),
+                   bound=bound(name, *bshape))
+        if padding is not None:
+            p32 = padding.pad(_f32(padded[name][0]), pad_d, d)
+            pdev = _device_ms(lambda: fn(*p32))
+            row["padded_device_ms"] = (sum(pdev.values()) if pdev
+                                       else math.nan)
+        rows[name] = row
+        print(f"{name} at d={d} [{shape}] (event ms, device ms, float32 "
+              f"plain ms, bound; device ms padded from d={pad_d}): "
+              f"{json.dumps(row)}")
+    return rows
+
+
+# an SLDS with many discrete states: slds_synth's other settings at K=64
+SLDS_WIDE_K = 64
+
+
+def slds_wide_k_path(device="cuda", cfg=SLDS_CONFIG, K=SLDS_WIDE_K):
+    """Phase 4m: an SLDS at slds_synth's settings (d=4, T=80, B=16, S=2, 12
+    sweeps; seeded weights, switching dot frames) with K=64 states, whose
+    z-steps run the runtime-K HMM kernels (a chain a block):
+    ``run_inference`` with no gradient, its launches and its local KL and
+    statistics against the float64 CPU path under the same noise; one train
+    step (``loop.make_train_step``) launching hmm_fb_fwd and hmm_fb_adj;
+    one ``make_gradfun`` step against float64 (_step_vs_f64). Returns the
+    train step's launches and event ms."""
+    d, T, B, S, N = (cfg[k] for k in ("d", "T", "B", "S", "N"))
+    data = torch.from_numpy(make_switching_dot_data(
+        6, 2 * B, T, cfg["width"])).to(device)
+    prior, glob, rec, dec = _slds_models(device, K, d, cfg["width"],
+                                         cfg["hidden"])
+    run = functools.partial(slds.run_inference,
+                            num_meanfield_iters=cfg["sweeps"])
+    gen = torch.Generator(device=device).manual_seed(13)
+    eps = torch.randn((S, B, T, d), generator=gen, device=device)
+    with torch.no_grad():
+        pots = rec(data[:B])
+        _reset_counters()
+        out = run(glob, glob, pots, None, S, eps=eps)
+        torch.cuda.synchronize()
+        hmm_launches = {w.__name__: w.launches for w in HMM_WRAPPERS}
+        cpu64 = lambda x: x.detach().double().cpu()
+        ref = run(tree_map(cpu64, glob), tree_map(cpu64, glob),
+                  tree_map(cpu64, pots), None, S, eps=cpu64(eps))
+    kl_rel = abs(float(out[3]) - float(ref[3])) / abs(float(ref[3]))
+    stat_rel = max(float((a.double().cpu() - b).abs().max()
+                         / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(tree_leaves(out[1]), tree_leaves(ref[1])))
+    samp = float((out[0].double().cpu() - ref[0]).abs().max())
+    print(f"slds K={K} run_inference (B={B}, T={T}, d={d}, "
+          f"{cfg['sweeps']} sweeps): hmm launches {hmm_launches}; vs "
+          f"float64 local KL rel {kl_rel:.3e}, statistics rel "
+          f"{stat_rel:.3e}, samples max abs {samp:.3e}")
+    if hmm_launches["hmm_fb_fwd"] != cfg["sweeps"] + 1:
+        raise AssertionError(f"slds K={K}: the z-steps did not run the HMM "
+                             f"kernel once a sweep: {hmm_launches}")
+    if not (kl_rel <= TOL_LOGZ_REL and stat_rel <= TOL_LOGZ_REL
+            and samp <= TOL_ABS):
+        raise AssertionError(f"slds K={K}: run_inference disagrees with "
+                             f"float64")
+    opt_init, step = loop.make_train_step(
+        run, recognition.mlp_recognize, decoders.mlp_loglike, prior, N,
+        num_samples=S, pgm_step_size=cfg["pgm_step_size"],
+        net_step_size=cfg["net_step_size"])
+    st = [glob, (rec, dec), opt_init(glob, (rec, dec))]
+
+    def one_step():
+        st[0], st[1], st[2], val, _ = step(*st, data[B:], gen)
+        return val
+
+    _reset_counters()
+    val = one_step()
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in HMM_WRAPPERS}
+    if (launches["hmm_fb_fwd"] != cfg["sweeps"] + 1
+            or launches["hmm_fb_adj"] != 2 or not math.isfinite(float(val))):
+        raise AssertionError(f"slds K={K} train step: launches {launches}, "
+                             f"elbo {float(val)}")
+    ms = _time_ms(one_step, runs=5, warmup=1)
+    print(f"slds K={K} train step: launches {launches}, elbo/N "
+          f"{float(val):.4f}, {ms:.4f} ms")
+    _step_vs_f64(run, st[0], st[1], data[:B], gen, prior, N, S, d,
+                 f"slds K={K} step")
+    return launches, dict(slds_wide_k_train_step=ms)
 
 
 def bound(name, B, T, d, S, NL=None):
@@ -4532,6 +4962,12 @@ def main():
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {so}")
     report_build(so)
+    laps = [time.perf_counter()]
+
+    def lap(what):
+        """Print the seconds the phases since the last lap took."""
+        laps.append(time.perf_counter())
+        print(f"phase seconds: {what} {laps[-1] - laps[-2]:.1f}")
 
     errs = {}
     for name, shape in SHAPES.items():
@@ -4545,24 +4981,40 @@ def main():
         for k in ("filter_adj", "sampler_adj"):
             errs[k] = max(errs.get(k, 0.0), a[k][1])
     # the forward kernels and the sampler's passes, the adjoints and each
-    # of their passes at every built d
-    for d in estep.KERNEL_DIMS:
-        e = check_kernels(dict(B=5, T=9, d=d, S=3), seed=d)
-        print(f"kernels and the sampler's passes vs twins [d={d}, B=5, T=9, "
-              f"S=3] (max abs; the filter's summed ln rel): {e}")
-        a = check_adjoints(dict(B=5, T=9, d=d, S=3), seed=d)
-        print(f"adjoints and their passes vs plain versions [d={d}, B=5, "
-              f"T=9, S=3] (normwise rel, max abs): {a}")
-        for k in FWD_ERRS:
-            errs[k] = max(errs.get(k, 0.0), e[k])
-        for k in ("filter_adj", "sampler_adj"):
-            errs[k] = max(errs.get(k, 0.0), a[k][1])
-    print(f"stiff case, node precisions over {list(STIFF_JD)} "
-          f"[{SHAPES['config2']}] (kernel error, float32 plain error): "
-          f"{check_stiff()}")
-    print(f"non-SPD step: non-finite outputs where it reaches and nowhere "
-          f"else: {check_non_spd()}")
-    for name, shape in {**RAGGED_SHAPES, "T512": RAGGED_LONG}.items():
+    # of their passes at every built d; every E-step route at every d from
+    # 1 to 32, padded where d has no instance of its own
+    for d in range(1, estep.KERNEL_DIMS[-1] + 1):
+        if d in estep.KERNEL_DIMS:
+            e = check_kernels(dict(B=5, T=9, d=d, S=3), seed=d)
+            print(f"kernels and the sampler's passes vs twins [d={d}, B=5, "
+                  f"T=9, S=3] (max abs; the filter's summed ln rel): {e}")
+            a = check_adjoints(dict(B=5, T=9, d=d, S=3), seed=d)
+            print(f"adjoints and their passes vs plain versions [d={d}, "
+                  f"B=5, T=9, S=3] (normwise rel, max abs): {a}")
+            for k in FWD_ERRS:
+                errs[k] = max(errs.get(k, 0.0), e[k])
+            for k in ("filter_adj", "sampler_adj"):
+                errs[k] = max(errs.get(k, 0.0), a[k][1])
+        r = check_routes(d, seed=d)
+        print(f"E-step routes at d={d} (instance d={estep.kernel_dim(d)}; "
+              f"{ROUTE_SHAPE}) vs float64 twins (forward max abs or "
+              f"normwise, ln rel, adjoint normwise): {r}")
+    d = estep.KERNEL_DIMS[-1] + 1
+    print(f"E-step routes at d={d}: {check_routes_refuse(d)} of "
+          f"{len(ROUTES)} raise ValueError naming d")
+    lap("3, the stationary kernels and every route at d = 1..32")
+    for d in (None, 24, WIDE_D):
+        shape = SHAPES["config2"] if d is None else dict(SHAPES["config2"],
+                                                         d=d)
+        print(f"stiff case, node precisions over {list(STIFF_JD)} "
+              f"[{shape}] (kernel error, float32 plain error): "
+              f"{check_stiff(d=d)}")
+        print(f"non-SPD step at d={d or 3}: non-finite outputs where it "
+              f"reaches and nowhere else: "
+              f"{check_non_spd(d=d or 3)}")
+    lap("3s, the stiff and non-SPD cases")
+    for name, shape in {**RAGGED_SHAPES, "T512": RAGGED_LONG,
+                        f"d={WIDE_D}": dict(B=5, T=9, d=WIDE_D, S=3)}.items():
         e = check_bpairs(shape)
         print(f"bpairs kernels vs plain versions [{name} {shape}, lengths "
               f"over [2, {shape['T']}]] (forward max abs; adjoints normwise "
@@ -4589,13 +5041,14 @@ def main():
               f"{BIDIR_ADJ_SHAPES[name]}] (normwise rel, max abs): {e}")
         for k, (_, err) in e.items():
             errs[k] = max(errs.get(k, 0.0), err)
+    lap("3b, the per-sequence-pair kernels")
     # (name, shape, case, seed): the HMM shapes, then every built K at a
     # batch whose last warp is partial
     hmm_cases = [(name, shape, case, 0) for name, shape in HMM_SHAPES.items()
                  for case in (("stationary", "ragged", "forced")
                               if name == "slds" else ("stationary",))]
     hmm_cases += [(f"K={K}", dict(B=37, T=9, K=K), "stationary", K)
-                  for K in hmm_fb.KERNEL_STATES]
+                  for K in hmm_fb.KERNEL_STATES + HMM_WIDE_K]
     for name, shape, case, seed in hmm_cases:
         e = check_hmm(shape, case, seed)
         print(f"hmm kernels vs plain versions [{name} {shape} {case}] "
@@ -4606,17 +5059,20 @@ def main():
                 errs[k] = max(errs.get(k, 0.0), e[k][1])
     stat_launches = hmm_stationary_path()
     large_k = hmm_large_k()
+    lap("3h, the HMM kernels at every K checked")
     for K, rows in large_k.items():
         for k, row in rows.items():
             errs[k] = max(errs.get(k, 0.0), row["err"][1])
-    for name, shape in ELEM_SHAPES.items():
+    for name, shape in {**ELEM_SHAPES,
+                        f"d={WIDE_D}": dict(B=5, T=17, d=WIDE_D, C=3)}.items():
         e = check_elem_scan(shape)
         print(f"element-scan kernels vs plain versions [{name} {shape}] "
               f"(worst field's normwise rel, max abs; per field scan, "
               f"adjoint): {e}")
         for k in ("elem_scan",) + ELEM_ADJ_ERRS:
             errs[k] = max(errs.get(k, 0.0), e[k][1])
-    for name, shape in KFWD_SHAPES.items():
+    for name, shape in {**KFWD_SHAPES,
+                        f"d={WIDE_D}": dict(B=5, T=9, d=WIDE_D, S=3)}.items():
         e = check_kalman_fwd(shape)
         print(f"shared-pair kernels vs plain versions [{name} {shape}] (max "
               f"abs; the filter's summed log-normalizer rel): {e}")
@@ -4627,32 +5083,46 @@ def main():
           f"asymmetric pair and node blocks] (max abs, ln rel): {e}")
     for k in ("filter_shared", "backward_shared"):
         errs[k] = max([errs[k]] + [v[0] for v in e.values()])
+    lap("3e/3k, the element-scan and shared-pair kernels")
 
     main_path()
     launches = train_path()
     launches.update(ragged_path())
     padded_theorem()
+    lap("4, the config-2 and ragged paths")
     slds_launches = slds_path()
     slds_padded_theorem()
     launches.update({k: slds_launches[k] for k in HMM_RUNS[0]})
     launches.update({k: stat_launches[k] for k in HMM_RUNS[1]})
+    lap("4s, the SLDS path")
     launches.update(chunked_train_path())
     long_t_moments()
     launches.update(kalman_fwd_path())
     one_direction_filters()
     gmm_path()
     forecast_path()
+    lap("4p/4k/4g/4f, the chunked, shared-pair, GMM and forecast paths")
     serving_t = streaming_path()
     serving_t.update(slds_parallel_path())
+    lap("4v/4q, serving and the SLDS parallel= routes")
     conv_launches, conv_t = conv_lds_path()
     conv_rows = conv_kernels()
+    lap("4e, config 4")
+    wide_launches, wide_rows, wide_t = conv_wide_path()
+    lap("4w, config 4 at d=32 and a padded d")
+    wide_rows.update(wide_kernel_timings())
+    lap("4w, the kernels off config 4's path at d=32")
+    many_launches, many_t = slds_wide_k_path()
+    lap("4m, the SLDS at K=64")
     example_smokes()
     dp_t = dp_path()
+    lap("4x/4d, the examples and the data-parallel step")
     t = timings()
     t.update(ragged_timings())
     t.update(slds_timings())
     t.update(chunked_timings())
     t.update(kalman_fwd_timings())
+    lap("5, the timings")
     print(f"chip_smoke wall since the build began: "
           f"{time.perf_counter() - t0:.1f} s")
     kernels = []
@@ -4702,6 +5172,14 @@ def main():
                   // PRESETS["conv_lds"].train.batch_size), **row)
               for k, row in conv_rows.items()]))
     print(f"conv_lds step: {json.dumps(conv_t)}")
+    print(f"config-4 kernels at d={WIDE_D} ("
+          + json.dumps(dict(CONV_SHAPE, d=WIDE_D)) + ", launches a step): "
+          + json.dumps([dict(name=k, launches_per_step=wide_launches.get(
+              k, 0) / CONV_WIDE_STEPS, **row)
+                        for k, row in wide_rows.items()]))
+    print(f"conv_lds step at d={WIDE_D}: {json.dumps(wide_t)}")
+    print(f"slds K={SLDS_WIDE_K} train step: launches {many_launches}, "
+          f"{json.dumps(many_t)}")
     print(f"hmm kernels at measure_hmm's B and T, K in {list(large_k)}: "
           f"{json.dumps(large_k)}")
     print(f"serving path and slds parallel= steps (ms): "

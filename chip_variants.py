@@ -19,6 +19,7 @@ kSharedRing``, their ring depth.
     python3 chip_variants.py shared_filters --values 1 2 4
     python3 chip_variants.py shared_filters --constant kSharedRing \
         --values 2 4 8
+    python3 chip_variants.py wide_dim --values 24
 
 Each value rewrites the constant's definition (``constexpr int NAME =
 N;``) in a copy of svae_tpu_torch/csrc/ under the build directory,
@@ -42,6 +43,18 @@ first held to the float64 plain version. The
 variants run in turns (A B C C B A), ``R`` times over, in one process.
 Prints the card's name and power limit, one line per reading and a JSON
 object of all of them. There is no CPU path.
+
+``wide_dim`` weighs a kernel instance for a latent size d against the
+padding that would serve d without it (``estep.kernel_dim``): each value d
+rewrites the instances that the ``*_wide.cu`` sources build
+(``SVAE_BUILT_DIMS`` in csrc/estep_common.cuh) to d alone in a copy of
+csrc/, compiles those nine sources at once (their seconds and ptxas lines
+printed), holds every E-step route of ``chip_smoke.ROUTES`` at d on that
+build to its float64 twin (``chip_smoke.check_routes``), then times each
+route at config 4's B=8, T=500, S=2 (the forward and, through its
+autograd Function, the adjoint, as a train step runs them) on that
+instance and, on the package's own build, padded to the next built d
+above d, in turns (padded, instance, instance, padded), ``R`` times over.
 """
 
 import argparse
@@ -53,12 +66,14 @@ import os
 import re
 import shutil
 import subprocess
+import time
 
 import numpy as np
 import torch
 
 import chip_smoke
-from svae_tpu_torch.ops import _build, bpairs, hmm_fb, kalman_fwd
+from svae_tpu_torch.ops import _build, bpairs, estep, hmm_fb, kalman_fwd
+from svae_tpu_torch.ops.estep import _check_kernel_args
 
 OUT = os.path.join(_build.BUILD_DIR, "variants")
 _HMM_ADJ = ("svae_hmm_fb_adj_f32", "svae_hmm_fb_adj_weights_f32",
@@ -208,9 +223,148 @@ def problems(kernel, device="cuda"):
     return probs
 
 
+class _WideOnly:
+    """A library of the ``*_wide.cu`` sources alone: its C entries by their
+    names without the suffix, so that every d the wrappers pass reaches the
+    one instance those sources build."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name + _build.WIDE_SUFFIX)
+
+
+def build_wide(d):
+    """The ``*_wide.cu`` sources built for ``d`` alone, one nvcc a source,
+    all at once: ``(library, {source: seconds}, nvcc's report)``."""
+    root = os.path.join(OUT, f"d{d}")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(_build.CSRC, root)
+    common = os.path.join(root, "estep_common.cuh")
+    with open(common) as f:
+        text = f.read()
+    text, n = re.subn(r"(#ifdef SVAE_WIDE\n#define SVAE_BUILT_DIMS\(CASE\))"
+                      r"[^\n]*", rf"\1 CASE({d})", text)
+    if n != 1:
+        raise RuntimeError("estep_common.cuh: the wide instance list is "
+                           "not defined once")
+    with open(common, "w") as f:
+        f.write(text)
+    srcs = sorted(f for f in os.listdir(root) if f.endswith("_wide.cu"))
+    nvcc = _build.nvcc_path()
+
+    def one(src):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [nvcc, *_build.COMPILE_FLAGS, "-c", "-o",
+             os.path.join(root, src + ".o"), os.path.join(root, src)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+        return src, time.perf_counter() - t0, proc.stdout + proc.stderr
+
+    with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+        done = list(pool.map(one, srcs))
+    so = os.path.join(root, "libwide.so")
+    subprocess.run([nvcc, "-shared", "-o", so]
+                   + [os.path.join(root, s + ".o") for s in srcs],
+                   check=True)
+    lib = ctypes.CDLL(so)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, ints, ptrs in _build.ENTRIES:
+        fn = getattr(lib, name + _build.WIDE_SUFFIX, None)
+        if fn is not None:
+            fn.argtypes = [i] * ints + [p] * ptrs
+            fn.restype = i
+    return (_WideOnly(lib), {s: t for s, t, _ in done},
+            "".join(log for _, _, log in done))
+
+
+def _route_call(name, args, g):
+    """A call of E-step route ``name`` as a train step makes it: the
+    forward through ``estep._forward`` and, where the route has an
+    autograd Function, the gradients of its inputs against seeded
+    cotangents (the adjoint kernel)."""
+    kernel, twin, fn, padding, _ = chip_smoke.ROUTES[name]
+    a32 = tuple(a.float().requires_grad_(fn is not None) for a in args)
+    with torch.no_grad():
+        outs = chip_smoke._tup(twin(*a32))
+    cots = [torch.randn(o.shape, generator=g, device=o.device) for o in outs]
+
+    def call():
+        with torch.set_grad_enabled(fn is not None):
+            got = chip_smoke._tup(estep._forward(kernel, twin, fn, a32,
+                                                 padding=padding))
+            if fn is not None:
+                torch.autograd.grad(got, a32, cots, allow_unused=True)
+    return call
+
+
+def wide_dim(values, rounds):
+    """The ``wide_dim`` mode (see the module docstring)."""
+    dims, check_defaults = estep.KERNEL_DIMS, _check_kernel_args.__defaults__
+
+    def use(built, lib):
+        # a library and the dims it serves, which the wrappers' check and
+        # kernel_dim then take
+        _build._lib = lib
+        estep.KERNEL_DIMS = tuple(sorted(built))
+        _check_kernel_args.__defaults__ = (estep.KERNEL_DIMS,
+                                           *check_defaults[1:])
+
+    normal = _build.load_library()
+    shape = dict(chip_smoke.CONV_SHAPE)
+    readings = {}
+    for d in values:
+        lib, secs, log = build_wide(d)
+        print(f"d={d}: nvcc seconds "
+              f"{json.dumps({s: round(t, 1) for s, t in secs.items()})}")
+        print(f"d={d}: " + "; ".join(
+            ln for ln in ptxas_lines(log, ALL_FUNCTIONS)
+            if ln.split(":")[0].endswith(f"<{d}>")))
+        instance = (set(dims) | {d}, lib)
+        padded = ({x for x in dims if x != d}, normal)
+        use(*instance)
+        print(f"d={d} instance: routes vs float64 twins "
+              f"{chip_smoke.check_routes(d, seed=d)}")
+        probs = chip_smoke.route_problems(d, 0, "cuda", shape=shape)
+        g = torch.Generator(device="cuda").manual_seed(d)
+        calls = {name: _route_call(name, a, g) for name, a in probs.items()}
+        for _ in range(rounds):
+            for tag in ("padded", "instance", "instance", "padded"):
+                use(*(instance if tag == "instance" else padded))
+                for name, call in calls.items():
+                    ev = chip_smoke._time_ms(call)
+                    dev = sum(chip_smoke._device_ms(call).values())
+                    readings.setdefault(f"{name} d={d} {tag}", []).append(
+                        (ev, dev))
+        use(dims, normal)
+    for key, rs in readings.items():
+        ev, dev = zip(*rs)
+        print(f"wide_dim {key} [B=8, T=500, S=2]: event median "
+              f"{np.median(ev):.4f} ms {[round(e, 4) for e in ev]}, "
+              f"device median {np.median(dev):.4f} ms "
+              f"{[round(x, 4) for x in dev]}")
+    print(json.dumps({"readings": readings}))
+
+
+# every d-templated kernel function, for the ptxas lines of wide_dim
+ALL_FUNCTIONS = tuple(
+    f"{k}_kernel" for k in (
+        "filter_fwd", "sampler_fwd_factor", "sampler_fwd_chain",
+        "filter_adj_factor", "filter_adj_chain", "sampler_adj_factor",
+        "sampler_adj_chain", "sampler_adj_dJc", "bidir_fwd",
+        "sampler_bp_fwd_factor", "sampler_bp_fwd_chain",
+        "sampler_shared_factor", "bidir_adj_factor", "bidir_adj_chain",
+        "sampler_bp_adj_factor", "sampler_bp_adj_chain",
+        "sampler_bp_adj_dJc", "elem_scan", "elem_scan_adj_factor",
+        "elem_scan_adj_chain", "filter_shared", "backward_shared"))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernel", choices=sorted(KERNELS))
+    ap.add_argument("kernel", choices=sorted(KERNELS) + ["wide_dim"])
     ap.add_argument("--constant", help="the constant to vary (default: the "
                     "kernel's first)")
     ap.add_argument("--values", type=int, nargs="+", default=[1, 2, 4])
@@ -223,6 +377,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
+    if args.kernel == "wide_dim":
+        return wide_dim(args.values, args.rounds)
     constants, _, entries, functions, prefix = KERNELS[args.kernel]
     constant = args.constant or constants[0]
     if constant not in constants:

@@ -30,15 +30,14 @@ __device__ __forceinline__ unsigned chain_mask() {
 // already inverted, Linv[i][j] = -rd[j] sum_{j<k<=i} Linv[i][k] L[k][j],
 // rows descending so that column j's own entries L[k][j], k < i, are still
 // read as L.
-template <int D>
-__device__ __forceinline__ void invert_lower(float (&L)[D][D],
-                                             const float (&rd)[D]) {
-#pragma unroll
+template <int D, class T>
+__device__ __forceinline__ void invert_lower(T (&L)[D][D], const T (&rd)[D]) {
+SVAE_PASS_UNROLL
   for (int j = D - 1; j >= 0; --j) {
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int i = D - 1; i > j; --i) {
-      float s = 0.f;
-#pragma unroll
+      T s = T(0);
+SVAE_PASS_UNROLL
       for (int k = j + 1; k <= i; ++k) s += L[i][k] * L[k][j];
       L[i][j] = -s * rd[j];
     }
@@ -51,21 +50,21 @@ __device__ __forceinline__ void invert_lower(float (&L)[D][D],
 // W = M^-1 = L^-T L^-1: L^-1 in place, then W = Linv^T Linv row by row
 // ascending, W[i][j] = sum_{k>=i} Linv[k][i] Linv[k][j] reading rows
 // k >= i only, row i's diagonal (which its other entries read) last.
-template <int D>
-__device__ __forceinline__ void inverse_from_chol(float (&L)[D][D],
-                                                  const float (&rd)[D]) {
+template <int D, class T>
+__device__ __forceinline__ void inverse_from_chol(T (&L)[D][D],
+                                                  const T (&rd)[D]) {
   invert_lower<D>(L, rd);
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int i = 0; i < D; ++i) {
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int j = 0; j < i; ++j) {
-      float s = 0.f;
-#pragma unroll
+      T s = T(0);
+SVAE_PASS_UNROLL
       for (int k = i; k < D; ++k) s += L[k][i] * L[k][j];
       L[i][j] = s;
     }
-    float s = 0.f;
-#pragma unroll
+    T s = T(0);
+SVAE_PASS_UNROLL
     for (int k = i; k < D; ++k) s += L[k][i] * L[k][i];
     L[i][i] = s;
   }
@@ -76,15 +75,15 @@ __device__ __forceinline__ void inverse_from_chol(float (&L)[D][D],
 // ((d*d, B) from there, lane-minor; its lower triangle read), s2P3[k]
 // gives 2 P3's entry k = i*d + j (a shared row of the stationary P3, or
 // TwiceStream's row of a per-sequence one).
-template <int D, class TwoP3>
+template <int D, class TwoP3, class T>
 __device__ __forceinline__ void factor_jc(const float* __restrict__ Jt,
                                           const TwoP3& s2P3, int B,
-                                          float (&L)[D][D], float (&rd)[D]) {
-#pragma unroll
+                                          T (&L)[D][D], T (&rd)[D]) {
+SVAE_PASS_UNROLL
   for (int i = 0; i < D; ++i) {
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int j = 0; j <= i; ++j)
-      L[i][j] = Jt[(i * D + j) * B] - s2P3[i * D + j];
+      L[i][j] = (T)Jt[(i * D + j) * B] - (T)s2P3[i * D + j];
   }
   chol_inplace<D>(L, rd);
 }
@@ -114,15 +113,14 @@ __device__ __forceinline__ void factor_jc_bp(const float* __restrict__ Jf,
 
 // Overwrite the factor L of factor_jc with the lower triangle of W = Jc^-1
 // and write W, full, at out (the sequence's entry of (d*d, B), lane-minor).
-template <int D>
-__device__ __forceinline__ void store_inverse(float (&L)[D][D],
-                                              const float (&rd)[D],
+template <int D, class T>
+__device__ __forceinline__ void store_inverse(T (&L)[D][D], const T (&rd)[D],
                                               float* __restrict__ out,
                                               int B) {
   inverse_from_chol<D>(L, rd);
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int i = 0; i < D; ++i) {
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int j = 0; j < D; ++j)
       out[(i * D + j) * B] = j <= i ? L[i][j] : L[j][i];
   }
@@ -140,22 +138,22 @@ __device__ __forceinline__ void store_filter_factor(const float (&L)[D][D],
                                                     int NL) {
   constexpr int DD = D * D;
   auto W = [&](int i, int j) { return j <= i ? L[i][j] : L[j][i]; };
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int i = 0; i < D; ++i) {
     float s = 0.f;
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int j = 0; j < D; ++j) {
       out[(i * D + j) * NL] = W(i, j);
       s += W(i, j) * v[j];
     }
     out[(2 * DD + i) * NL] = s;
   }
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int i = 0; i < D; ++i) {
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int j = 0; j < D; ++j) {
       float s = 0.f;
-#pragma unroll
+SVAE_PASS_UNROLL
       for (int k = 0; k < D; ++k) s += W(i, k) * Dat(j, k);
       out[(DD + i * D + j) * NL] = s;
     }

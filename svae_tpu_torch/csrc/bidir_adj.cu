@@ -79,9 +79,9 @@ bidir_adj_factor_kernel(int NL, int T1, const float* __restrict__ J0,
   const float* hp = (t == 0 ? h0 : hf + (size_t)(t - 1) * D * NL) + lane;
 
   float L[D][D], rd[D], v[D];
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int i = 0; i < D; ++i) {
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int j = 0; j <= i; ++j)
       L[i][j] = Jp[(i * D + j) * NL] + A[mat + (size_t)(i * D + j) * NL];
     v[i] = hp[i * NL] + F[vec + (size_t)i * NL];
@@ -210,13 +210,11 @@ int launch_bidir_adj(int NL, int T1, const float* J0, const float* h0,
 
 }  // namespace
 
-#define SVAE_DIMS(CASE) CASE(2) CASE(3) CASE(4) CASE(8) CASE(10) CASE(16)
-
 // Plain C entries for ctypes; each returns cudaGetLastError() after its
 // launches (0 on success), cudaErrorInvalidValue for an unsupported d.
 // svae_bidir_adj_f32 runs both passes (fac is its scratch, (T1, 2d^2 + d,
 // NL)); the other two run one pass each.
-extern "C" int svae_bidir_adj_f32(int d, int NL, int T1, const float* J0,
+extern "C" int SVAE_ENTRY(svae_bidir_adj_f32)(int d, int NL, int T1, const float* J0,
                                   const float* h0, const float* A,
                                   const float* Dm, const float* F,
                                   const float* J, const float* h,
@@ -231,13 +229,13 @@ extern "C" int svae_bidir_adj_f32(int d, int NL, int T1, const float* J0,
     return launch_bidir_adj<DIM>(NL, T1, J0, h0, A, Dm, F, J, h, dJ, dh, dln, \
                                  fac, dA, dC, dD, dE, dF, dJ0, dh0, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
 
-extern "C" int svae_bidir_adj_factor_f32(int d, int NL, int T1,
+extern "C" int SVAE_ENTRY(svae_bidir_adj_factor_f32)(int d, int NL, int T1,
                                          const float* J0, const float* h0,
                                          const float* A, const float* Dm,
                                          const float* F, const float* J,
@@ -248,13 +246,13 @@ extern "C" int svae_bidir_adj_factor_f32(int d, int NL, int T1,
   case DIM:            \
     return launch_factor<DIM>(NL, T1, J0, h0, A, Dm, F, J, h, fac, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
 
-extern "C" int svae_bidir_adj_chain_f32(int d, int NL, int T1,
+extern "C" int SVAE_ENTRY(svae_bidir_adj_chain_f32)(int d, int NL, int T1,
                                         const float* fac, const float* dJ,
                                         const float* dh, const float* dln,
                                         float* dA, float* dC, float* dD,
@@ -266,9 +264,8 @@ extern "C" int svae_bidir_adj_chain_f32(int d, int NL, int T1,
     return launch_chain<DIM>(NL, T1, fac, dJ, dh, dln, dA, dC, dD, dE, dF,   \
                              dJ0, dh0, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
-#undef SVAE_DIMS

@@ -131,11 +131,14 @@ bidir_fwd_kernel(int NL, int T1, const float* __restrict__ J0,
   // entry i of column jc of a symmetric block, read from its lower triangle
   auto lo = [&](int i) { return (i > jc ? i * D + jc : jc * D + i) * NL; };
 
-  // lane j < D: column j of the carried J; lane D: the carried h
-  float cj[D];
+  // lane j < D: column j of the carried J; lane D: the carried h (d = 32:
+  // hc, on every lane)
+  float cj[D], hc[kWideChain<D> ? D : 1];
 #pragma unroll
-  for (int i = 0; i < D; ++i)
+  for (int i = 0; i < D; ++i) {
     cj[i] = vec ? h0[i * NL + lane] : J0[lo(i) + lane];
+    if constexpr (kWideChain<D>) hc[i] = h0[i * NL + lane];
+  }
 
   // step t+1's column of A and row of D (f) in flight while step t
   // computes (unconditional loads, the step clamped to T1-1)
@@ -171,6 +174,13 @@ bidir_fwd_kernel(int NL, int T1, const float* __restrict__ J0,
       op.Cr[i] = cr[(size_t)i * NL];
     }
     op.pc = Pc[(size_t)t * NL + lane];
+    if constexpr (kWideChain<D>) {
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        op.f[i] = F[((size_t)t * D + i) * NL + lane];
+        op.e[i] = E[((size_t)t * D + i) * NL + lane];
+      }
+    }
     load(t + 1);
     float* sDt = sD + (t & 1) * D * DP;
     if (j < D) {
@@ -186,9 +196,13 @@ bidir_fwd_kernel(int NL, int T1, const float* __restrict__ J0,
     return vec ? hout + (size_t)t * D * NL + lane
                : Jout + t * mstep + (size_t)jc * NL + lane;
   };
+  auto hout_at = [&](int t, int i) {
+    return hout + ((size_t)t * D + i) * NL + lane;
+  };
   const double acc = filter_chain<D, DP, true>(
-      T1, j, cj, step, out, vec ? (size_t)NL : (size_t)D * NL, j <= D);
-  if (vec) ln[lane] = (float)acc;
+      T1, j, cj, hc, step, out, hout_at, vec ? (size_t)NL : (size_t)D * NL,
+      j <= D);
+  if (vec || (kWideChain<D> && j == 0)) ln[lane] = (float)acc;
 }
 
 // The factor pass's body, one thread per (step t, sequence b), b fastest.
@@ -216,18 +230,19 @@ __device__ __forceinline__ void sampler_fwd_factor(
   // the step's pair entry k at pat + k * ps
   const size_t pat = kShared ? (size_t)t * D * D : at;
   const int ps = kShared ? 1 : B;
-  float L[D][D], rd[D], hv[D], y[D];
+  using T = PassReal<D>;
+  T L[D][D], rd[D], hv[D], y[D];
   factor_jc<D>(Jf + at, TwiceStream{P3 + pat, ps}, B, L, rd);
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int i = 0; i < D; ++i) hv[i] = hf[((size_t)t * D + i) * B + b];
   solve_lower<D>(L, rd, hv, y);
   for (int s = 0; s < S; ++s) {
     const size_t v = (size_t)t * D * SB + s * B + b;
-    float z[D], cv[D];
-#pragma unroll
+    T z[D], cv[D];
+SVAE_PASS_UNROLL
     for (int i = 0; i < D; ++i) z[i] = y[i] + eps[v + (size_t)i * SB];
     solve_upper<D>(L, rd, z, cv);
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int i = 0; i < D; ++i) c[v + (size_t)i * SB] = cv[i];
   }
   // Q = Jc^-1 P2^T, column k of it by two triangular solves against row
@@ -235,12 +250,12 @@ __device__ __forceinline__ void sampler_fwd_factor(
   // inverse's rounding)
 #pragma unroll (Rows<D>::value)
   for (int k = 0; k < D; ++k) {
-    float p[D], z[D], q[D];
-#pragma unroll
+    T p[D], z[D], q[D];
+SVAE_PASS_UNROLL
     for (int m = 0; m < D; ++m) p[m] = P2[pat + (size_t)(k * D + m) * ps];
     solve_lower<D>(L, rd, p, z);
     solve_upper<D>(L, rd, z, q);
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int i = 0; i < D; ++i) Q[at + (size_t)(i * D + k) * B] = q[i];
   }
 }
@@ -394,11 +409,9 @@ int launch_sampler_bp_fwd(int B, int S, int T1, const float* P2,
 
 }  // namespace
 
-#define SVAE_DIMS(CASE) CASE(2) CASE(3) CASE(4) CASE(8) CASE(10) CASE(16)
-
 // Plain C entries for ctypes. Each returns cudaGetLastError() after the
 // launch (0 on success); an unsupported d returns cudaErrorInvalidValue.
-extern "C" int svae_bidir_fwd_f32(int d, int NL, int T1, const float* J0,
+extern "C" int SVAE_ENTRY(svae_bidir_fwd_f32)(int d, int NL, int T1, const float* J0,
                                   const float* h0, const float* A,
                                   const float* C, const float* Dm,
                                   const float* E, const float* F,
@@ -410,13 +423,13 @@ extern "C" int svae_bidir_fwd_f32(int d, int NL, int T1, const float* J0,
     return launch_bidir_fwd<DIM>(NL, T1, J0, h0, A, C, Dm, E, F, Pc, J, h, \
                                  ln, s);
   switch (d) {
-    SVAE_DIMS(SVAE_BIDIR_FWD)
+    SVAE_BUILT_DIMS(SVAE_BIDIR_FWD)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_BIDIR_FWD
 }
 
-extern "C" int svae_sampler_bp_fwd_f32(int d, int B, int S, int T1,
+extern "C" int SVAE_ENTRY(svae_sampler_bp_fwd_f32)(int d, int B, int S, int T1,
                                        const float* P2, const float* P3,
                                        const float* Jf, const float* hf,
                                        const float* eps, const float* xT,
@@ -428,13 +441,13 @@ extern "C" int svae_sampler_bp_fwd_f32(int d, int B, int S, int T1,
     return launch_sampler_bp_fwd<DIM, false>(B, S, T1, P2, P3, Jf, hf,  \
                                              eps, xT, Q, c, x, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
 
-extern "C" int svae_sampler_bp_fwd_factor_f32(int d, int B, int S, int T1,
+extern "C" int SVAE_ENTRY(svae_sampler_bp_fwd_factor_f32)(int d, int B, int S, int T1,
                                               const float* P2,
                                               const float* P3,
                                               const float* Jf,
@@ -447,13 +460,13 @@ extern "C" int svae_sampler_bp_fwd_factor_f32(int d, int B, int S, int T1,
     return launch_sampler_bp_factor<DIM, false>(B, S, T1, P2, P3, Jf,  \
                                                 hf, eps, Q, c, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
 
-extern "C" int svae_sampler_bp_fwd_chain_f32(int d, int B, int S, int T1,
+extern "C" int SVAE_ENTRY(svae_sampler_bp_fwd_chain_f32)(int d, int B, int S, int T1,
                                              const float* Q, const float* c,
                                              const float* xT, float* x,
                                              void* stream) {
@@ -462,7 +475,7 @@ extern "C" int svae_sampler_bp_fwd_chain_f32(int d, int B, int S, int T1,
   case DIM:            \
     return launch_sampler_bp_chain<DIM>(B, S * B, T1, Q, c, xT, x, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
@@ -472,7 +485,7 @@ extern "C" int svae_sampler_bp_fwd_chain_f32(int d, int B, int S, int T1,
 // its factor pass, then sampler_bp_fwd's chain pass on the per-sequence Q
 // and per-lane c it writes (the caller's scratch), as
 // svae_sampler_bp_fwd_f32 runs them.
-extern "C" int svae_sampler_shared_f32(int d, int B, int S, int T1,
+extern "C" int SVAE_ENTRY(svae_sampler_shared_f32)(int d, int B, int S, int T1,
                                        const float* P2, const float* P3,
                                        const float* Jf, const float* hf,
                                        const float* eps, const float* xT,
@@ -484,13 +497,13 @@ extern "C" int svae_sampler_shared_f32(int d, int B, int S, int T1,
     return launch_sampler_bp_fwd<DIM, true>(B, S, T1, P2, P3, Jf, hf,   \
                                             eps, xT, Q, c, x, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
 
-extern "C" int svae_sampler_shared_factor_f32(int d, int B, int S, int T1,
+extern "C" int SVAE_ENTRY(svae_sampler_shared_factor_f32)(int d, int B, int S, int T1,
                                               const float* P2,
                                               const float* P3,
                                               const float* Jf,
@@ -503,9 +516,8 @@ extern "C" int svae_sampler_shared_factor_f32(int d, int B, int S, int T1,
     return launch_sampler_bp_factor<DIM, true>(B, S, T1, P2, P3, Jf,   \
                                                hf, eps, Q, c, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
-#undef SVAE_DIMS

@@ -85,12 +85,18 @@ struct ScanShared {
 };
 
 // One warp per lane (chain), one chain a block. Layouts: leaves, out
-// (L, R, N) with R = 3d^2 + 2d + 1 rows per element.
+// (L, R, N) with R = 3d^2 + 2d + 1 rows per element. At d = 32
+// (elem_scan_wide.cu) no lane is left for the vector column: every lane
+// holds the vectors (h1a, h2a, the coming h1b, h2b and v) whole and reduces
+// v in the same rounds (warp-uniform values), and lane 0 writes h1', h2'
+// and c.
 template <int D>
 __global__ void __launch_bounds__(32)
 elem_scan_kernel(int L, int N, const float* __restrict__ leaves,
                  float* __restrict__ out) {
-  static_assert(D + 1 <= 32, "a combine's columns must fit one warp");
+  static_assert(D <= 32, "a combine's columns must fit one warp");
+  constexpr bool kWide = D == 32;
+  constexpr int W = kWide ? D : 1;  // the vectors' length on every lane
   using E = Elem<D>;
   constexpr int DP = E::DP, SP = E::SP;
   constexpr unsigned kAll = 0xffffffffu;
@@ -124,11 +130,16 @@ elem_scan_kernel(int L, int N, const float* __restrict__ leaves,
   // the carry: lane k < d column k of J11a (ca1) and of sym(J22a) (ca2);
   // lane d h1a (ca1), h2a (ca2) and the constant (acc)
   float ca1[D], ca2[D];
+  float h1c[W], h2c[W];  // d = 32: h1a and h2a on every lane
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     ca1[i] = at(0, p11, i, s11);
     const float rowk = vec ? at(0, p22, i, s22) : at(0, E::J22 + jc * D, i, 1);
     ca2[i] = 0.5f * (at(0, p22, i, s22) + rowk);
+    if constexpr (kWide) {
+      h1c[i] = at(0, E::H1, i, 1);
+      h2c[i] = at(0, E::H2, i, 1);
+    }
   }
   double acc = lf[(size_t)E::C * N];
   if (j < D) {
@@ -139,6 +150,7 @@ elem_scan_kernel(int L, int N, const float* __restrict__ leaves,
   // the coming leaf, a combine ahead (unconditional loads, the step
   // clamped to L-1)
   float n11[D], n11r[D], n12[D], n22[D], ncb;
+  float nh1[W], nh2[W];  // d = 32: the coming h1b and h2b on every lane
   auto load = [&](int t) {
     t = t < L ? t : L - 1;
 #pragma unroll
@@ -147,6 +159,10 @@ elem_scan_kernel(int L, int N, const float* __restrict__ leaves,
       n11r[i] = at(t, r11, i, 1);
       n12[i] = at(t, p12, i, D);
       n22[i] = at(t, p22, i, s22);
+      if constexpr (kWide) {
+        nh1[i] = at(t, E::H1, i, 1);
+        nh2[i] = at(t, E::H2, i, 1);
+      }
     }
     ncb = at(t, E::C, 0, 0);
   };
@@ -161,6 +177,7 @@ elem_scan_kernel(int L, int N, const float* __restrict__ leaves,
   for (int t = 1; t < L; ++t) {
     const int p = t & 1;
     float m[D], xa[D], xb[D], v[D], b22[D];
+    float xv[W], bh2[W];  // d = 32: v reduced, and the step's h2b
 #pragma unroll
     for (int i = 0; i < D; ++i) {
       // column k of M = sym(J22a + J11b) (lane d: v = h2a + h1b)
@@ -169,6 +186,11 @@ elem_scan_kernel(int L, int N, const float* __restrict__ leaves,
       xa[i] = vec ? m[i] : sh.A[p][jc * DP + i];  // row k of J12a
       xb[i] = vec ? m[i] : n12[i];                // column k of J12b
       b22[i] = n22[i];
+      if constexpr (kWide) {
+        v[i] = h2c[i] + 0.5f * (nh1[i] + nh1[i]);
+        xv[i] = v[i];
+        bh2[i] = nh2[i];
+      }
     }
     const float cb = ncb;
     load(t + 1);
@@ -194,6 +216,13 @@ elem_scan_kernel(int L, int N, const float* __restrict__ leaves,
       m[k] = mk;
       xa[k] = ak;
       xb[k] = bk;
+      if constexpr (kWide) {
+        const float vk = xv[k] * rp;
+#pragma unroll
+        for (int i = 0; i < D; ++i)
+          if (i != k) xv[i] -= col[i] * vk;
+        xv[k] = vk;
+      }
     }
 
     // column k of J12a Xa, J12a Xb and J12b^T Xb on lane k (lane d: J12a
@@ -204,7 +233,19 @@ elem_scan_kernel(int L, int N, const float* __restrict__ leaves,
       y1[i] = row_dot<D, DP>(sh.A[p] + i * DP, xa);
       y2[i] = row_dot<D, DP>(sh.A[p] + i * DP, xb);
       y3[i] = row_dot<D, DP>(sh.Bt[p] + i * DP, xb);
-      q += v[i] * xa[i];
+      if constexpr (kWide)
+        q += v[i] * xv[i];
+      else
+        q += v[i] * xa[i];
+    }
+    if constexpr (kWide) {
+      // h1' = h1a - J12a xv, h2' = h2b - J12b^T xv (the vector lane's y1,
+      // y3 below)
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        h1c[i] -= row_dot<D, DP>(sh.A[p] + i * DP, xv);
+        h2c[i] = bh2[i] - row_dot<D, DP>(sh.Bt[p] + i * DP, xv);
+      }
     }
     const float lsum = warp_log_sum(pj);
     // lane k: columns of J11a - J12a Xa and J22b - J12b^T Xb into the
@@ -247,6 +288,17 @@ elem_scan_kernel(int L, int N, const float* __restrict__ leaves,
       }
       o[(size_t)E::C * N] = (float)acc;
     }
+    if constexpr (kWide) {
+      if (j == 0) {
+        acc += (double)(cb + 0.5f * D * kLog2Pi - 0.5f * lsum + 0.5f * q);
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+          o[(size_t)(E::H1 + i) * N] = h1c[i];
+          o[(size_t)(E::H2 + i) * N] = h2c[i];
+        }
+        o[(size_t)E::C * N] = (float)acc;
+      }
+    }
   }
 }
 
@@ -261,16 +313,15 @@ int launch_scan(int L, int N, const float* leaves, float* out,
 
 // Plain C entry for ctypes. Returns cudaGetLastError() after the launch (0
 // on success); an unsupported d returns cudaErrorInvalidValue.
-extern "C" int svae_elem_scan_f32(int d, int L, int N, const float* leaves,
+extern "C" int SVAE_ENTRY(svae_elem_scan_f32)(int d, int L, int N, const float* leaves,
                                   float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SVAE_CASE(DIM) \
+  case DIM:            \
+    return launch_scan<DIM>(L, N, leaves, out, s);
   switch (d) {
-    case 2: return launch_scan<2>(L, N, leaves, out, s);
-    case 3: return launch_scan<3>(L, N, leaves, out, s);
-    case 4: return launch_scan<4>(L, N, leaves, out, s);
-    case 8: return launch_scan<8>(L, N, leaves, out, s);
-    case 10: return launch_scan<10>(L, N, leaves, out, s);
-    case 16: return launch_scan<16>(L, N, leaves, out, s);
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef SVAE_CASE
 }

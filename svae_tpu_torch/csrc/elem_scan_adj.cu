@@ -87,9 +87,9 @@ elem_scan_adj_factor_kernel(int L, int N, const float* __restrict__ leaves,
   const float* b = leaves + (size_t)(t + 1) * R * N + lane;  // leaves[j]
 
   float Lm[D][D], rd[D], y[D];
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int i = 0; i < D; ++i) {
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int k = 0; k <= i; ++k)
       Lm[i][k] = 0.5f * (a[(kJ22 + i * D + k) * N] + a[(kJ22 + k * D + i) * N] +
                          b[(i * D + k) * N] + b[(k * D + i) * N]);
@@ -101,10 +101,10 @@ elem_scan_adj_factor_kernel(int L, int N, const float* __restrict__ leaves,
 
   // fac (L-1, F, N): lane-minor, so that the warp's stores coalesce
   float* out = fac + (size_t)t * F * N + lane;
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int i = 0; i < D; ++i) {
     float s = 0.f;
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int k = 0; k < D; ++k) {
       out[(2 * DD + i * D + k) * N] = W(i, k);
       s += W(i, k) * y[k];
@@ -115,21 +115,21 @@ elem_scan_adj_factor_kernel(int L, int N, const float* __restrict__ leaves,
 #pragma unroll (Rows<D>::value)
   for (int k = 0; k < D; ++k) {
     float r[D];
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int m = 0; m < D; ++m) r[m] = a[(kJ12 + k * D + m) * N];
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int i = 0; i < D; ++i) {
       float s = 0.f;
-#pragma unroll
+SVAE_PASS_UNROLL
       for (int m = 0; m < D; ++m) s += W(i, m) * r[m];
       out[(i * D + k) * N] = s;
     }
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int m = 0; m < D; ++m) r[m] = b[(kJ12 + m * D + k) * N];
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int i = 0; i < D; ++i) {
       float s = 0.f;
-#pragma unroll
+SVAE_PASS_UNROLL
       for (int m = 0; m < D; ++m) s += W(i, m) * r[m];
       out[(DD + i * D + k) * N] = s;
     }
@@ -147,13 +147,18 @@ constexpr int kScanRing = 2;
 // spill.
 constexpr int kScanLanes = 2;
 
-// Blocks of G = kScanLanes chains (lanes blockIdx.x * G + l), d*d*G
+// The chains a block of the chain pass runs at d: kScanLanes while their
+// d*d threads each fit a block of 1,024, else one (d > 22).
+template <int D>
+constexpr int kChainLanes = D * D * kScanLanes <= 1024 ? kScanLanes : 1;
+
+// Blocks of G = kChainLanes<D> chains (lanes blockIdx.x * G + l), d*d*G
 // threads, thread (i, k, l) owning entry (i, k) of every d x d matrix of
 // lane l's step, walking j = L-1 ... 0. Inputs: fac from
 // elem_scan_adj_factor_kernel and the cotangents douts (L, R, N). Output
 // dleaves (L, R, N).
 template <int D>
-__global__ void __launch_bounds__(D * D * kScanLanes)
+__global__ void __launch_bounds__(D * D * kChainLanes<D>)
 elem_scan_adj_chain_kernel(int L, int N, const float* __restrict__ fac,
                            const float* __restrict__ douts,
                            float* __restrict__ dleaves) {
@@ -161,7 +166,7 @@ elem_scan_adj_chain_kernel(int L, int N, const float* __restrict__ fac,
   constexpr int F = ScanFacRow<D>::value;
   constexpr int kJ12 = DD, kJ22 = 2 * DD, kH1 = 3 * DD, kH2 = kH1 + D,
                 kC = kH2 + D;
-  constexpr int G = kScanLanes;
+  constexpr int G = kChainLanes<D>;
   constexpr int SP = D + 1;  // padded row stride of the shared matrices
   constexpr int Q = kScanRing;
   // shared matrices with the block's lanes innermost: entry (r, c) of lane
@@ -328,7 +333,7 @@ int launch_factor(int L, int N, const float* leaves, const float* pref,
 template <int D>
 int launch_chain(int L, int N, const float* fac, const float* douts,
                  float* dleaves, cudaStream_t stream) {
-  constexpr int G = kScanLanes;
+  constexpr int G = kChainLanes<D>;
   elem_scan_adj_chain_kernel<D><<<(N + G - 1) / G, D * D * G, 0, stream>>>(
       L, N, fac, douts, dleaves);
   return (int)cudaGetLastError();
@@ -345,13 +350,11 @@ int launch_scan_adj(int L, int N, const float* leaves, const float* pref,
 
 }  // namespace
 
-#define SVAE_DIMS(CASE) CASE(2) CASE(3) CASE(4) CASE(8) CASE(10) CASE(16)
-
 // Plain C entries for ctypes; each returns cudaGetLastError() after its
 // launches (0 on success), cudaErrorInvalidValue for an unsupported d.
 // svae_elem_scan_adj_f32 runs both passes (fac is its scratch, (L-1,
 // 3d^2 + d, N)); the other two run one pass each.
-extern "C" int svae_elem_scan_adj_f32(int d, int L, int N,
+extern "C" int SVAE_ENTRY(svae_elem_scan_adj_f32)(int d, int L, int N,
                                       const float* leaves, const float* pref,
                                       const float* douts, float* dleaves,
                                       float* fac, void* stream) {
@@ -360,13 +363,13 @@ extern "C" int svae_elem_scan_adj_f32(int d, int L, int N,
   case DIM:            \
     return launch_scan_adj<DIM>(L, N, leaves, pref, douts, dleaves, fac, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
 
-extern "C" int svae_elem_scan_adj_factor_f32(int d, int L, int N,
+extern "C" int SVAE_ENTRY(svae_elem_scan_adj_factor_f32)(int d, int L, int N,
                                              const float* leaves,
                                              const float* pref, float* fac,
                                              void* stream) {
@@ -375,13 +378,13 @@ extern "C" int svae_elem_scan_adj_factor_f32(int d, int L, int N,
   case DIM:            \
     return launch_factor<DIM>(L, N, leaves, pref, fac, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
 
-extern "C" int svae_elem_scan_adj_chain_f32(int d, int L, int N,
+extern "C" int SVAE_ENTRY(svae_elem_scan_adj_chain_f32)(int d, int L, int N,
                                             const float* fac,
                                             const float* douts,
                                             float* dleaves, void* stream) {
@@ -390,9 +393,8 @@ extern "C" int svae_elem_scan_adj_chain_f32(int d, int L, int N,
   case DIM:            \
     return launch_chain<DIM>(L, N, fac, douts, dleaves, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
-#undef SVAE_DIMS

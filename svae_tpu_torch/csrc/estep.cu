@@ -67,6 +67,13 @@
 //
 // D is a template parameter so every loop is unrolled and every register
 // array index a constant.
+//
+// At d = 32 (estep_wide.cu) the tile's d + 1 columns outnumber the warp's
+// lanes: lane j holds column j of M and of D^T, and the vector column v
+// (the carried h) is held whole on every lane, where the same rounds
+// reduce it (warp-uniform: each lane computes the same values), and lane 0
+// writes h and ln. Registers spill there; the d <= 16 instances compile as
+// they did.
 
 #include "adj_passes.cuh"
 
@@ -94,7 +101,9 @@ filter_fwd_kernel(int B, int T, const float* __restrict__ J0,
                   const float* __restrict__ jd, const float* __restrict__ n2,
                   float* __restrict__ Jout, float* __restrict__ hout,
                   float* __restrict__ ln) {
-  static_assert(D + 1 <= 32, "a chain's columns must fit one warp");
+  static_assert(D <= 32, "a chain's columns must fit one warp");
+  // d = 32: the vector column held whole on every lane (above)
+  constexpr bool kWide = D == 32;
   constexpr int DD = D * D;
   constexpr int DP = (D + 3) & ~3;  // sD's row stride, for float4 reads
   constexpr int Q = kFilterRing;
@@ -116,6 +125,7 @@ filter_fwd_kernel(int B, int T, const float* __restrict__ J0,
   // lane j < D: column j of A_r, C_r and D_r^T (row j of D_r) and of the
   // carried J; lane D: the carried h in cj
   float Ac[D], Cc[D], Dr[D], cj[D];
+  float hc[kWide ? D : 1];  // d = 32: the carried h, on every lane
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     const int lo = i > jc ? i * D + jc : jc * D + i;
@@ -123,6 +133,7 @@ filter_fwd_kernel(int B, int T, const float* __restrict__ J0,
     Cc[i] = c[lo];
     Dr[i] = sD[jc * DP + i];
     cj[i] = vec ? h0[i * NL + lane] : J0[lo * NL + lane];
+    if constexpr (kWide) hc[i] = h0[i * NL + lane];
   }
 
   // the node evidence of steps t+1 ... t+Q in flight while step t
@@ -157,11 +168,16 @@ filter_fwd_kernel(int B, int T, const float* __restrict__ J0,
       load(t + Q, u);
 
       float m[D], x[D], v[D];
+      float xv[kWide ? D : 1];  // d = 32: the vector column
 #pragma unroll
       for (int i = 0; i < D; ++i) {
         m[i] = cj[i] + Ac[i] + (r == 1 && i == j ? jv : 0.f);
         v[i] = cj[i] + (r == 1 ? nv[i] : 0.f);
         x[i] = vec ? v[i] : Dr[i];
+        if constexpr (kWide) {
+          v[i] = hc[i] + (r == 1 ? nv[i] : 0.f);
+          xv[i] = v[i];
+        }
       }
       float pj = 1.f;  // this lane's pivot
 #pragma unroll
@@ -182,6 +198,13 @@ filter_fwd_kernel(int B, int T, const float* __restrict__ J0,
         }
         m[k] = mk;
         x[k] = xk;
+        if constexpr (kWide) {
+          const float vk = xv[k] * rp;
+#pragma unroll
+          for (int i = 0; i < D; ++i)
+            if (i != k) xv[i] -= col[i] * vk;
+          xv[k] = vk;
+        }
       }
 
       // y = D_r X, column j of it on lane j
@@ -189,13 +212,21 @@ filter_fwd_kernel(int B, int T, const float* __restrict__ J0,
 #pragma unroll
       for (int i = 0; i < D; ++i) {
         y[i] = row_dot<D, DP>(sD + i * DP, x);
-        q += v[i] * x[i];
+        if constexpr (kWide)
+          q += v[i] * xv[i];
+        else
+          q += v[i] * x[i];
       }
       acc += 0.5f * D * kLog2Pi - 0.5f * warp_log_sum(pj) + 0.5f * q;
 #pragma unroll
       for (int i = 0; i < D; ++i)
         cj[i] = vec ? y[i] + (r == 0 ? nv[i] : 0.f)
                     : Cc[i] - y[i] + (r == 0 && i == j ? jv : 0.f);
+      if constexpr (kWide) {
+#pragma unroll
+        for (int i = 0; i < D; ++i)
+          hc[i] = row_dot<D, DP>(sD + i * DP, xv) + (r == 0 ? nv[i] : 0.f);
+      }
 
       if (j < D) {
         // column j's lower part, and its mirror into row j
@@ -210,9 +241,16 @@ filter_fwd_kernel(int B, int T, const float* __restrict__ J0,
 #pragma unroll
         for (int i = 0; i < D; ++i) ht[i * NL] = cj[i];
       }
+      if constexpr (kWide) {
+        if (j == 0) {
+          float* ht = hout + (size_t)t * D * NL + lane;
+#pragma unroll
+          for (int i = 0; i < D; ++i) ht[i * NL] = hc[i];
+        }
+      }
     }
   }
-  if (vec) ln[lane] = (float)acc;
+  if (vec || (kWide && j == 0)) ln[lane] = (float)acc;
 }
 
 // One thread per (step t, sequence b), b fastest. Inputs: P3 (d, d), Jf
@@ -236,18 +274,19 @@ sampler_fwd_factor_kernel(int B, int S, int T1, const float* __restrict__ P3,
   const int t = idx / B;
   const int b = idx - t * B;
   const int SB = S * B;
-  float L[D][D], rd[D], hv[D], y[D];
+  using T = PassReal<D>;
+  T L[D][D], rd[D], hv[D], y[D];
   factor_jc<D>(Jf + (size_t)t * DD * B + b, s2P3, B, L, rd);
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int i = 0; i < D; ++i) hv[i] = hf[((size_t)t * D + i) * B + b];
   solve_lower<D>(L, rd, hv, y);
   for (int s = 0; s < S; ++s) {
     const size_t at = (size_t)t * D * SB + s * B + b;
-    float z[D], cv[D];
-#pragma unroll
+    T z[D], cv[D];
+SVAE_PASS_UNROLL
     for (int i = 0; i < D; ++i) z[i] = y[i] + eps[at + (size_t)i * SB];
     solve_upper<D>(L, rd, z, cv);
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int i = 0; i < D; ++i) c[at + (size_t)i * SB] = cv[i];
   }
   store_inverse<D>(L, rd, W + (size_t)t * DD * B + b, B);
@@ -370,14 +409,12 @@ int launch_sampler(int B, int S, int T1, const float* P2, const float* P3,
 
 }  // namespace
 
-#define SVAE_DIMS(CASE) CASE(2) CASE(3) CASE(4) CASE(8) CASE(10) CASE(16)
-
 // Plain C entries for ctypes. Each returns cudaGetLastError() after its
 // launches (0 on success); an unsupported d returns cudaErrorInvalidValue.
 // T is the chain's T (T-1 steps). svae_sampler_fwd_f32 runs both of the
 // sampler's passes (W (T-1, d*d, B) and c (T-1, d, S*B) are its scratch);
 // the other two run one pass each.
-extern "C" int svae_filter_fwd_f32(int d, int B, int T, const float* J0,
+extern "C" int SVAE_ENTRY(svae_filter_fwd_f32)(int d, int B, int T, const float* J0,
                                    const float* h0, const float* A,
                                    const float* C, const float* Dm,
                                    const float* jd, const float* n2,
@@ -388,13 +425,13 @@ extern "C" int svae_filter_fwd_f32(int d, int B, int T, const float* J0,
   case DIM:                                                               \
     return launch_filter<DIM>(B, T, J0, h0, A, C, Dm, jd, n2, J, h, ln, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
 
-extern "C" int svae_sampler_fwd_f32(int d, int B, int S, int T,
+extern "C" int SVAE_ENTRY(svae_sampler_fwd_f32)(int d, int B, int S, int T,
                                     const float* P2, const float* P3,
                                     const float* Jf, const float* hf,
                                     const float* eps, const float* xT,
@@ -406,13 +443,13 @@ extern "C" int svae_sampler_fwd_f32(int d, int B, int S, int T,
     return launch_sampler<DIM>(B, S, T - 1, P2, P3, Jf, hf, eps, xT, W, c, \
                                x, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
 
-extern "C" int svae_sampler_fwd_factor_f32(int d, int B, int S, int T,
+extern "C" int SVAE_ENTRY(svae_sampler_fwd_factor_f32)(int d, int B, int S, int T,
                                            const float* P3, const float* Jf,
                                            const float* hf, const float* eps,
                                            float* W, float* c, void* stream) {
@@ -421,13 +458,13 @@ extern "C" int svae_sampler_fwd_factor_f32(int d, int B, int S, int T,
   case DIM:            \
     return launch_sampler_factor<DIM>(B, S, T - 1, P3, Jf, hf, eps, W, c, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
 
-extern "C" int svae_sampler_fwd_chain_f32(int d, int B, int S, int T,
+extern "C" int SVAE_ENTRY(svae_sampler_fwd_chain_f32)(int d, int B, int S, int T,
                                           const float* W, const float* c,
                                           const float* P2, const float* xT,
                                           float* x, void* stream) {
@@ -436,9 +473,8 @@ extern "C" int svae_sampler_fwd_chain_f32(int d, int B, int S, int T,
   case DIM:            \
     return launch_sampler_chain<DIM>(B, S * B, T - 1, W, c, P2, xT, x, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
-#undef SVAE_DIMS

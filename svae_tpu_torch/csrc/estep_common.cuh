@@ -9,6 +9,32 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+// The latent sizes a d-templated source instantiates and the names of its
+// C entries: d <= 16 in the source itself; d = 24 and 32 in its twin
+// X_wide.cu, which defines SVAE_WIDE and includes X.cu, so that the two
+// compile in parallel, and whose entries carry the suffix _wide
+// (ops/_build.py calls the twin for d = 24 and 32).
+#ifdef SVAE_WIDE
+#define SVAE_BUILT_DIMS(CASE) CASE(24) CASE(32)
+#define SVAE_ENTRY(name) name##_wide
+#else
+#define SVAE_BUILT_DIMS(CASE) CASE(2) CASE(3) CASE(4) CASE(8) CASE(10) CASE(16)
+#define SVAE_ENTRY(name) name
+#endif
+
+// The loops over d of the passes that run one thread a (step, lane): the
+// factor and dJc passes and their Cholesky, solve and inverse helpers.
+// Unrolled in full up to d = 16; at d = 24 and 32 not unrolled, their
+// d x d matrices in local memory, where they spill in any case: unrolled
+// at d = 32, ptxas took 200-390 s a source.
+#ifdef SVAE_WIDE
+#define SVAE_PASS_UNROLL _Pragma("unroll 1")
+#else
+#define SVAE_PASS_UNROLL _Pragma("unroll")
+#endif
+
 namespace {
 
 constexpr int kThreads = 32;
@@ -59,24 +85,36 @@ struct Rows {
   static constexpr int value = D <= 10 ? D : 1;
 };
 
+// The scalar of the sampler factor passes' factors and solves at d: float,
+// and double past d = 16: at d = 32 the float32 sums of 32 terms a pivot
+// took the sampler past twice the float32 plain version's error in the
+// stiff case (chip_smoke.check_stiff). The passes store float either way.
+template <int D>
+using PassReal = typename std::conditional<(D > 16), double, float>::type;
+
+__device__ __forceinline__ float sqrt_of(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_of(double x) { return sqrt(x); }
+__device__ __forceinline__ float log_of(float x) { return logf(x); }
+__device__ __forceinline__ double log_of(double x) { return log(x); }
+
 // In-place lower Cholesky factor of the lower triangle of L (row by row);
 // rd gets the reciprocal diagonal. Returns sum_i log L_ii (half logdet).
 // A non-positive pivot gives NaN, which then propagates to every output.
-template <int D>
-__device__ __forceinline__ float chol_inplace(float (&L)[D][D],
-                                              float (&rd)[D]) {
-  float half_logdet = 0.f;
-#pragma unroll
+// T is float, or double for PassReal<32>.
+template <int D, class T>
+__device__ __forceinline__ T chol_inplace(T (&L)[D][D], T (&rd)[D]) {
+  T half_logdet = T(0);
+SVAE_PASS_UNROLL
   for (int i = 0; i < D; ++i) {
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int j = 0; j <= i; ++j) {
-      float s = L[i][j];
-#pragma unroll
+      T s = L[i][j];
+SVAE_PASS_UNROLL
       for (int k = 0; k < j; ++k) s -= L[i][k] * L[j][k];
       if (i == j) {
-        L[i][i] = sqrtf(s);
-        rd[i] = 1.f / L[i][i];
-        half_logdet += logf(L[i][i]);
+        L[i][i] = sqrt_of(s);
+        rd[i] = T(1) / L[i][i];
+        half_logdet += log_of(L[i][i]);
       } else {
         L[i][j] = s * rd[j];
       }
@@ -86,30 +124,28 @@ __device__ __forceinline__ float chol_inplace(float (&L)[D][D],
 }
 
 // x = L^-1 b (forward substitution against the lower factor).
-template <int D>
-__device__ __forceinline__ void solve_lower(const float (&L)[D][D],
-                                            const float (&rd)[D],
-                                            const float (&b)[D],
-                                            float (&x)[D]) {
-#pragma unroll
+template <int D, class T>
+__device__ __forceinline__ void solve_lower(const T (&L)[D][D],
+                                            const T (&rd)[D],
+                                            const T (&b)[D], T (&x)[D]) {
+SVAE_PASS_UNROLL
   for (int i = 0; i < D; ++i) {
-    float s = b[i];
-#pragma unroll
+    T s = b[i];
+SVAE_PASS_UNROLL
     for (int k = 0; k < i; ++k) s -= L[i][k] * x[k];
     x[i] = s * rd[i];
   }
 }
 
 // x = L^-T b (backward substitution against the lower factor).
-template <int D>
-__device__ __forceinline__ void solve_upper(const float (&L)[D][D],
-                                            const float (&rd)[D],
-                                            const float (&b)[D],
-                                            float (&x)[D]) {
-#pragma unroll
+template <int D, class T>
+__device__ __forceinline__ void solve_upper(const T (&L)[D][D],
+                                            const T (&rd)[D],
+                                            const T (&b)[D], T (&x)[D]) {
+SVAE_PASS_UNROLL
   for (int i = D - 1; i >= 0; --i) {
-    float s = b[i];
-#pragma unroll
+    T s = b[i];
+SVAE_PASS_UNROLL
     for (int k = i + 1; k < D; ++k) s -= L[k][i] * x[k];
     x[i] = s * rd[i];
   }

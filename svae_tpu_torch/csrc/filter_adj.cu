@@ -98,9 +98,9 @@ filter_adj_factor_kernel(int B, int T, const float* __restrict__ J0,
   const float* hp = t == 0 ? h0 : hf + (size_t)(t - 1) * D * NL;
 
   float L[D][D], rd[D], v[D];
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int i = 0; i < D; ++i) {
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int j = 0; j <= i; ++j)
       L[i][j] = Jp[(i * D + j) * NL + lane] + a[i * D + j];
     v[i] = hp[i * NL + lane];
@@ -249,13 +249,11 @@ int launch_filter_adj(int B, int T, const float* J0, const float* h0,
 
 }  // namespace
 
-#define SVAE_DIMS(CASE) CASE(2) CASE(3) CASE(4) CASE(8) CASE(10) CASE(16)
-
 // Plain C entries for ctypes; each returns cudaGetLastError() after its
 // launches (0 on success), cudaErrorInvalidValue for an unsupported d.
 // svae_filter_adj_f32 runs both passes (fac is its scratch, (T-1, 2d^2 +
 // d, 2B)); the other two run one pass each.
-extern "C" int svae_filter_adj_f32(int d, int B, int T, const float* J0,
+extern "C" int SVAE_ENTRY(svae_filter_adj_f32)(int d, int B, int T, const float* J0,
                                    const float* h0, const float* A,
                                    const float* Dm, const float* jd,
                                    const float* n2, const float* J,
@@ -269,13 +267,13 @@ extern "C" int svae_filter_adj_f32(int d, int B, int T, const float* J0,
     return launch_filter_adj<DIM>(B, T, J0, h0, A, Dm, jd, n2, J, h, dJ, dh, \
                                   dln, fac, dnode, dJ0, dh0, dpar, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
 
-extern "C" int svae_filter_adj_factor_f32(int d, int B, int T,
+extern "C" int SVAE_ENTRY(svae_filter_adj_factor_f32)(int d, int B, int T,
                                           const float* J0, const float* h0,
                                           const float* A, const float* Dm,
                                           const float* jd, const float* n2,
@@ -286,13 +284,13 @@ extern "C" int svae_filter_adj_factor_f32(int d, int B, int T,
   case DIM:            \
     return launch_factor<DIM>(B, T, J0, h0, A, Dm, jd, n2, J, h, fac, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
 
-extern "C" int svae_filter_adj_chain_f32(int d, int B, int T,
+extern "C" int SVAE_ENTRY(svae_filter_adj_chain_f32)(int d, int B, int T,
                                          const float* fac, const float* dJ,
                                          const float* dh, const float* dln,
                                          float* dnode, float* dJ0,
@@ -303,9 +301,8 @@ extern "C" int svae_filter_adj_chain_f32(int d, int B, int T,
   case DIM:            \
     return launch_chain<DIM>(B, T, fac, dJ, dh, dln, dnode, dJ0, dh0, dpar, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
-#undef SVAE_DIMS

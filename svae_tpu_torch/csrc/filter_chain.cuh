@@ -16,15 +16,26 @@
 // step's J, h and the chain's ln. J' is written as C_t - D_t X_D with C
 // read in full, and the carry takes C's lower triangle, as the plain
 // version (ops/bpairs.py bidir_fwd_plain) does.
+//
+// At d = 32 the tile's d + 1 columns outnumber the lanes (kWideChain): the
+// vector column, v = h + f_t, and the carried h are held whole on every
+// lane, which reduce them in the same rounds (warp-uniform values), the
+// reader gives every lane f_t and e_t, and lane 0 writes h'.
 #pragma once
 
 #include "estep_common.cuh"
 
 namespace {
 
+// A chain whose vector column has no lane of its own (d = 32).
+template <int D>
+constexpr bool kWideChain = D == 32;
+
 // One step's operands on one lane.
 template <int D>
 struct FilterOperands {
+  // d = 32: f_t and e_t, whole, on every lane
+  float f[kWideChain<D> ? D : 1], e[kWideChain<D> ? D : 1];
   float A[D];   // lane j < d: column j of A_t (from its lower triangle)
   float Dr[D];  // lane j < d: row j of D_t; the vector lane: f_t
   float Cc[D];  // lane j < d: column j of C_t in full
@@ -44,12 +55,16 @@ struct FilterOperands {
 //   out(t) is where the lane writes step t's output, entry i at
 //     out(t)[i * ostep]: lane j < d column j of J'_t, lane d h'_t.
 // Lanes write only where ``stores``. Returns the chain's summed ln on the
-// vector lane when kLn (else 0, and no log is taken).
-template <int D, int DP, bool kLn, class Step, class Out>
-__device__ __forceinline__ double filter_chain(int T1, int j, float (&cj)[D],
-                                               Step&& step, Out&& out,
-                                               size_t ostep, bool stores) {
-  static_assert(D + 1 <= 32, "a chain's columns must fit one warp");
+// vector lane when kLn (else 0, and no log is taken). At d = 32, hc is the
+// carried h (h0 on entry) on every lane, hout(t, i) where lane 0 writes
+// entry i of h'_t, and the ln is returned on every lane; below, hc and
+// hout are not read.
+template <int D, int DP, bool kLn, class Step, class Out, class HOut>
+__device__ __forceinline__ double filter_chain(
+    int T1, int j, float (&cj)[D], float (&hc)[kWideChain<D> ? D : 1],
+    Step&& step, Out&& out, HOut&& hout, size_t ostep, bool stores) {
+  static_assert(D <= 32, "a chain's columns must fit one warp");
+  constexpr bool kWide = kWideChain<D>;
   constexpr unsigned kAll = 0xffffffffu;
   const bool vec = j == D;           // the lane of the vector column
   const int jc = j < D ? j : D - 1;  // the column a lane holds (clamped)
@@ -61,11 +76,16 @@ __device__ __forceinline__ double filter_chain(int T1, int j, float (&cj)[D],
     const float* sDt = step(t, op);
 
     float m[D], x[D], v[D];
+    float xv[kWide ? D : 1];  // d = 32: the vector column
 #pragma unroll
     for (int i = 0; i < D; ++i) {
       m[i] = cj[i] + op.A[i];
       v[i] = cj[i] + op.Dr[i];  // the vector lane's h + f
       x[i] = vec ? v[i] : op.Dr[i];
+      if constexpr (kWide) {
+        v[i] = hc[i] + op.f[i];
+        xv[i] = v[i];
+      }
     }
     float pj = 1.f;  // this lane's pivot
 #pragma unroll
@@ -86,6 +106,13 @@ __device__ __forceinline__ double filter_chain(int T1, int j, float (&cj)[D],
       }
       m[k] = mk;
       x[k] = xk;
+      if constexpr (kWide) {
+        const float vk = xv[k] * rp;
+#pragma unroll
+        for (int i = 0; i < D; ++i)
+          if (i != k) xv[i] -= col[i] * vk;
+        xv[k] = vk;
+      }
     }
 
     // y = D_t X, column j of it on lane j
@@ -93,7 +120,10 @@ __device__ __forceinline__ double filter_chain(int T1, int j, float (&cj)[D],
 #pragma unroll
     for (int i = 0; i < D; ++i) {
       y[i] = row_dot<D, DP>(sDt + i * DP, x);
-      q += v[i] * x[i];
+      if constexpr (kWide)
+        q += v[i] * xv[i];
+      else
+        q += v[i] * x[i];
     }
     if (kLn)
       acc += 0.5f * D * kLog2Pi - 0.5f * warp_log_sum(pj) + 0.5f * q + op.pc;
@@ -106,6 +136,13 @@ __device__ __forceinline__ double filter_chain(int T1, int j, float (&cj)[D],
       const float o = vec ? y[i] + op.Cr[i] : op.Cc[i] - y[i];
       cj[i] = vec || i >= jc ? o : op.Cr[i] - y[i];
       if (stores) o_t[i * ostep] = o;
+    }
+    if constexpr (kWide) {
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        hc[i] = row_dot<D, DP>(sDt + i * DP, xv) + op.e[i];
+        if (stores && j == 0) *hout(t, i) = hc[i];
+      }
     }
   }
   return acc;

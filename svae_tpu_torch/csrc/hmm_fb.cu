@@ -50,6 +50,16 @@
 // kernel's on the packed LT + lo. Streams keep the lane innermost
 // ((T-1, K*K, B) and (T-1, K, B)); T and B are runtime arguments, K a
 // template parameter, so the loops unroll.
+//
+// K > 32: a chain's states outnumber a warp's lanes. hmm_fb_fwd_rt_kernel
+// and hmm_fb_stat_fwd_rt_kernel (K a runtime argument) run one chain a
+// block of kHmmBlock threads, thread i owning states i, i + kHmmBlock, ...,
+// with the carry's K values in shared memory, two buffers and one barrier
+// a step. A state's logsumexp keeps lse's op order (the max, then the sum
+// in index order), and the stationary kernel forms each element as lt + lo
+// before adding the carry, so the two stay bitwise alike on M = LT + lo.
+// The elements are read from global memory as the step needs them: a ring
+// of a step's K^2 elements (16 KB at K = 64) is not kept.
 
 #include "estep_common.cuh"
 
@@ -224,6 +234,100 @@ hmm_fb_stat_fwd_kernel(int B, int T1, const float* __restrict__ a0,
       });
 }
 
+// The runtime-K kernels' block: one chain, a state or more a thread.
+constexpr int kHmmBlock = 128;
+
+// The T1 steps of the chain of block blockIdx.x (alpha chain b < B, beta
+// chain B + b) for K > 32: elem(t, k, j) gives the k-th element of state j
+// at step t (M_t(k, j) for alpha, M_t(j, k) for beta). Each state's
+// logsumexp is lse's: the max of the K terms, then the sum of their expf
+// in index order. Outputs as chain_steps'.
+template <class Elem>
+__device__ __forceinline__ void chain_steps_rt(int K, int B, int T1,
+                                               const float* __restrict__ a0,
+                                               float* __restrict__ alpha,
+                                               float* __restrict__ beta,
+                                               Elem elem) {
+  extern __shared__ float carry[];  // two buffers of K
+  const bool fwd = (int)blockIdx.x < B;
+  const int b = fwd ? blockIdx.x : blockIdx.x - B;
+  const long long KB = (long long)K * B;
+  for (int j = threadIdx.x; j < K; j += blockDim.x)
+    carry[j] = fwd ? a0[(long long)j * B + b] : 0.f;
+  __syncthreads();
+  for (int s = 0; s < T1; ++s) {
+    const int t = fwd ? s : T1 - 1 - s;
+    const float* c = carry + (s & 1) * K;
+    float* cn = carry + ((s + 1) & 1) * K;
+    float* out = (fwd ? alpha : beta) + t * KB + b;
+    for (int j = threadIdx.x; j < K; j += blockDim.x) {
+      auto term = [&](int k) {
+        const float m = elem(t, k, j);
+        return fwd ? c[k] + m : m + c[k];
+      };
+      float mx = term(0);
+      for (int k = 1; k < K; ++k) mx = fmaxf(mx, term(k));
+      float sum = 0.f;
+      for (int k = 0; k < K; ++k) sum += expf(term(k) - mx);
+      const float v = logf(sum) + mx;
+      cn[j] = v;
+      out[(long long)j * B] = v;
+    }
+    // (one barrier a step: the buffer written here was last read a step
+    // ago, before every thread passed the last barrier)
+    __syncthreads();
+  }
+}
+
+// hmm_fb_fwd_kernel for K > 32, one chain a block. Layouts as there.
+__global__ void __launch_bounds__(kHmmBlock)
+hmm_fb_fwd_rt_kernel(int K, int B, int T1, const float* __restrict__ a0,
+                     const float* __restrict__ M, float* __restrict__ alpha,
+                     float* __restrict__ beta) {
+  const bool fwd = (int)blockIdx.x < B;
+  const int b = fwd ? blockIdx.x : blockIdx.x - B;
+  const long long KB = (long long)K * B, KKB = KB * K;
+  chain_steps_rt(K, B, T1, a0, alpha, beta, [&](int t, int k, int j) {
+    const int e = fwd ? k * K + j : j * K + k;
+    return M[t * KKB + (long long)e * B + b];
+  });
+}
+
+// hmm_fb_stat_fwd_kernel for K > 32, one chain a block: the element
+// LT(k, j) + lo_t(j) for alpha, LT(j, k) + lo_t(k) for beta.
+__global__ void __launch_bounds__(kHmmBlock)
+hmm_fb_stat_fwd_rt_kernel(int K, int B, int T1, const float* __restrict__ a0,
+                          const float* __restrict__ LT,
+                          const float* __restrict__ lo,
+                          float* __restrict__ alpha,
+                          float* __restrict__ beta) {
+  const bool fwd = (int)blockIdx.x < B;
+  const int b = fwd ? blockIdx.x : blockIdx.x - B;
+  const long long KB = (long long)K * B;
+  chain_steps_rt(K, B, T1, a0, alpha, beta, [&](int t, int k, int j) {
+    const float lt = LT[fwd ? k * K + j : j * K + k];
+    return lt + lo[t * KB + (long long)(fwd ? j : k) * B + b];
+  });
+}
+
+// The runtime-K kernels' launches: 2B blocks, two buffers of K floats of
+// dynamic shared memory.
+inline int launch_fwd_rt(int K, int B, int T1, const float* a0,
+                         const float* M, float* alpha, float* beta,
+                         cudaStream_t st) {
+  hmm_fb_fwd_rt_kernel<<<2 * B, kHmmBlock, 2 * K * sizeof(float), st>>>(
+      K, B, T1, a0, M, alpha, beta);
+  return (int)cudaGetLastError();
+}
+
+inline int launch_stat_fwd_rt(int K, int B, int T1, const float* a0,
+                              const float* LT, const float* lo, float* alpha,
+                              float* beta, cudaStream_t st) {
+  hmm_fb_stat_fwd_rt_kernel<<<2 * B, kHmmBlock, 2 * K * sizeof(float), st>>>(
+      K, B, T1, a0, LT, lo, alpha, beta);
+  return (int)cudaGetLastError();
+}
+
 // The kernels' blocks: 2B chains of segment_lanes(K) lanes.
 template <int K>
 inline dim3 segment_grid(int B) {
@@ -233,8 +337,9 @@ inline dim3 segment_grid(int B) {
 }  // namespace
 
 // Plain C entries for ctypes. Each returns cudaGetLastError() after the
-// launch (0 on success); an unsupported K returns cudaErrorInvalidValue.
-#define SVAE_HMM_SWITCH(CASE)            \
+// launch (0 on success): K <= 32 an instance each, K > 32 the runtime-K
+// kernels; K < 1 returns cudaErrorInvalidValue.
+#define SVAE_HMM_SWITCH(CASE, WIDE)      \
   switch (K) {                           \
     CASE(1)                              \
     CASE(2)                              \
@@ -269,6 +374,7 @@ inline dim3 segment_grid(int B) {
     CASE(31)                             \
     CASE(32)                             \
     default:                             \
+      if (K > 32) WIDE                   \
       return (int)cudaErrorInvalidValue; \
   }
 
@@ -281,7 +387,8 @@ extern "C" int svae_hmm_fb_fwd_f32(int K, int B, int T1, const float* a0,
     hmm_fb_fwd_kernel<KS><<<segment_grid<KS>(B), kThreads, 0, st>>>( \
         B, T1, a0, M, alpha, beta);                                  \
     return (int)cudaGetLastError();
-  SVAE_HMM_SWITCH(SVAE_CASE)
+  SVAE_HMM_SWITCH(SVAE_CASE,
+                  return launch_fwd_rt(K, B, T1, a0, M, alpha, beta, st);)
 #undef SVAE_CASE
 }
 
@@ -295,6 +402,8 @@ extern "C" int svae_hmm_fb_stat_fwd_f32(int K, int B, int T1,
     hmm_fb_stat_fwd_kernel<KS><<<segment_grid<KS>(B), kThreads, 0, st>>>( \
         B, T1, a0, LT, lo, alpha, beta);                                  \
     return (int)cudaGetLastError();
-  SVAE_HMM_SWITCH(SVAE_CASE)
+  SVAE_HMM_SWITCH(
+      SVAE_CASE,
+      return launch_stat_fwd_rt(K, B, T1, a0, LT, lo, alpha, beta, st);)
 #undef SVAE_CASE
 }

@@ -64,6 +64,15 @@
 // as the caller's scratch. No two threads write one address and there are
 // no atomics. T and B are runtime arguments, K a template parameter;
 // streams keep the lane innermost.
+//
+// K > 32 (K a runtime argument): the weight, dM and sums passes run their
+// bodies with K's bounds read at run time (the sums pass's body,
+// stat_adj_sums, is shared with the K <= 32 instances). The chain pass,
+// hmm_fb_adj_chain_rt_kernel, runs one chain a block of kHmmAdjBlock
+// threads, thread i owning states i, i + kHmmAdjBlock, ...: a step puts
+// g_t (h_t) in shared memory, one barrier, and each state's new carry is
+// its K products in the index order of the warp kernel. The weights are
+// read from global memory as the step needs them (no ring).
 
 #include "adj_passes.cuh"
 
@@ -239,15 +248,14 @@ hmm_fb_adj_dM_kernel(int B, int T1, const float* __restrict__ W,
 // index order of the chain pass's carry. Inputs: W, V (T1, K*K, B) from
 // the weight pass, g, h (T1, K, B) from the chain pass. Outputs: dlo (T1,
 // K, B) and dLT (K, K).
-template <int K>
-__global__ void __launch_bounds__(kSumThreads)
-hmm_fb_stat_adj_sums_kernel(int B, int T1, const float* __restrict__ W,
-                            const float* __restrict__ V,
-                            const float* __restrict__ g,
-                            const float* __restrict__ h,
-                            float* __restrict__ dlo,
-                            float* __restrict__ dLT) {
-  constexpr int KK = K * K;
+__device__ __forceinline__ void stat_adj_sums(int K, int B, int T1,
+                                              const float* __restrict__ W,
+                                              const float* __restrict__ V,
+                                              const float* __restrict__ g,
+                                              const float* __restrict__ h,
+                                              float* __restrict__ dlo,
+                                              float* __restrict__ dLT) {
+  const int KK = K * K;
   const long long KB = (long long)K * B, KKB = KB * K;
   const int tid = threadIdx.x;
   if (blockIdx.x < KK) {
@@ -284,6 +292,146 @@ hmm_fb_stat_adj_sums_kernel(int B, int T1, const float* __restrict__ W,
   for (int i = 0; i < K; ++i)
     n += h[vec + (long long)i * B] * V[at + (long long)i * K * B];
   dlo[idx] = g[idx] + n;
+}
+
+template <int K>
+__global__ void __launch_bounds__(kSumThreads)
+hmm_fb_stat_adj_sums_kernel(int B, int T1, const float* __restrict__ W,
+                            const float* __restrict__ V,
+                            const float* __restrict__ g,
+                            const float* __restrict__ h,
+                            float* __restrict__ dlo,
+                            float* __restrict__ dLT) {
+  stat_adj_sums(K, B, T1, W, V, g, h, dlo, dLT);
+}
+
+// The passes for K > 32 (K a runtime argument): adj_weights and
+// hmm_fb_adj_dM_kernel's bodies with K's bounds read at run time (kept
+// apart, so that the K <= 32 instances compile as they did).
+template <class Elem>
+__device__ __forceinline__ void adj_weights_rt(int K, int B, int T1,
+                                               const float* __restrict__ a0,
+                                               const float* __restrict__ alpha,
+                                               const float* __restrict__ beta,
+                                               float* __restrict__ W,
+                                               float* __restrict__ V,
+                                               Elem elem) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)T1 * K * K * B) return;
+  const int b = (int)(idx % B);
+  const size_t r = idx / B;
+  const int e = (int)(r % (K * K)), t = (int)(r / (K * K));
+  const int i = e / K, j = e - i * K;
+  const size_t vec = (size_t)t * K * B + b;
+  const float m = elem(idx, t, i, j, b);
+  const float p = t > 0 ? alpha[vec - (size_t)K * B + (size_t)i * B]
+                        : a0[(size_t)i * B + b];
+  W[idx] = expf(p + m - alpha[vec + (size_t)j * B]);
+  const float q = t < T1 - 1 ? beta[vec + (size_t)(K + j) * B] : 0.f;
+  V[idx] = expf(m + q - beta[vec + (size_t)i * B]);
+}
+
+__global__ void __launch_bounds__(kPassThreads)
+hmm_fb_adj_weights_rt_kernel(int K, int B, int T1,
+                             const float* __restrict__ a0,
+                             const float* __restrict__ M,
+                             const float* __restrict__ alpha,
+                             const float* __restrict__ beta,
+                             float* __restrict__ W, float* __restrict__ V) {
+  adj_weights_rt(K, B, T1, a0, alpha, beta, W, V,
+                 [&](size_t idx, int, int, int, int) { return M[idx]; });
+}
+
+__global__ void __launch_bounds__(kPassThreads)
+hmm_fb_stat_adj_weights_rt_kernel(int K, int B, int T1,
+                                  const float* __restrict__ a0,
+                                  const float* __restrict__ LT,
+                                  const float* __restrict__ lo,
+                                  const float* __restrict__ alpha,
+                                  const float* __restrict__ beta,
+                                  float* __restrict__ W,
+                                  float* __restrict__ V) {
+  adj_weights_rt(K, B, T1, a0, alpha, beta, W, V,
+                 [&](size_t, int t, int i, int j, int b) {
+                   return LT[i * K + j] + lo[((size_t)t * K + j) * B + b];
+                 });
+}
+
+__global__ void __launch_bounds__(kPassThreads)
+hmm_fb_adj_dM_rt_kernel(int K, int B, int T1, const float* __restrict__ W,
+                        const float* __restrict__ V,
+                        const float* __restrict__ g,
+                        const float* __restrict__ h, float* __restrict__ dM) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)T1 * K * K * B) return;
+  const int b = (int)(idx % B);
+  const size_t r = idx / B;
+  const int e = (int)(r % (K * K)), t = (int)(r / (K * K));
+  const int i = e / K, j = e - i * K;
+  const size_t vec = (size_t)t * K * B + b;
+  dM[idx] = g[vec + (size_t)j * B] * W[idx] + h[vec + (size_t)i * B] * V[idx];
+}
+
+__global__ void __launch_bounds__(kSumThreads)
+hmm_fb_stat_adj_sums_rt_kernel(int K, int B, int T1,
+                               const float* __restrict__ W,
+                               const float* __restrict__ V,
+                               const float* __restrict__ g,
+                               const float* __restrict__ h,
+                               float* __restrict__ dlo,
+                               float* __restrict__ dLT) {
+  stat_adj_sums(K, B, T1, W, V, g, h, dlo, dLT);
+}
+
+// The runtime-K chain pass's block: one chain, a state or more a thread.
+constexpr int kHmmAdjBlock = 128;
+
+// hmm_fb_adj_chain_kernel for K > 32: chain blockIdx.x (alpha chain b < B,
+// descending t; beta chain B + b, ascending), thread i owning states i,
+// i + kHmmAdjBlock, .... Dynamic shared memory: the step's g_t (h_t) in two
+// buffers of K and the carried cotangent's K values (each read and
+// written by its owner only). Inputs and outputs as the warp kernel's.
+__global__ void __launch_bounds__(kHmmAdjBlock)
+hmm_fb_adj_chain_rt_kernel(int K, int B, int T1, const float* __restrict__ W,
+                           const float* __restrict__ V,
+                           const float* __restrict__ dalpha,
+                           const float* __restrict__ dbeta,
+                           float* __restrict__ g, float* __restrict__ h,
+                           float* __restrict__ da0) {
+  extern __shared__ float sbuf[];  // [2][K] g_t, then [K] the carry
+  float* carry = sbuf + 2 * K;
+  const bool fwd = (int)blockIdx.x < B;
+  const int b = fwd ? blockIdx.x : blockIdx.x - B;
+  const long long KB = (long long)K * B, KKB = KB * K;
+  // the weights of state i at step t: row i of W_t (alpha), column i of
+  // V_t (beta), k-th at X + t * KKB + (i*K + k or k*K + i) * B + b
+  const float* X = fwd ? W : V;
+  const float* dX = fwd ? dalpha : dbeta;
+  float* out = fwd ? g : h;
+  for (int i = threadIdx.x; i < K; i += blockDim.x) carry[i] = 0.f;
+  for (int s = 0; s < T1; ++s) {
+    const long long t = fwd ? T1 - 1 - s : s;
+    float* gs = sbuf + (s & 1) * K;
+    for (int i = threadIdx.x; i < K; i += blockDim.x) {
+      const long long at = t * KB + (long long)i * B + b;
+      const float gi = carry[i] + dX[at];
+      out[at] = gi;
+      gs[i] = gi;
+    }
+    // (one barrier a step: the buffer written here was last read a step
+    // ago, before every thread passed the last barrier)
+    __syncthreads();
+    for (int i = threadIdx.x; i < K; i += blockDim.x) {
+      const float* x = X + t * KKB + b;
+      float n = 0.f;
+      for (int k = 0; k < K; ++k)
+        n += gs[k] * x[(long long)(fwd ? i * K + k : k * K + i) * B];
+      carry[i] = n;
+    }
+  }
+  if (fwd)
+    for (int i = threadIdx.x; i < K; i += blockDim.x)
+      da0[(long long)i * B + b] = carry[i];
 }
 
 
@@ -371,16 +519,100 @@ int launch_adj(int B, int T1, const float* a0, const float* M,
   return launch_dM<K>(B, T1, W, V, g, h, dM, st);
 }
 
+// The passes for K > 32: the weight and dM passes over (T-1) K^2 B
+// threads, the chain pass 2B blocks, the sums pass K^2 dLT blocks and the
+// dlo blocks.
+inline unsigned pass_blocks(int K, int B, int T1) {
+  const size_t n = (size_t)T1 * K * K * B;
+  return (unsigned)((n + kPassThreads - 1) / kPassThreads);
+}
+
+inline int launch_weights_rt(int K, int B, int T1, const float* a0,
+                             const float* M, const float* alpha,
+                             const float* beta, float* W, float* V,
+                             cudaStream_t st) {
+  hmm_fb_adj_weights_rt_kernel<<<pass_blocks(K, B, T1), kPassThreads, 0,
+                                 st>>>(K, B, T1, a0, M, alpha, beta, W, V);
+  return (int)cudaGetLastError();
+}
+
+inline int launch_stat_weights_rt(int K, int B, int T1, const float* a0,
+                                  const float* LT, const float* lo,
+                                  const float* alpha, const float* beta,
+                                  float* W, float* V, cudaStream_t st) {
+  hmm_fb_stat_adj_weights_rt_kernel<<<pass_blocks(K, B, T1), kPassThreads,
+                                      0, st>>>(K, B, T1, a0, LT, lo, alpha,
+                                               beta, W, V);
+  return (int)cudaGetLastError();
+}
+
+inline int launch_chain_rt(int K, int B, int T1, const float* W,
+                           const float* V, const float* dalpha,
+                           const float* dbeta, float* g, float* h,
+                           float* da0, cudaStream_t st) {
+  hmm_fb_adj_chain_rt_kernel<<<2 * B, kHmmAdjBlock, 3 * K * sizeof(float),
+                               st>>>(K, B, T1, W, V, dalpha, dbeta, g, h,
+                                     da0);
+  return (int)cudaGetLastError();
+}
+
+inline int launch_dM_rt(int K, int B, int T1, const float* W, const float* V,
+                        const float* g, const float* h, float* dM,
+                        cudaStream_t st) {
+  hmm_fb_adj_dM_rt_kernel<<<pass_blocks(K, B, T1), kPassThreads, 0, st>>>(
+      K, B, T1, W, V, g, h, dM);
+  return (int)cudaGetLastError();
+}
+
+inline int launch_sums_rt(int K, int B, int T1, const float* W,
+                          const float* V, const float* g, const float* h,
+                          float* dlo, float* dLT, cudaStream_t st) {
+  const long long n = (long long)T1 * K * B;
+  const unsigned blocks =
+      (unsigned)(K * K + (n + kSumThreads - 1) / kSumThreads);
+  hmm_fb_stat_adj_sums_rt_kernel<<<blocks, kSumThreads, 0, st>>>(
+      K, B, T1, W, V, g, h, dlo, dLT);
+  return (int)cudaGetLastError();
+}
+
+inline int launch_adj_rt(int K, int B, int T1, const float* a0,
+                         const float* M, const float* alpha,
+                         const float* beta, const float* dalpha,
+                         const float* dbeta, float* W, float* V, float* g,
+                         float* h, float* dM, float* da0, cudaStream_t st) {
+  int err = launch_weights_rt(K, B, T1, a0, M, alpha, beta, W, V, st);
+  if (err) return err;
+  err = launch_chain_rt(K, B, T1, W, V, dalpha, dbeta, g, h, da0, st);
+  if (err) return err;
+  return launch_dM_rt(K, B, T1, W, V, g, h, dM, st);
+}
+
+inline int launch_stat_adj_rt(int K, int B, int T1, const float* a0,
+                              const float* LT, const float* lo,
+                              const float* alpha, const float* beta,
+                              const float* dalpha, const float* dbeta,
+                              float* W, float* V, float* g, float* h,
+                              float* dlo, float* da0, float* dLT,
+                              cudaStream_t st) {
+  int err = launch_stat_weights_rt(K, B, T1, a0, LT, lo, alpha, beta, W, V,
+                                   st);
+  if (err) return err;
+  err = launch_chain_rt(K, B, T1, W, V, dalpha, dbeta, g, h, da0, st);
+  if (err) return err;
+  return launch_sums_rt(K, B, T1, W, V, g, h, dlo, dLT, st);
+}
+
 }  // namespace
 
 // Plain C entries for ctypes. Each returns cudaGetLastError() after its
-// launches (0 on success); an unsupported K returns cudaErrorInvalidValue.
+// launches (0 on success): K <= 32 an instance each, K > 32 the runtime-K
+// kernels; K < 1 returns cudaErrorInvalidValue.
 // T1 is the number of steps (T-1). svae_hmm_fb_adj_f32 runs the three
 // passes (W, V (T-1, K*K, B) and g, h (T-1, K, B) are its scratch); the
 // next three run one each. svae_hmm_fb_stat_adj_f32 runs the stationary
 // adjoint's three (the same scratch); the two after it run its weight and
 // sums passes alone (its chain pass is svae_hmm_fb_adj_chain_f32).
-#define SVAE_HMM_SWITCH(CASE)            \
+#define SVAE_HMM_SWITCH(CASE, WIDE)      \
   switch (K) {                           \
     CASE(1)                              \
     CASE(2)                              \
@@ -415,6 +647,7 @@ int launch_adj(int B, int T1, const float* a0, const float* M,
     CASE(31)                             \
     CASE(32)                             \
     default:                             \
+      if (K > 32) WIDE                   \
       return (int)cudaErrorInvalidValue; \
   }
 
@@ -429,7 +662,9 @@ extern "C" int svae_hmm_fb_adj_f32(int K, int B, int T1, const float* a0,
   case KS:                                                                 \
     return launch_adj<KS>(B, T1, a0, M, alpha, beta, dalpha, dbeta, W, V, \
                           g, h, dM, da0, st);
-  SVAE_HMM_SWITCH(SVAE_CASE)
+  SVAE_HMM_SWITCH(SVAE_CASE,
+                  return launch_adj_rt(K, B, T1, a0, M, alpha, beta, dalpha,
+                                       dbeta, W, V, g, h, dM, da0, st);)
 #undef SVAE_CASE
 }
 
@@ -442,7 +677,9 @@ extern "C" int svae_hmm_fb_adj_weights_f32(int K, int B, int T1,
 #define SVAE_CASE(KS) \
   case KS:            \
     return launch_weights<KS>(B, T1, a0, M, alpha, beta, W, V, st);
-  SVAE_HMM_SWITCH(SVAE_CASE)
+  SVAE_HMM_SWITCH(
+      SVAE_CASE,
+      return launch_weights_rt(K, B, T1, a0, M, alpha, beta, W, V, st);)
 #undef SVAE_CASE
 }
 
@@ -455,7 +692,8 @@ extern "C" int svae_hmm_fb_adj_chain_f32(int K, int B, int T1,
 #define SVAE_CASE(KS) \
   case KS:            \
     return launch_chain<KS>(B, T1, W, V, dalpha, dbeta, g, h, da0, st);
-  SVAE_HMM_SWITCH(SVAE_CASE)
+  SVAE_HMM_SWITCH(SVAE_CASE, return launch_chain_rt(K, B, T1, W, V, dalpha,
+                                                    dbeta, g, h, da0, st);)
 #undef SVAE_CASE
 }
 
@@ -467,7 +705,8 @@ extern "C" int svae_hmm_fb_adj_dM_f32(int K, int B, int T1, const float* W,
 #define SVAE_CASE(KS) \
   case KS:            \
     return launch_dM<KS>(B, T1, W, V, g, h, dM, st);
-  SVAE_HMM_SWITCH(SVAE_CASE)
+  SVAE_HMM_SWITCH(SVAE_CASE,
+                  return launch_dM_rt(K, B, T1, W, V, g, h, dM, st);)
 #undef SVAE_CASE
 }
 
@@ -481,7 +720,10 @@ extern "C" int svae_hmm_fb_stat_adj_f32(
   case KS:                                                                  \
     return launch_stat_adj<KS>(B, T1, a0, LT, lo, alpha, beta, dalpha,     \
                                dbeta, W, V, g, h, dlo, da0, dLT, st);
-  SVAE_HMM_SWITCH(SVAE_CASE)
+  SVAE_HMM_SWITCH(SVAE_CASE,
+                  return launch_stat_adj_rt(K, B, T1, a0, LT, lo, alpha, beta,
+                                            dalpha, dbeta, W, V, g, h, dlo,
+                                            da0, dLT, st);)
 #undef SVAE_CASE
 }
 
@@ -496,7 +738,9 @@ extern "C" int svae_hmm_fb_stat_adj_weights_f32(int K, int B, int T1,
 #define SVAE_CASE(KS) \
   case KS:            \
     return launch_stat_weights<KS>(B, T1, a0, LT, lo, alpha, beta, W, V, st);
-  SVAE_HMM_SWITCH(SVAE_CASE)
+  SVAE_HMM_SWITCH(SVAE_CASE,
+                  return launch_stat_weights_rt(K, B, T1, a0, LT, lo, alpha,
+                                                beta, W, V, st);)
 #undef SVAE_CASE
 }
 
@@ -509,6 +753,7 @@ extern "C" int svae_hmm_fb_stat_adj_sums_f32(int K, int B, int T1,
 #define SVAE_CASE(KS) \
   case KS:            \
     return launch_sums<KS>(B, T1, W, V, g, h, dlo, dLT, st);
-  SVAE_HMM_SWITCH(SVAE_CASE)
+  SVAE_HMM_SWITCH(SVAE_CASE,
+                  return launch_sums_rt(K, B, T1, W, V, g, h, dlo, dLT, st);)
 #undef SVAE_CASE
 }

@@ -62,8 +62,9 @@ constexpr int kSharedRing = 4;
 
 // One step of the ring: the step's pair rows, read by every chain of the
 // block, and each chain's node entries: lane j < d copies column j of N1
-// to n[c][.][j], the vector lane N2 to n[c][.][d], and a lane reads its
-// row of N1 from the other lanes' columns.
+// to n[c][.][j], the vector lane N2 to n[c][.][d] (lane 0 at d = 32, where
+// no lane is left), and a lane reads its row of N1 from the other lanes'
+// columns.
 template <int D>
 struct __align__(16) SharedSlot {
   static constexpr int DP = (D + 3) & ~3;  // the D tile's row stride
@@ -94,7 +95,10 @@ __device__ __forceinline__ void shared_filter(
     float* __restrict__ Jout, float* __restrict__ hout,
     float* __restrict__ ln) {
   using Slot = SharedSlot<D>;
-  constexpr int DD = D * D, DP = Slot::DP, R = kSharedRing;
+  constexpr bool kWide = kWideChain<D>;
+  // d = 32: a ring of 2 slots (33 KB), under the 48 KB of static shared
+  // memory
+  constexpr int DD = D * D, DP = Slot::DP, R = kWide ? 2 : kSharedRing;
   constexpr int NT = 32 * kSharedChains;  // the block's threads
   static_assert(R >= 2, "the ring holds the step read and one in flight");
   __shared__ Slot ring[R];
@@ -122,6 +126,10 @@ __device__ __forceinline__ void shared_filter(
   const float* nlast = (vec ? N2 : N1 + (long long)jc * B) + b +
                        (kBack ? 0 : (T1 - 1) * nstep);
   const long long nstride = vec ? (long long)B : (long long)D * B;
+  // d = 32: N2's column, which lane 0 copies beside its own, stepping with
+  // nsrc
+  const float* n2src =
+      N2 + b + (kBack ? (T1 - 1) * (long long)D * B : 0);
   int u = 0;  // the slot the next copies go to
   auto load = [&]() {
     Slot& sl = ring[u];
@@ -142,6 +150,14 @@ __device__ __forceinline__ void shared_filter(
       for (int i = 0; i < D; ++i)
         cp_async4(&sl.n[w][i][j], nsrc + i * nstride);
     }
+    if constexpr (kWide) {
+      if (j == 0) {
+#pragma unroll
+        for (int i = 0; i < D; ++i)
+          cp_async4(&sl.n[w][i][D], n2src + (long long)i * B);
+      }
+      n2src = nsrc == nlast ? n2src : n2src + dir * (long long)D * B;
+    }
     cp_async_commit();
     r = r == rlast ? r : r + dir;
     nsrc = nsrc == nlast ? nsrc : nsrc + dir * nstep;
@@ -154,11 +170,13 @@ __device__ __forceinline__ void shared_filter(
 
   // lane j < D: column j of the carried J; lane D: the carried h (the
   // backward starts from the zero message)
-  float cj[D];
+  float cj[D], hc[kWide ? D : 1];  // d = 32: the carried h on every lane
 #pragma unroll
-  for (int i = 0; i < D; ++i)
+  for (int i = 0; i < D; ++i) {
     cj[i] = kBack ? 0.f
                   : vec ? h0[(size_t)i * B + b] : J0[(size_t)lo(i) * B + b];
+    if constexpr (kWide) hc[i] = kBack ? 0.f : h0[(size_t)i * B + b];
+  }
 
   // the reader: wait for step s's copies, one barrier (every thread's
   // copies land, and every thread is done with step s-1's slot), the
@@ -183,17 +201,28 @@ __device__ __forceinline__ void shared_filter(
                      : kBack ? -2.f * cr : -2.f * (cr + nr);
     }
     op.pc = kBack ? 0.f : sl.pc;
+    if constexpr (kWide) {
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        op.f[i] = kBack ? n[i][D] : 0.f;
+        op.e[i] = kBack ? 0.f : n[i][D];
+      }
+    }
     return sl.Dt;
   };
   auto out = [&](int s) {
     const size_t t = kBack ? T1 - 1 - s : s;
     return vec ? hout + t * D * B + b : Jout + t * DD * B + (size_t)jc * B + b;
   };
+  auto hout_at = [&](int s, int i) {
+    const size_t t = kBack ? T1 - 1 - s : s;
+    return hout + (t * D + i) * B + b;
+  };
   const double acc = filter_chain<D, DP, !kBack>(
-      T1, j, cj, step, out, vec ? (size_t)B : (size_t)D * B,
+      T1, j, cj, hc, step, out, hout_at, vec ? (size_t)B : (size_t)D * B,
       live && j <= D);
   cp_async_wait<0>();
-  if (!kBack && live && vec) ln[b] = (float)acc;
+  if (!kBack && live && (vec || (kWide && j == 0))) ln[b] = (float)acc;
 }
 
 // The forward information filter: per step t (the pair row t, the node
@@ -259,7 +288,7 @@ int launch_backward_shared(int B, int T1, const float* P1, const float* P2,
 
 // Plain C entries for ctypes. Each returns cudaGetLastError() after the
 // launch (0 on success); an unsupported d returns cudaErrorInvalidValue.
-extern "C" int svae_filter_shared_f32(int d, int B, int T1, const float* J0,
+extern "C" int SVAE_ENTRY(svae_filter_shared_f32)(int d, int B, int T1, const float* J0,
                                       const float* h0, const float* P1,
                                       const float* P2, const float* P3,
                                       const float* Pc, const float* N1,
@@ -271,18 +300,13 @@ extern "C" int svae_filter_shared_f32(int d, int B, int T1, const float* J0,
     return launch_filter_shared<DIM>(B, T1, J0, h0, P1, P2, P3, Pc, N1, \
                                      N2, J, h, ln, s);
   switch (d) {
-    SVAE_FILTER_SHARED(2)
-    SVAE_FILTER_SHARED(3)
-    SVAE_FILTER_SHARED(4)
-    SVAE_FILTER_SHARED(8)
-    SVAE_FILTER_SHARED(10)
-    SVAE_FILTER_SHARED(16)
+    SVAE_BUILT_DIMS(SVAE_FILTER_SHARED)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_FILTER_SHARED
 }
 
-extern "C" int svae_backward_shared_f32(int d, int B, int T1,
+extern "C" int SVAE_ENTRY(svae_backward_shared_f32)(int d, int B, int T1,
                                         const float* P1, const float* P2,
                                         const float* P3, const float* N1,
                                         const float* N2, float* J, float* h,
@@ -292,12 +316,7 @@ extern "C" int svae_backward_shared_f32(int d, int B, int T1,
   case DIM:                                                                  \
     return launch_backward_shared<DIM>(B, T1, P1, P2, P3, N1, N2, J, h, s);
   switch (d) {
-    SVAE_BACKWARD_SHARED(2)
-    SVAE_BACKWARD_SHARED(3)
-    SVAE_BACKWARD_SHARED(4)
-    SVAE_BACKWARD_SHARED(8)
-    SVAE_BACKWARD_SHARED(10)
-    SVAE_BACKWARD_SHARED(16)
+    SVAE_BUILT_DIMS(SVAE_BACKWARD_SHARED)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_BACKWARD_SHARED

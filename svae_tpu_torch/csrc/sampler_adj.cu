@@ -191,9 +191,9 @@ sampler_adj_dJc_kernel(int B, int SB, int T1, const float* __restrict__ P2,
   const int b = lane % B;
   const float* Jt = Jf + (size_t)t * DD * B;
   float L[D][D], rd[D];
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int i = 0; i < D; ++i) {
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int j = 0; j <= i; ++j)
       L[i][j] = Jt[(i * D + j) * B + b] - s2P3[i * D + j];
   }
@@ -201,10 +201,10 @@ sampler_adj_dJc_kernel(int B, int SB, int T1, const float* __restrict__ P2,
 
   // mu = Jc^-1 (hf + P2^T x_{t+1}), u = L^T b-bar
   float bv[D], y[D], mu[D], bb[D], u[D];
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int i = 0; i < D; ++i) {
     float s = hf[((size_t)t * D + i) * B + b];
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int k = 0; k < D; ++k)
       s += sP2[k * D + i] * (t + 1 < T1
                                  ? x[((size_t)(t + 1) * D + k) * SB + lane]
@@ -214,10 +214,10 @@ sampler_adj_dJc_kernel(int B, int SB, int T1, const float* __restrict__ P2,
   }
   solve_lower<D>(L, rd, bv, y);
   solve_upper<D>(L, rd, y, mu);
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int i = 0; i < D; ++i) {
     float s = 0.f;
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int k = i; k < D; ++k) s += L[k][i] * bb[k];
     u[i] = s;
   }
@@ -228,33 +228,33 @@ sampler_adj_dJc_kernel(int B, int SB, int T1, const float* __restrict__ P2,
   // S += Linv[i][:]^T y_i.
   invert_lower<D>(L, rd);
   float Sl[D][D], q[D];
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int m = 0; m < D; ++m) {
     q[m] = 0.f;
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int k = 0; k <= m; ++k) Sl[m][k] = 0.f;
   }
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int i = 0; i < D; ++i) {
     const float c = eps[((size_t)t * D + i) * SB + lane];
     float yr[D];
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int k = 0; k < D; ++k)
       yr[k] = -c * (q[k] + (k <= i ? 0.5f * u[i] * L[i][k] : 0.f));
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int m = 0; m <= i; ++m) {
-#pragma unroll
+SVAE_PASS_UNROLL
       for (int k = 0; k <= m; ++k)
         Sl[m][k] += 0.5f * (L[i][m] * yr[k] + L[i][k] * yr[m]);
     }
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int k = 0; k <= i; ++k) q[k] += u[i] * L[i][k];
   }
 
   float* dJt = dJc + (size_t)t * DD * SB;
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int m = 0; m < D; ++m) {
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int k = 0; k <= m; ++k) {
       const float v = Sl[m][k] - 0.5f * (bb[m] * mu[k] + mu[m] * bb[k]);
       dJt[(m * D + k) * SB + lane] = v;
@@ -310,13 +310,11 @@ int launch_sampler_adj(int B, int SB, int T1, const float* P2,
 
 }  // namespace
 
-#define SVAE_DIMS(CASE) CASE(2) CASE(3) CASE(4) CASE(8) CASE(10) CASE(16)
-
 // Plain C entries for ctypes; each returns cudaGetLastError() after its
 // launches (0 on success), cudaErrorInvalidValue for an unsupported d.
 // T is the sampler's T (T-1 steps). svae_sampler_adj_f32 runs the three
 // passes (W is its scratch, (T-1, d*d, B)); the other three run one each.
-extern "C" int svae_sampler_adj_f32(int d, int B, int S, int T,
+extern "C" int SVAE_ENTRY(svae_sampler_adj_f32)(int d, int B, int S, int T,
                                     const float* P2, const float* P3,
                                     const float* Jf, const float* hf,
                                     const float* eps, const float* xT,
@@ -329,13 +327,13 @@ extern "C" int svae_sampler_adj_f32(int d, int B, int S, int T,
     return launch_sampler_adj<DIM>(B, S * B, T - 1, P2, P3, Jf, hf, eps, xT, \
                                    x, dx, W, dJc, dhf, dxT, dP2, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
 
-extern "C" int svae_sampler_adj_factor_f32(int d, int B, int T,
+extern "C" int SVAE_ENTRY(svae_sampler_adj_factor_f32)(int d, int B, int T,
                                            const float* P3, const float* Jf,
                                            float* W, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -343,13 +341,13 @@ extern "C" int svae_sampler_adj_factor_f32(int d, int B, int T,
   case DIM:            \
     return launch_factor<DIM>(B, T - 1, P3, Jf, W, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
 
-extern "C" int svae_sampler_adj_chain_f32(int d, int B, int S, int T,
+extern "C" int SVAE_ENTRY(svae_sampler_adj_chain_f32)(int d, int B, int S, int T,
                                           const float* W, const float* P2,
                                           const float* xT, const float* x,
                                           const float* dx, float* dhf,
@@ -361,13 +359,13 @@ extern "C" int svae_sampler_adj_chain_f32(int d, int B, int S, int T,
     return launch_chain<DIM>(B, S * B, T - 1, W, P2, xT, x, dx, dhf, dxT, \
                              dP2, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
 
-extern "C" int svae_sampler_adj_dJc_f32(int d, int B, int S, int T,
+extern "C" int SVAE_ENTRY(svae_sampler_adj_dJc_f32)(int d, int B, int S, int T,
                                         const float* P2, const float* P3,
                                         const float* Jf, const float* hf,
                                         const float* eps, const float* xT,
@@ -379,9 +377,8 @@ extern "C" int svae_sampler_adj_dJc_f32(int d, int B, int S, int T,
     return launch_dJc<DIM>(B, S * B, T - 1, P2, P3, Jf, hf, eps, xT, x,  \
                            dhf, dJc, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
-#undef SVAE_DIMS

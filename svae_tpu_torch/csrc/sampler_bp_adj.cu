@@ -154,13 +154,19 @@ sampler_bp_adj_chain_kernel(int B, int SB, int T1, const float* __restrict__ W,
 // leaves a sample's loads the registers.
 constexpr int kDJcThreads = 64;
 
+// The dJc pass's block at d: kDJcThreads up to d = 16; 16 threads at
+// d = 32, whose accumulators (528 floats a thread) would take 135 KB a
+// block at 64.
+template <int D>
+constexpr int kDJcBlock = D <= 16 ? kDJcThreads : 16;
+
 // One thread per (step t, sequence b), b fastest, looping over the S
 // samples (lanes s*B + b). Inputs: P2, P3, Jf (T-1, d*d, B), hf (T-1, d,
 // B); eps (T-1, d, S*B); xT (d, S*B); the forward's output x (T-1, d, S*B);
 // bbar from the chain pass. Outputs, summed over the samples: dP2, dP3, dJf
 // (T-1, d*d, B) and dhf (T-1, d, B).
 template <int D>
-__global__ void __launch_bounds__(kDJcThreads)
+__global__ void __launch_bounds__(kDJcBlock<D>)
 sampler_bp_adj_dJc_kernel(int B, int S, int T1, const float* __restrict__ P2,
                           const float* __restrict__ P3,
                           const float* __restrict__ Jf,
@@ -173,11 +179,11 @@ sampler_bp_adj_dJc_kernel(int B, int S, int T1, const float* __restrict__ P2,
                           float* __restrict__ dJf, float* __restrict__ dhf) {
   constexpr int TRI = D * (D + 1) / 2;
   // Z = sum_s sym(P_s - u_s w_s^T), the lower triangle of this thread's
-  // at sZ[tri(m, k) * kDJcThreads + threadIdx.x] (the factor and a
+  // at sZ[tri(m, k) * kDJcBlock<D> + threadIdx.x] (the factor and a
   // sample's vectors take the registers)
-  __shared__ float sZ[TRI * kDJcThreads];
+  __shared__ float sZ[TRI * kDJcBlock<D>];
   float* Z = sZ + threadIdx.x;
-  auto zat = [](int m, int k) { return (m * (m + 1) / 2 + k) * kDJcThreads; };
+  auto zat = [](int m, int k) { return (m * (m + 1) / 2 + k) * kDJcBlock<D>; };
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= T1 * B) return;
   const int t = idx / B;
@@ -191,21 +197,21 @@ sampler_bp_adj_dJc_kernel(int B, int S, int T1, const float* __restrict__ P2,
   // step), stride SB between entries
   const float* xn = t + 1 < T1 ? x + (vt + D) * SB + b : xT + b;
 
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int m = 0; m < D; ++m) {
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int k = 0; k <= m; ++k) Z[zat(m, k)] = 0.f;
   }
   for (int s = 0; s < S; ++s) {
     const int lane = s * B + b;
     float xv[D], bv[D], w[D], bb[D], u[D], c[D];
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int k = 0; k < D; ++k) xv[k] = xn[(size_t)k * SB + s * B];
     // b = hf_t + P2_t^T x_{t+1}, w = L^-1 b
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int k = 0; k < D; ++k) {
       float v = hf[(vt + k) * B + b];
-#pragma unroll
+SVAE_PASS_UNROLL
       for (int m = 0; m < D; ++m) v += P2[at + (size_t)(m * D + k) * B] * xv[m];
       bv[k] = v;
       bb[k] = bbar[(vt + k) * SB + lane];
@@ -213,16 +219,16 @@ sampler_bp_adj_dJc_kernel(int B, int S, int T1, const float* __restrict__ P2,
     }
     solve_lower<D>(L, rd, bv, w);
     // u = L^T b-bar
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int k = 0; k < D; ++k) {
       float v = 0.f;
-#pragma unroll
+SVAE_PASS_UNROLL
       for (int m = k; m < D; ++m) v += L[m][k] * bb[m];
       u[k] = v;
     }
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int m = 0; m < D; ++m) {
-#pragma unroll
+SVAE_PASS_UNROLL
       for (int k = 0; k < m; ++k)
         Z[zat(m, k)] -= 0.5f * (c[m] * u[k] + u[m] * w[k] + u[k] * w[m]);
       Z[zat(m, m)] -= (0.5f * c[m] + w[m]) * u[m];
@@ -235,20 +241,20 @@ sampler_bp_adj_dJc_kernel(int B, int S, int T1, const float* __restrict__ P2,
   auto Zs = [&](int m, int k) {
     return Z[k <= m ? zat(m, k) : zat(k, m)];
   };
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int k = 0; k < D; ++k) {
     float y[D];
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int a = 0; a < D; ++a) {
       float v = 0.f;
-#pragma unroll
+SVAE_PASS_UNROLL
       for (int r = k; r < D; ++r) v += Zs(a, r) * L[r][k];
       y[a] = v;
     }
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int m = k; m < D; ++m) {
       float v = 0.f;
-#pragma unroll
+SVAE_PASS_UNROLL
       for (int a = m; a < D; ++a) v += L[a][m] * y[a];
       const size_t mk = at + (size_t)(m * D + k) * B;
       const size_t km = at + (size_t)(k * D + m) * B;
@@ -263,29 +269,29 @@ sampler_bp_adj_dJc_kernel(int B, int S, int T1, const float* __restrict__ P2,
 
   // dP2 = sum_s x_{t+1} b-bar^T, dhf = sum_s b-bar
   float G[D][D], h[D];
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int m = 0; m < D; ++m) {
     h[m] = 0.f;
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int k = 0; k < D; ++k) G[m][k] = 0.f;
   }
   for (int s = 0; s < S; ++s) {
     float xv[D], bb[D];
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int k = 0; k < D; ++k) {
       xv[k] = xn[(size_t)k * SB + s * B];
       bb[k] = bbar[(vt + k) * SB + s * B + b];
       h[k] += bb[k];
     }
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int m = 0; m < D; ++m) {
-#pragma unroll
+SVAE_PASS_UNROLL
       for (int k = 0; k < D; ++k) G[m][k] += xv[m] * bb[k];
     }
   }
-#pragma unroll
+SVAE_PASS_UNROLL
   for (int m = 0; m < D; ++m) {
-#pragma unroll
+SVAE_PASS_UNROLL
     for (int k = 0; k < D; ++k) dP2[at + (size_t)(m * D + k) * B] = G[m][k];
     dhf[(vt + m) * B + b] = h[m];
   }
@@ -318,7 +324,7 @@ int launch_dJc(int B, int S, int T1, const float* P2, const float* P3,
                cudaStream_t stream) {
   const int n = T1 * B;
   sampler_bp_adj_dJc_kernel<D>
-      <<<(n + kDJcThreads - 1) / kDJcThreads, kDJcThreads, 0, stream>>>(
+      <<<(n + kDJcBlock<D> - 1) / kDJcBlock<D>, kDJcBlock<D>, 0, stream>>>(
           B, S, T1, P2, P3, Jf, hf, eps, xT, x, bbar, dP2, dP3, dJf, dhf);
   return (int)cudaGetLastError();
 }
@@ -340,14 +346,12 @@ int launch_sampler_bp_adj(int B, int S, int T1, const float* P2,
 
 }  // namespace
 
-#define SVAE_DIMS(CASE) CASE(2) CASE(3) CASE(4) CASE(8) CASE(10) CASE(16)
-
 // Plain C entries for ctypes; each returns cudaGetLastError() after its
 // launches (0 on success), cudaErrorInvalidValue for an unsupported d. T1
 // is the number of steps (T-1). svae_sampler_bp_adj_f32 runs the three
 // passes (W (T-1, d*d, B) and bbar (T-1, d, S*B) are its scratch); the
 // other three run one each.
-extern "C" int svae_sampler_bp_adj_f32(int d, int B, int S, int T1,
+extern "C" int SVAE_ENTRY(svae_sampler_bp_adj_f32)(int d, int B, int S, int T1,
                                        const float* P2, const float* P3,
                                        const float* Jf, const float* hf,
                                        const float* eps, const float* xT,
@@ -362,13 +366,13 @@ extern "C" int svae_sampler_bp_adj_f32(int d, int B, int S, int T1,
                                       dx, W, bbar, dP2, dP3, dJf, dhf, dxT, \
                                       s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
 
-extern "C" int svae_sampler_bp_adj_factor_f32(int d, int B, int T1,
+extern "C" int SVAE_ENTRY(svae_sampler_bp_adj_factor_f32)(int d, int B, int T1,
                                               const float* P3,
                                               const float* Jf, float* W,
                                               void* stream) {
@@ -377,13 +381,13 @@ extern "C" int svae_sampler_bp_adj_factor_f32(int d, int B, int T1,
   case DIM:            \
     return launch_factor<DIM>(B, T1, P3, Jf, W, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
 
-extern "C" int svae_sampler_bp_adj_chain_f32(int d, int B, int S, int T1,
+extern "C" int SVAE_ENTRY(svae_sampler_bp_adj_chain_f32)(int d, int B, int S, int T1,
                                              const float* W, const float* P2,
                                              const float* dx, float* bbar,
                                              float* dxT, void* stream) {
@@ -392,13 +396,13 @@ extern "C" int svae_sampler_bp_adj_chain_f32(int d, int B, int S, int T1,
   case DIM:            \
     return launch_chain<DIM>(B, S * B, T1, W, P2, dx, bbar, dxT, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
 
-extern "C" int svae_sampler_bp_adj_dJc_f32(int d, int B, int S, int T1,
+extern "C" int SVAE_ENTRY(svae_sampler_bp_adj_dJc_f32)(int d, int B, int S, int T1,
                                            const float* P2, const float* P3,
                                            const float* Jf, const float* hf,
                                            const float* eps, const float* xT,
@@ -411,9 +415,8 @@ extern "C" int svae_sampler_bp_adj_dJc_f32(int d, int B, int S, int T1,
     return launch_dJc<DIM>(B, S, T1, P2, P3, Jf, hf, eps, xT, x, bbar, dP2, \
                            dP3, dJf, dhf, s);
   switch (d) {
-    SVAE_DIMS(SVAE_CASE)
+    SVAE_BUILT_DIMS(SVAE_CASE)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SVAE_CASE
 }
-#undef SVAE_DIMS

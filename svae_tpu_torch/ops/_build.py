@@ -133,21 +133,57 @@ ENTRIES = (("svae_filter_fwd_f32", 3, 11),
            ("svae_sampler_shared_factor_f32", 4, 8))
 
 
+# The latent sizes compiled from csrc/*_wide.cu: each of those sources
+# includes its namesake's template bodies and defines that source's C
+# entries for them under the suffix WIDE_SUFFIX.
+WIDE_DIMS = (24, 32)
+WIDE_SUFFIX = "_wide"
+
+
 def bind(lib, names=None):
     """Set the argument and result types of ``lib``'s C entries (those in
-    ``names``, else all of ENTRIES); returns ``lib``."""
+    ``names``, else all of ENTRIES, each with its ``_wide`` twin where the
+    library has one); returns ``lib``."""
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, ints, ptrs in ENTRIES:
         if names is None or name in names:
-            fn = getattr(lib, name)
-            fn.argtypes = [i] * ints + [p] * ptrs
-            fn.restype = i
+            for entry in (name, name + WIDE_SUFFIX):
+                fn = getattr(lib, entry, None)
+                if fn is None and entry != name:
+                    continue
+                if fn is None:
+                    raise AttributeError(f"{entry}: not in the library")
+                fn.argtypes = [i] * ints + [p] * ptrs
+                fn.restype = i
     return lib
 
 
+class Library:
+    """A bound library's C entries by name. An entry whose first argument
+    is the latent size and which has a ``_wide`` twin calls the twin for d
+    in WIDE_DIMS, so callers name one entry for every built d."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        wide = getattr(self.lib, name + WIDE_SUFFIX, None)
+        if wide is not None:
+            narrow = fn
+
+            def fn(d, *args):
+                return (wide if d in WIDE_DIMS else narrow)(d, *args)
+
+            fn.argtypes, fn.restype = narrow.argtypes, narrow.restype
+        setattr(self, name, fn)
+        return fn
+
+
 def load_library():
-    """The loaded kernel library, built first if needed (cached)."""
+    """The loaded kernel library, built first if needed (cached), as a
+    :class:`Library`."""
     global _lib
     if _lib is None:
-        _lib = bind(ctypes.CDLL(build()))
+        _lib = Library(bind(ctypes.CDLL(build())))
     return _lib

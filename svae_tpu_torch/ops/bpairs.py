@@ -50,6 +50,14 @@ the card a lane is a warp in ``bidir_fwd``, a block in the samplers'
 chains and a thread elsewhere. The packing, the smoothed-moment assembly
 (estep.smoother_assembly, shared with the stationary E-step) and the
 terminal sample are batched torch ops, differentiable by autograd.
+
+A d with no kernel instance of its own runs padded to
+:func:`~svae_tpu_torch.ops.estep.kernel_dim` (d) = d' as in
+:mod:`~svae_tpu_torch.ops.estep` (:data:`BIDIR_PADDING`,
+:data:`SAMPLER_PADDING`): the pad block of every A_t is I, that of the
+sampler's P3_t is -I/2, every other pad entry zero. ``bidir_fwd``'s
+log-normalizer then gains (d' - d)/2 log 2pi a step and lane, which the
+unpadding subtracts.
 """
 
 import math
@@ -57,10 +65,12 @@ import math
 import torch
 
 from svae_tpu_torch.ops import _build
-from svae_tpu_torch.ops.estep import (LOG2PI, _check_kernel_args, _forward,
-                                      _lane_minor, _launch, _next_samples,
-                                      _vjp, filter_adj_chain_step,
-                                      sampler_dJc, smoother_assembly)
+from svae_tpu_torch.ops.estep import (LOG2PI, Padding, _check_kernel_args,
+                                      _forward, _lane_minor, _launch,
+                                      _next_samples, _vjp,
+                                      filter_adj_chain_step, pad_rows,
+                                      pad_square, sampler_dJc,
+                                      smoother_assembly, unpad_filter)
 from svae_tpu_torch.utils import smallchol
 from svae_tpu_torch.utils.psd import mvn_logZ_info, symmetrize
 
@@ -700,6 +710,33 @@ class SamplerBp(torch.autograd.Function):
 
 
 # --------------------------------------------------------------------------
+# exact padding to a built d (estep's scheme): the pad block of every A_t
+# is I, so each pad pivot is 1, and that of P3_t is -I/2, so the sampler's
+# Jc_t = Jf_t - 2 P3_t is I there; every other pad entry is zero. The
+# filter's ln loses ln_shift(T-1, d, d') a lane.
+# --------------------------------------------------------------------------
+
+
+def _pad_bidir(args, d, dp):
+    J0, h0, A, C, D, E, F, Pc = args
+    sq = lambda x, diag=0.0: pad_square(x, 1, d, dp, diag)
+    return (pad_square(J0, 0, d, dp), pad_rows(h0, 0, dp), sq(A, 1.0), sq(C),
+            sq(D), pad_rows(E, 1, dp), pad_rows(F, 1, dp), Pc)
+
+
+def _pad_sampler(args, d, dp):
+    P2, P3, Jf, hf, eps, xT = args
+    sq = lambda x, diag=0.0: pad_square(x, 1, d, dp, diag)
+    return (sq(P2), sq(P3, -0.5), sq(Jf), pad_rows(hf, 1, dp),
+            pad_rows(eps, 1, dp), pad_rows(xT, 0, dp))
+
+
+BIDIR_PADDING = Padding(lambda a: a[1].shape[0], _pad_bidir, unpad_filter)
+SAMPLER_PADDING = Padding(lambda a: a[5].shape[0], _pad_sampler,
+                          lambda x, d, dp: x[:, :d])
+
+
+# --------------------------------------------------------------------------
 # packing glue and public entries (batched torch ops, autograd)
 # --------------------------------------------------------------------------
 
@@ -810,7 +847,8 @@ def fb_pass(init, pairs, nodes):
     pallas_bidir.fb_pass), arguments as :func:`bidir_inputs`'. Returns
     ``(logZ (B,), Jf, hf, Jb, hb)`` as :func:`messages` gives them."""
     args = bidir_inputs(init, pairs, nodes)
-    J, h, ln = _forward(bidir_fwd, bidir_fwd_plain, BidirFwd, args)
+    J, h, ln = _forward(bidir_fwd, bidir_fwd_plain, BidirFwd, args,
+                        padding=BIDIR_PADDING)
     Jf, hf, Jb, hb = messages(args, J, h)
     logZ = ln[:Jf.shape[0]] + init[2] + mvn_logZ_info(Jf[:, -1], hf[:, -1])
     return logZ, Jf, hf, Jb, hb
@@ -822,7 +860,8 @@ def lds_filter(init, pairs, nodes):
     forward lanes only, differentiable through :class:`BidirFwd`.
     Arguments as :func:`bidir_inputs`'; returns ``(logZ (B,), Jf, hf)``."""
     args = _packed(*_initial(init, nodes), _streams(pairs, nodes))
-    J, h, ln = _forward(bidir_fwd, bidir_fwd_plain, BidirFwd, args)
+    J, h, ln = _forward(bidir_fwd, bidir_fwd_plain, BidirFwd, args,
+                        padding=BIDIR_PADDING)
     Jf, hf = _alpha(args[0], args[1], J, h)
     return ln + init[2] + mvn_logZ_info(Jf[:, -1], hf[:, -1]), Jf, hf
 
@@ -837,7 +876,8 @@ def lds_backward(pairs, nodes):
     B, _, d = N2.shape
     args = _packed(N2.new_zeros(B, d, d), N2.new_zeros(B, d),
                    _reversed(_streams(pairs, nodes)))
-    J, h, _ = _forward(bidir_fwd, bidir_fwd_plain, BidirFwd, args)
+    J, h, _ = _forward(bidir_fwd, bidir_fwd_plain, BidirFwd, args,
+                        padding=BIDIR_PADDING)
     return _beta(J, h)
 
 
@@ -892,7 +932,8 @@ def lds_sample(pairs, filtered, generator, num_samples, eps=None):
     eps = sampler_noise(hf, generator, num_samples, eps)
     S, B, T, d = eps.shape
     args, xT = sampler_inputs(pairs, Jf, hf, eps)
-    xb = _forward(sampler_bp_fwd, sampler_bp_fwd_plain, SamplerBp, args)
+    xb = _forward(sampler_bp_fwd, sampler_bp_fwd_plain, SamplerBp, args,
+                  padding=SAMPLER_PADDING)
     x_body = _unpack(xb, (d,)).reshape(S, B, T - 1, d)
     return torch.cat([x_body, xT[:, :, None]], 2)
 

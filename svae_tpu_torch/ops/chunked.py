@@ -40,6 +40,13 @@ steps' logZ, messages and moments are exact for any (T, C). The kernels
 take any lane count: a lane is a warp (the scan), a thread (the adjoint's
 factor pass) or a block (the adjoint's chain), so the JAX package's lane
 pad to 128 has no counterpart.
+
+A d with no kernel instance of its own runs padded to
+:func:`~svae_tpu_torch.ops.estep.kernel_dim` (d) = d' (:data:`LEAF_PADDING`):
+each element gains J11 = J12 = 0, J22 = I and h = 0 on the pad, and its c
+is lowered by (d' - d)/2 log 2pi, so that each combine's pivot block is I
+there and the pad marginalization adds that constant back; the unpadding
+adds (d' - d)/2 log 2pi to each output's c.
 """
 
 import math
@@ -47,8 +54,9 @@ import math
 import torch
 
 from svae_tpu_torch.ops import _build, kalman
-from svae_tpu_torch.ops.estep import (LOG2PI, _check_kernel_args, _forward,
-                                      _launch, _vjp)
+from svae_tpu_torch.ops.estep import (LOG2PI, Padding, _check_kernel_args,
+                                      _forward, _launch, _vjp, pad_rows,
+                                      pad_square, unpad_square)
 from svae_tpu_torch.utils import smallchol
 from svae_tpu_torch.utils.psd import f32_linalg
 
@@ -284,8 +292,37 @@ class ElemScan(torch.autograd.Function):
         return elem_scan_adj(*ctx.saved_tensors, douts.contiguous())
 
 
+def _pad_leaves(args, d, dp):
+    """Packed leaves at d' (estep's exact padding): every element embedded
+    with J11 and J12 zero, J22 = I and h zero in the pad, and c lowered by
+    delta = (d' - d)/2 log 2pi. A combine's M = J22a + J11b is then I on the
+    pad (each pivot 1, each inverse exact), its output keeps that form and
+    the pad marginalization adds delta to c, so an output's c is the
+    unpadded one less delta, which the unpadding adds back."""
+    leaves, = args
+    J11, J12, J22, h1, h2, c = torch.split(leaves, [d * d] * 3 + [d] * 2 + [1],
+                                           dim=1)
+    sq = lambda x, diag=0.0: pad_square(x, 1, d, dp, diag)
+    return (torch.cat([sq(J11), sq(J12), sq(J22, 1.0), pad_rows(h1, 1, dp),
+                       pad_rows(h2, 1, dp), c - 0.5 * (dp - d) * LOG2PI],
+                      dim=1),)
+
+
+def _unpad_leaves(out, d, dp):
+    J11, J12, J22, h1, h2, c = torch.split(
+        out, [dp * dp] * 3 + [dp] * 2 + [1], dim=1)
+    un = lambda x: unpad_square(x, 1, d, dp)
+    return torch.cat([un(J11), un(J12), un(J22), h1[:, :d], h2[:, :d],
+                      c + 0.5 * (dp - d) * LOG2PI], dim=1)
+
+
+LEAF_PADDING = Padding(lambda a: _dim(a[0].shape[1]), _pad_leaves,
+                       _unpad_leaves)
+
+
 def _scan_packed(packed):
-    return _forward(elem_scan, elem_scan_plain, ElemScan, (packed,))
+    return _forward(elem_scan, elem_scan_plain, ElemScan, (packed,),
+                    padding=LEAF_PADDING)
 
 
 # --------------------------------------------------------------------------

@@ -40,9 +40,20 @@ torch's own autograd through them.
 
 Between the two recursions sits plain batched algebra: the smoothed-moment
 assembly, the statistics, the local KL and the terminal sample.
+
+The kernels are built for d in :data:`KERNEL_DIMS` (2, 3, 4, 8, 10, 16, 24
+and 32). On a card every other d up to 32 runs padded to the next of them,
+d' = :func:`kernel_dim` (d): the chain at d' is the block-diagonal chain of
+the real one and an independent pad chain whose pivots are all exactly 1
+and whose cross blocks and vector entries are zero. The real block's
+messages, samples and gradients are then the unpadded ones up to the order
+of summation; the filter's summed log-normalizer gains (d' - d)/2 log 2pi a
+step and lane, (T-1)(d' - d)/2 log 2pi in all, which the unpadding
+subtracts. Past d = 32 the card route raises ``ValueError``.
 """
 
 import math
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -51,7 +62,128 @@ from svae_tpu_torch.utils import smallchol
 from svae_tpu_torch.utils.psd import eye_like, mvn_logZ_info, symmetrize
 
 LOG2PI = math.log(2 * math.pi)
-KERNEL_DIMS = (2, 3, 4, 8, 10, 16)
+# The latent sizes each d-templated kernel is built for: d <= 16 in each
+# source, d = 24 and 32 in its ``*_wide.cu`` twin. Every other d up to 32
+# is served by the next built instance (:func:`kernel_dim`,
+# :func:`pad_square`).
+KERNEL_DIMS = (2, 3, 4, 8, 10, 16, 24, 32)
+
+
+def kernel_dim(d):
+    """The built instance d' >= d that serves latent size ``d``: the least
+    of :data:`KERNEL_DIMS` not below it. Raises ``ValueError`` past the
+    largest."""
+    for k in KERNEL_DIMS:
+        if k >= d:
+            return k
+    raise ValueError(f"no kernel serves d={d}: built for d in {KERNEL_DIMS}, "
+                     f"and a smaller d is padded to the next of them")
+
+
+# --------------------------------------------------------------------------
+# exact padding to a built d
+# --------------------------------------------------------------------------
+#
+# A d-dimensional chain runs on the instance d' = kernel_dim(d) as the
+# block-diagonal chain of itself and an independent pad chain of d' - d
+# dimensions, chosen so that every pad pivot is exactly 1 and every cross
+# block and pad vector is zero. The real block's messages, samples and
+# cotangents are then the unpadded ones up to the order of summation; each
+# recursion's log-normalizer gains (d' - d)/2 log 2pi a step and lane, which
+# the unpadding subtracts. The pad and unpad steps are torch ops outside the
+# autograd Functions, so the Functions save their tensors at d', the
+# adjoint kernels read them as they are, the cotangents of the pad entries
+# are zero and the gradients of the pad entries are dropped.
+
+
+def _grow(x, dim, n):
+    """``x`` zero-padded at the end of axis ``dim`` to length ``n``."""
+    shape = list(x.shape)
+    shape[dim] = n - shape[dim]
+    return torch.cat([x, x.new_zeros(shape)], dim)
+
+
+def pad_rows(x, dim, dp):
+    """``x`` with its d-long vector axis ``dim`` zero-padded to ``dp``."""
+    return _grow(x, dim % x.dim(), dp)
+
+
+def pad_square(x, dim, d, dp, diag=0.0):
+    """``x`` with the d x d matrices flattened at axis ``dim`` (d*d long)
+    embedded in dp x dp ones: zero off the d x d block, ``diag`` on the pad
+    block's diagonal."""
+    dim %= x.dim()
+    X = _grow(_grow(x.unflatten(dim, (d, d)), dim, dp), dim + 1, dp)
+    if diag:
+        e = torch.zeros(dp, dtype=x.dtype, device=x.device)
+        e[d:] = diag
+        shape = [1] * X.dim()
+        shape[dim] = shape[dim + 1] = dp
+        X = X + torch.diag(e).reshape(shape)
+    return X.flatten(dim, dim + 1)
+
+
+def unpad_square(x, dim, d, dp):
+    """The d x d blocks of the dp x dp matrices flattened at axis ``dim``."""
+    dim %= x.dim()
+    return x.unflatten(dim, (dp, dp)).narrow(dim, 0, d).narrow(
+        dim + 1, 0, d).flatten(dim, dim + 1)
+
+
+def pad_mats(M, d, dp, diag=0.0):
+    """(..., d, d) matrices embedded as :func:`pad_square` does."""
+    return pad_square(M.flatten(-2), -1, d, dp, diag).unflatten(-1, (dp, dp))
+
+
+def ln_shift(T1, d, dp):
+    """What the pad chain adds to a filter's summed log-normalizer over T1
+    steps: (d' - d)/2 log 2pi a step, its pivots being 1 and its vector
+    zero."""
+    return T1 * 0.5 * (dp - d) * LOG2PI
+
+
+class Padding(NamedTuple):
+    """How a recursion's arguments embed in a built d' and its outputs come
+    back: ``dim(args)`` is d, ``pad(args, d, dp)`` the arguments at d',
+    ``unpad(outs, d, dp)`` the outputs at d."""
+    dim: Callable
+    pad: Callable
+    unpad: Callable
+
+
+def _pad_filter(args, d, dp):
+    # M = J + A (+ diag jd): the pad block of A is I, so M's is I at every
+    # step; the pad blocks of C and D and the pad evidence are zero, so J'
+    # and h' are zero there
+    J0, h0, A, C, D, jd, n2 = args
+    return (pad_square(J0, 0, d, dp), pad_rows(h0, 0, dp),
+            pad_mats(A, d, dp, 1.0), pad_mats(C, d, dp), pad_mats(D, d, dp),
+            pad_rows(jd, 1, dp), pad_rows(n2, 1, dp))
+
+
+def unpad_filter(outs, d, dp):
+    """A padded filter's ``(J, h, ln)`` at d: the d x d blocks, the first
+    d rows, the log-normalizer less :func:`ln_shift` over its steps."""
+    J, h, ln = outs
+    return (unpad_square(J, 1, d, dp), h[:, :d],
+            ln - ln_shift(J.shape[0], d, dp))
+
+
+def _pad_sampler(args, d, dp):
+    # Jc = Jf - 2 P3: the pad block of P3 is -I/2, so Jc's is I; the rest
+    # of the pad is zero, and so are the pad entries of the samples
+    P2, P3, Jf, hf, eps, xT = args
+    return (pad_mats(P2, d, dp), pad_mats(P3, d, dp, -0.5),
+            pad_square(Jf, 1, d, dp), pad_rows(hf, 1, dp),
+            pad_rows(eps, 1, dp), pad_rows(xT, 0, dp))
+
+
+# the stationary filter (filter_fwd) and sampler (sampler_fwd): the
+# log-normalizer of the filter loses ln_shift(T-1, d, d') a lane
+FILTER_PADDING = Padding(lambda a: a[1].shape[0], _pad_filter,
+                         unpad_filter)
+SAMPLER_PADDING = Padding(lambda a: a[5].shape[0], _pad_sampler,
+                          lambda x, d, dp: x[:, :d])
 
 
 # --------------------------------------------------------------------------
@@ -786,12 +918,21 @@ class SamplerFwd(torch.autograd.Function):
         return dP2, dP3, dJf, dhf, None, dxT
 
 
-def _forward(kernel, twin, function, args, plain=False):
+def _forward(kernel, twin, function, args, plain=False, padding=None):
     """One forward recursion: the twin on the CPU (or with ``plain``); on a
     card the kernel, through its autograd ``function`` only when a gradient
-    may be asked of it, so that inference saves nothing for a backward."""
+    may be asked of it, so that inference saves nothing for a backward. On a
+    card a size with no instance of its own runs padded to the next built
+    one, as ``padding`` (a :class:`Padding`) embeds it."""
     if plain or args[0].device.type == "cpu":
         return twin(*args)
+    if padding is not None:
+        d = padding.dim(args)
+        dp = kernel_dim(d)
+        if dp != d:
+            outs = _forward(kernel, twin, function,
+                            padding.pad(args, d, dp))
+            return padding.unpad(outs, d, dp)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return function.apply(*args)
     return kernel(*args)
@@ -868,7 +1009,7 @@ def _filter_and_moments(init, pair_mats, nodes_diag, plain=False):
     dd = d * d
     args = filter_inputs(init, pair_mats, nodes_diag)
     Jr, hr, ln = _forward(filter_fwd, filter_fwd_plain, FilterFwd, args,
-                          plain)
+                          plain, FILTER_PADDING)
     J0, h0 = args[:2]
 
     # align the halves in frame order, packed (T, dd, B)
@@ -919,7 +1060,7 @@ def _samples(pair_mats, Jf, hf, generator, num_samples, eps=None,
                           device=hf.device)
     args, xT = sampler_inputs(pair_mats, Jf, hf, eps)
     xb = _forward(sampler_fwd, sampler_fwd_plain, SamplerFwd, args,
-                  plain)                                  # (T-1, d, S*B)
+                  plain, SAMPLER_PADDING)                 # (T-1, d, S*B)
     x_body = xb.permute(2, 0, 1).reshape(S, B, T - 1, d)
     return torch.cat([x_body, xT[:, :, None]], dim=2)
 
@@ -940,7 +1081,8 @@ def lds_sample_stationary(init, pair_mats, nodes_diag, generator,
     the same noise)."""
     B = nodes_diag[1].shape[0]
     args = filter_inputs(init, pair_mats, nodes_diag)
-    Jr, hr, _ = _forward(filter_fwd, filter_fwd_plain, FilterFwd, args)
+    Jr, hr, _ = _forward(filter_fwd, filter_fwd_plain, FilterFwd, args,
+                         padding=FILTER_PADDING)
     Jf = torch.cat([args[0][None, :, :B], Jr[:, :, :B]])
     hf = torch.cat([args[1][None, :, :B], hr[:, :, :B]])
     return _samples(pair_mats, Jf, hf, generator, num_samples, eps)

@@ -45,7 +45,9 @@ from svae_tpu_torch.ops import _build
 from svae_tpu_torch.ops.estep import (_check_kernel_args, _forward, _launch,
                                       _vjp)
 
-# every K a chain of whose states fits on one warp (segment_lanes(K) <= 32)
+# The K with an instance of their own, a chain on segment_lanes(K) <= 32
+# lanes of a warp; every K past them runs the runtime-K kernels, a chain a
+# block (csrc/hmm_fb.cu, csrc/hmm_fb_adj.cu), so every K >= 1 is served.
 KERNEL_STATES = tuple(range(1, 33))
 
 
@@ -72,7 +74,10 @@ def _check_shapes(name, a0, stream, LT=None, outs=()):
 
 
 def _check(name, K, tensors):
-    _check_kernel_args(name, K, tensors, KERNEL_STATES, "K")
+    if K < 1:
+        raise ValueError(f"{name}: no kernel for K={K}; the kernels take "
+                         f"K >= 1")
+    _check_kernel_args(name, K, tensors, (K,), "K")
 
 
 def hmm_fb_fwd(a0, M):

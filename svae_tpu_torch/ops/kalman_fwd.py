@@ -34,14 +34,23 @@ asked of an input; :func:`svae_tpu_torch.ops.bpairs.lds_filter` and
 :func:`~svae_tpu_torch.ops.bpairs.lds_backward` are the differentiable
 filters. :func:`lds_filter_bpairs` (per-sequence pairs) runs
 :func:`bpairs.lds_filter`'s forward launch.
+
+A d with no kernel instance of its own runs padded to
+:func:`~svae_tpu_torch.ops.estep.kernel_dim` (d) = d' as in
+:mod:`~svae_tpu_torch.ops.estep`: the pad block of each step's M is I (P3
+-I/2 forward, P1 -I/2 backward, the sampler's P3 -I/2), every other pad
+entry zero. The forward filter's log-normalizer then gains (d' - d)/2 log
+2pi a step and lane, which the unpadding subtracts.
 """
 
 import torch
 
 from svae_tpu_torch.ops import _build, bpairs
 from svae_tpu_torch.ops.bpairs import _alpha, _initial, _pack, _unpack
-from svae_tpu_torch.ops.estep import (_check_kernel_args, _launch,
-                                      smoother_assembly)
+from svae_tpu_torch.ops.estep import (Padding, _check_kernel_args,
+                                      _forward, _launch, pad_rows,
+                                      pad_square, smoother_assembly,
+                                      unpad_filter, unpad_square)
 from svae_tpu_torch.utils.psd import f32_linalg, mvn_logZ_info
 from svae_tpu_torch.utils.pytree import tree_leaves
 
@@ -251,6 +260,40 @@ sampler_shared_factor_plain.calls = 0
 
 
 # --------------------------------------------------------------------------
+# exact padding to a built d (estep's scheme): the pad block of each step's
+# M is I (A = -2 P3 forward, -2 (P1 + N1) backward; Jc = Jf - 2 P3 in the
+# sampler), every other pad entry zero; the forward filter's ln loses
+# ln_shift(T-1, d, d') a lane
+# --------------------------------------------------------------------------
+
+
+def _sq(x, d, dp, diag=0.0):
+    return pad_square(x, 1, d, dp, diag)
+
+
+def _pad_filter(args, d, dp):
+    J0, h0, P1, P2, P3, Pc, N1, N2 = args
+    return (pad_square(J0, 0, d, dp), pad_rows(h0, 0, dp), _sq(P1, d, dp),
+            _sq(P2, d, dp), _sq(P3, d, dp, -0.5), Pc, _sq(N1, d, dp),
+            pad_rows(N2, 1, dp))
+
+
+def _pad_backward(args, d, dp):
+    P1, P2, P3, N1, N2 = args
+    return (_sq(P1, d, dp, -0.5), _sq(P2, d, dp), _sq(P3, d, dp),
+            _sq(N1, d, dp), pad_rows(N2, 1, dp))
+
+
+FILTER_PADDING = Padding(lambda a: a[1].shape[0], _pad_filter,
+                         unpad_filter)
+BACKWARD_PADDING = Padding(
+    lambda a: a[4].shape[1], _pad_backward,
+    lambda outs, d, dp: (unpad_square(outs[0], 1, d, dp), outs[1][:, :d]))
+# the sampler's arguments are those of bpairs' sampler passes
+SAMPLER_PADDING = bpairs.SAMPLER_PADDING
+
+
+# --------------------------------------------------------------------------
 # public entries (forward only)
 # --------------------------------------------------------------------------
 
@@ -321,7 +364,8 @@ def lds_filter(init, pairs, nodes):
     (B, T, d, d), hf (B, T, d))``."""
     _forward_only("lds_filter", init, pairs, nodes)
     args = filter_inputs(init, pairs, nodes)
-    J, h, ln = filter_shared(*args)
+    J, h, ln = _forward(filter_shared, filter_shared_plain, None, args,
+                        padding=FILTER_PADDING)
     Jf, hf = _alpha(args[0], args[1], J, h)
     return ln + init[2] + mvn_logZ_info(Jf[:, -1], hf[:, -1]), Jf, hf
 
@@ -332,7 +376,8 @@ def lds_backward(pairs, nodes):
     with the t = T-1 entries zero."""
     _forward_only("lds_backward", pairs, nodes)
     B, _, d = nodes[1].shape
-    J, h = backward_shared(*backward_inputs(pairs, nodes))
+    J, h = _forward(backward_shared, backward_shared_plain, None,
+                    backward_inputs(pairs, nodes), padding=BACKWARD_PADDING)
     Jb, hb = _unpack(J, (d, d)), _unpack(h, (d,))
     return (torch.cat([Jb, Jb.new_zeros(B, 1, d, d)], 1),
             torch.cat([hb, hb.new_zeros(B, 1, d)], 1))
@@ -362,7 +407,8 @@ def lds_sample(init, pairs, nodes, generator, num_samples, filtered=None,
     eps = bpairs.sampler_noise(hf, generator, num_samples, eps)
     S, B, T, d = eps.shape
     args, xT = sampler_inputs(pairs, Jf, hf, eps)
-    x = sampler_shared(*args)
+    x = _forward(sampler_shared, sampler_shared_plain, None, args,
+                 padding=SAMPLER_PADDING)
     x_body = _unpack(x, (d,)).reshape(S, B, T - 1, d)
     return torch.cat([x_body, xT[:, :, None]], 2)
 

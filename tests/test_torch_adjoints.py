@@ -124,8 +124,10 @@ def problem():
             eps=eps)
         return _score(jnp, s, niw_s, mniw_s, kl, w)
 
-    grads_ref = jax.jit(jax.grad(loss_jax, argnums=(0, 1, 2, 3)))(
-        jinit, jmats, jnp.asarray(jd), jnp.asarray(h))
+    # without XLA's backend optimizations, which change no float64 value
+    args = (jinit, jmats, jnp.asarray(jd), jnp.asarray(h))
+    grads_ref = jax.jit(jax.grad(loss_jax, argnums=(0, 1, 2, 3))).lower(
+        *args).compile({"xla_backend_optimization_level": 0})(*args)
     return dict(filt=filt, filt_ref=filt_ref, samp=samp, samp_ref=samp_ref,
                 init=init, mats=tuple(_t(m) for m in mats), jd=_t(jd),
                 h=_t(h), eps=_t(eps), w=w, grads_ref=grads_ref)

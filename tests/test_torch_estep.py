@@ -87,7 +87,6 @@ def problem():
                                    epsb, xT)),
         d=d, U=1, interpret=True)
 
-    @jax.jit     # one compile: eager dispatch takes several times longer
     def references(nodes, eps):
         return (pallas_estep.lds_estep_stationary(
                     init, mats, nodes, None, S, block_b=8, interpret=True,
@@ -95,8 +94,11 @@ def problem():
                 pallas_estep.lds_moments_stationary(
                     init, mats, nodes, block_b=8, interpret=True))
 
-    estep_ref, moments_ref = references((jnp.asarray(jd), jnp.asarray(h)),
-                                        jnp.asarray(eps))
+    # one compile, without XLA's backend optimizations: eager dispatch
+    # takes several times longer
+    args = (jnp.asarray(jd), jnp.asarray(h)), jnp.asarray(eps)
+    estep_ref, moments_ref = jax.jit(references).lower(*args).compile(
+        {"xla_backend_optimization_level": 0})(*args)
     return dict(
         init=tuple(_t(x) for x in init), mats=tuple(_t(m) for m in mats),
         jd=_t(jd), h=_t(h), eps=_t(eps),
@@ -158,7 +160,16 @@ def _run_python(code, **env):
                           env={**os.environ, **env})
 
 
-def test_port_imports_no_jax():
+@pytest.fixture(scope="module")
+def fresh_process(tmp_path_factory):
+    """One fresh interpreter, with CUDA_HOME at a toolkit that is not
+    there, for the two checks that need one (spawning it costs seconds):
+    every module of the port imported, then the JAX modules found among
+    sys.modules; then the CPU twins of run_inference and the build's
+    refusal. Each check prints its own lines, and a failing second check
+    prints its error, so each test reads only its own. Returns ``(the
+    process, its build directory)``."""
+    build = tmp_path_factory.mktemp("fresh") / "build"
     code = (
         "import importlib, pkgutil, sys\n"
         "import svae_tpu_torch\n"
@@ -168,38 +179,48 @@ def test_port_imports_no_jax():
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'svae_tpu'))\n"
-        "assert not bad, bad\n"
-        "print(len(names))\n")
-    proc = _run_python(code)
-    assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 30
-
-
-def test_cpu_runs_twins_and_build_raises_without_nvcc(tmp_path):
-    code = (
+        "print('imported', len(names), 'jax', bad)\n"
         "import torch\n"
         "from svae_tpu_torch.models import lds\n"
         "from svae_tpu_torch.ops import _build, estep\n"
-        "g = torch.Generator().manual_seed(0)\n"
-        "glob = lds.init_pgm_param(3, g, dtype=torch.float64, "
-        "device='cpu')\n"
-        "pots = (torch.rand(2, 5, 3, dtype=torch.float64, generator=g) + .5,\n"
-        "        torch.randn(2, 5, 3, dtype=torch.float64, generator=g))\n"
-        "s, stats, gkl, lkl = lds.run_inference(glob, glob, pots, g, 2)\n"
-        "assert torch.isfinite(s).all() and torch.isfinite(lkl)\n"
-        "assert estep.filter_fwd.launches == 0\n"
-        "assert estep.sampler_fwd.launches == 0\n"
-        "assert estep.filter_fwd_plain.calls == 1\n"
-        "assert estep.sampler_fwd_plain.calls == 1\n"
-        f"_build.BUILD_DIR = {str(tmp_path / 'build')!r}\n"
         "try:\n"
-        "    lib = _build.load_library()\n"
-        "except RuntimeError as e:\n"
-        "    assert 'nvcc not found' in str(e), e\n"
-        "    print('raised')\n"
-        "else:\n"
-        "    raise SystemExit(f'load_library returned {lib!r}')\n")
-    proc = _run_python(code, CUDA_HOME=str(tmp_path / "no_cuda"))
+        "    g = torch.Generator().manual_seed(0)\n"
+        "    glob = lds.init_pgm_param(3, g, dtype=torch.float64, "
+        "device='cpu')\n"
+        "    pots = (torch.rand(2, 5, 3, dtype=torch.float64, generator=g)\n"
+        "            + .5, torch.randn(2, 5, 3, dtype=torch.float64,\n"
+        "                              generator=g))\n"
+        "    s, stats, gkl, lkl = lds.run_inference(glob, glob, pots, g, 2)\n"
+        "    assert torch.isfinite(s).all() and torch.isfinite(lkl)\n"
+        "    assert estep.filter_fwd.launches == 0\n"
+        "    assert estep.sampler_fwd.launches == 0\n"
+        "    assert estep.filter_fwd_plain.calls == 1\n"
+        "    assert estep.sampler_fwd_plain.calls == 1\n"
+        f"    _build.BUILD_DIR = {str(build)!r}\n"
+        "    try:\n"
+        "        lib = _build.load_library()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'nvcc not found' in str(e), e\n"
+        "        print('raised')\n"
+        "    else:\n"
+        "        print(f'load_library returned {lib!r}')\n"
+        "except Exception as e:\n"
+        "    print('twins failed:', repr(e))\n")
+    proc = _run_python(code, CUDA_HOME=str(build.parent / "no_cuda"))
+    return proc, build
+
+
+def test_port_imports_no_jax(fresh_process):
+    proc, _ = fresh_process
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip().endswith("raised")
-    assert not (tmp_path / "build").exists()
+    line = next(l for l in proc.stdout.splitlines()
+                if l.startswith("imported "))
+    assert line.endswith(" jax []"), line
+    assert int(line.split()[1]) >= 30
+
+
+def test_cpu_runs_twins_and_build_raises_without_nvcc(fresh_process):
+    proc, build = fresh_process
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("raised"), proc.stdout
+    assert not build.exists()

@@ -126,7 +126,6 @@ def refs():
     problems = {name: _problem(seed, tv)
                 for name, (seed, tv) in CASES.items()}
 
-    @jax.jit
     def references(streamed, stationary, adj, stat_adj, problems):
         out = dict(fwd=pallas_hmm._fb_call(*streamed, **kw),
                    stat_fwd=pallas_hmm._fb_stat_call(*stationary, **kw),
@@ -137,8 +136,10 @@ def refs():
             post = lambda li, lt, lo: pallas_hmm.hmm_posterior(
                 li, lt, lo, block_b=BLOCK, interpret=True, pair_weights=w,
                 kernel=kernel)
-            out["post_" + name] = (post(li, lt, lo), jax.grad(
-                lambda *a: _loss(post(*a)), argnums=(0, 1, 2))(li, lt, lo))
+            # one trace of the posterior gives its values and, pulled
+            # back along the loss's gradient in them, the inputs' gradients
+            vals, pull = jax.vjp(post, li, lt, lo)
+            out["post_" + name] = (vals, pull(jax.grad(_loss)(vals)))
         out["sharp"] = _xla_posterior(*_sharp())
         out["forced"] = _xla_posterior(*_forced())
         li, lt, lo = _viterbi_problem()
@@ -146,10 +147,12 @@ def refs():
             jnp.asarray(lo))
         return out
 
-    out = references(
-        j(*streamed), j(a0, LTb, stationary[2]),
-        j(streamed[1], ap, al, dal, be, bn, dbe),
-        j(LTb, stationary[2], ap, al, dal, be, bn, dbe), problems)
+    # without XLA's backend optimizations, which change no float64 value
+    args = (j(*streamed), j(a0, LTb, stationary[2]),
+            j(streamed[1], ap, al, dal, be, bn, dbe),
+            j(LTb, stationary[2], ap, al, dal, be, bn, dbe), problems)
+    out = jax.jit(references).lower(*args).compile(
+        {"xla_backend_optimization_level": 0})(*args)
     return dict(streamed=streamed, stationary=stationary, outs=(al, be),
                 cots=(dal, dbe), problems=problems, **out)
 
@@ -217,15 +220,14 @@ def _kernel_args(kernel, k=K, dt=torch.float32):
 def test_wrappers_reject_what_the_kernels_do_not_take(kernel):
     """Off the CPU a wrapper launches its kernel or raises; on tensors that
     are neither CPU nor CUDA (``meta``) its checks run without a card: the
-    shapes, the built K, the type, contiguity and the device."""
+    shapes, K >= 1, the type, contiguity and the device."""
     wrapper = getattr(hmm_fb, kernel)
     bad = _kernel_args(kernel)
     bad[-1] = _meta((1, 2))
     with pytest.raises(ValueError, match="inconsistent shapes"):
         wrapper(*bad)
-    with pytest.raises(ValueError, match=r"K=33; built for K in \(1, 2, 3, "
-                                         r"4, 5, .*, 31, 32\)"):
-        wrapper(*_kernel_args(kernel, k=33))
+    with pytest.raises(ValueError, match=r"K=0; the kernels take K >= 1"):
+        wrapper(*_kernel_args(kernel, k=0))
     with pytest.raises(TypeError, match="float32"):
         wrapper(*_kernel_args(kernel, dt=torch.float64))
     strided = _kernel_args(kernel)

@@ -54,6 +54,13 @@ def _close(port, ref, rtol=RTOL, atol=ATOL):
                                    np.asarray(r), rtol=rtol, atol=atol)
 
 
+def _compiled(fn, *args):
+    """``fn(*args)`` as one XLA program compiled without XLA's backend
+    optimizations, which change no float64 value."""
+    return jax.jit(fn).lower(*args).compile(
+        {"xla_backend_optimization_level": 0})(*args)
+
+
 def chain(B, T, d, seed, per_sequence=False):
     """A batch of chains: shared pairs that vary in time (or, with
     ``per_sequence``, those pairs with P1 and P3 scaled per sequence by a
@@ -84,14 +91,13 @@ B, T, d, S = 3, 7, 3, 2
 def xla():
     init, pairs, nodes = chain(B, T, d, seed=0)
 
-    @jax.jit
     def ref(init, pairs, nodes):
         f = jax.vmap(lambda n: jax_kalman.lds_filter(init, pairs, n))(nodes)
         s = jax.vmap(lambda n: jax_kalman.lds_smoother(init, pairs, n))(nodes)
         return f, s
 
     return dict(args=(_t(init), _t(pairs), _t(nodes)),
-                ref=ref(init, pairs, nodes))
+                ref=_compiled(ref, init, pairs, nodes))
 
 
 def test_filter_matches_xla(xla):
@@ -153,7 +159,6 @@ def pallas():
     key = jax.random.key(5)
     eps = np.random.default_rng(6).standard_normal((PS, PB, PT, PD))
 
-    @jax.jit
     def ref(init, pairs, nodes, bp_pairs, eps):
         kw = dict(interpret=True)
         return dict(
@@ -170,7 +175,7 @@ def pallas():
                 eps=_t(eps),
                 key_eps=_t(jax.random.normal(key, (PS, PB, PT, PD),
                                              jnp.float64)),
-                ref=ref(init, pairs, nodes, bp_pairs, eps))
+                ref=_compiled(ref, init, pairs, nodes, bp_pairs, eps))
 
 
 def test_entry_points_match_pallas_kalman(pallas):

@@ -273,6 +273,23 @@ def test_hmm_kernels_match_plain(smoke, shape, case):
     smoke.check_hmm(smoke.HMM_SHAPES[shape], case)
 
 
+@pytest.mark.parametrize("d", range(1, estep.KERNEL_DIMS[-1] + 1))
+def test_estep_routes_at_every_d_up_to_32(smoke, d):
+    """Every E-step route (stationary, per-sequence pairs, shared pairs,
+    chunked; the samplers and adjoints) at every d from 1 to 32, padded to
+    the built instance where d has none: launches, no plain version, the
+    float64 twins' values and gradients (chip_smoke.check_routes)."""
+    smoke.check_routes(d, seed=d)
+
+
+@pytest.mark.parametrize("K", [33, 64, 100])
+def test_hmm_kernels_past_a_warp(smoke, K):
+    """The runtime-K HMM kernels (a chain a block) and each of their
+    passes against the plain versions, the stationary forward bitwise the
+    streamed one on LT + lo (check_hmm)."""
+    smoke.check_hmm(dict(B=37, T=9, K=K), seed=K)
+
+
 @pytest.mark.parametrize("K", hmm_fb.KERNEL_STATES)
 def test_hmm_kernels_match_plain_at_every_built_K(smoke, K):
     """Every kernel and each pass of ``hmm_fb_adj`` (check_hmm) at every
@@ -353,10 +370,9 @@ def test_hmm_wrappers_reject_what_the_kernels_do_not_take(smoke):
     mixed[1] = mixed[1].cpu()
     with pytest.raises(ValueError, match="CUDA"):
         hmm_fb.hmm_fb_stat_fwd(*mixed)
-    li, lt, lo, _ = smoke.hmm_problem(dict(B=3, T=7, K=33), 0, "cuda")
-    with pytest.raises(ValueError, match="K=33"):
-        hmm_fb.hmm_fb_fwd(*smoke._f32(smoke.hmm_kernel_args(
-            li, lt, lo)["hmm_fb_fwd"]))
+    with pytest.raises(ValueError, match="K=0"):
+        hmm_fb.hmm_fb_fwd(torch.empty((0, 3), device="cuda"),
+                          torch.empty((6, 0, 3), device="cuda"))
 
 
 @pytest.mark.parametrize("shape", ["small", "config2"])
@@ -758,15 +774,15 @@ def test_hmm_stat_adj_pass_launch_counters(smoke):
 
 def test_redesigned_stationary_c_entries_reject_an_unbuilt_size(smoke):
     """The C entries of sampler_shared, its factor pass and the stationary
-    HMM adjoint and its passes refuse d=5 / K=33 (cudaErrorInvalidValue)
+    HMM adjoint and its passes refuse d=5 / K=0 (cudaErrorInvalidValue)
     before they read a pointer."""
     from svae_tpu_torch.ops import _build
     lib = _build.load_library()
     for name, size in (("svae_sampler_shared_f32", 5),
                        ("svae_sampler_shared_factor_f32", 5),
-                       ("svae_hmm_fb_stat_adj_f32", 33),
-                       ("svae_hmm_fb_stat_adj_weights_f32", 33),
-                       ("svae_hmm_fb_stat_adj_sums_f32", 33)):
+                       ("svae_hmm_fb_stat_adj_f32", 0),
+                       ("svae_hmm_fb_stat_adj_weights_f32", 0),
+                       ("svae_hmm_fb_stat_adj_sums_f32", 0)):
         fn = getattr(lib, name)
         ints = sum(t is ctypes.c_int for t in fn.argtypes)
         assert fn(size, *[3] * (ints - 1),

@@ -121,12 +121,6 @@ def model():
     """A small ragged problem in both packages, and the JAX references of
     the model-level tests (the XLA scan path, the Pallas composition's
     samples and one ragged gradient step)."""
-    k = jax.random.split(jax.random.key(11), 4)
-    prior = jax_lds.init_pgm_param(k[0], d, dtype=jnp.float64)
-    glob = jax_lds.init_pgm_param(k[1], d, dtype=jnp.float64)
-    rp = jax_recognition.init_mlp_recognize(k[2], D_OBS, (8,), d,
-                                            dtype=jnp.float64)
-    dp = jax_decoders.init_mlp_decode(k[3], d, (8,), D_OBS, dtype=jnp.float64)
     rng = np.random.default_rng(7)
     jd = np.logaddexp(rng.standard_normal((B, T, d)), 0.0) + 0.4
     h = rng.standard_normal((B, T, d))          # pad frames: garbage
@@ -134,13 +128,22 @@ def model():
     eps = rng.standard_normal((S, B, T, d))
     y = jax_synthetic.make_dot_data(seed=3, num_seqs=B, T=T,
                                     image_width=D_OBS).astype(np.float64)
-    gradfun = jax_elbo.make_gradfun(*JAX_PARTS, prior, N, num_samples=S,
-                                    ragged=True)
 
-    @jax.jit     # one compile: eager dispatch of these takes 3-4x longer
     def references(jd, h, mask, eps, y):
+        # the parameters too, in the same program: eager, their ops would
+        # each compile on their own
+        k = jax.random.split(jax.random.key(11), 4)
+        prior = jax_lds.init_pgm_param(k[0], d, dtype=jnp.float64)
+        glob = jax_lds.init_pgm_param(k[1], d, dtype=jnp.float64)
+        rp = jax_recognition.init_mlp_recognize(k[2], D_OBS, (8,), d,
+                                                dtype=jnp.float64)
+        dp = jax_decoders.init_mlp_decode(k[3], d, (8,), D_OBS,
+                                          dtype=jnp.float64)
+        gradfun = jax_elbo.make_gradfun(*JAX_PARTS, prior, N, num_samples=S,
+                                        ragged=True)
         pots = (jd, h)
         return dict(
+            params=(prior, glob, rp, dp),
             xla=jax_lds.run_inference(prior, glob, pots, jax.random.key(2),
                                       S, backend="xla", lengths=LENGTHS,
                                       mask=mask),
@@ -150,12 +153,22 @@ def model():
                                       lengths=LENGTHS),
             grad_out=gradfun(glob, (rp, dp), (y, LENGTHS), eps))
 
+    refs = _compiled(references, jd, h, mask, eps, y)
+    prior, glob, rp, dp = _np(refs.pop("params"))
     natparam = functools.partial(convert.natparam, **F64)
-    return dict(prior=natparam(_np(prior)), glob=natparam(_np(glob)),
-                nets=(convert.recognizer(_np(rp), **F64),
-                      convert.decoder(_np(dp), **F64)),
-                jd=jd, h=h, mask=mask, eps=eps, y=y,
-                **references(jd, h, mask, eps, y))
+    return dict(prior=natparam(prior), glob=natparam(glob),
+                nets=(convert.recognizer(rp, **F64),
+                      convert.decoder(dp, **F64)),
+                jd=jd, h=h, mask=mask, eps=eps, y=y, **refs)
+
+
+def _compiled(fn, *args):
+    """``fn(*args)`` as one XLA program compiled without XLA's backend
+    optimizations (which change no float64 value): eager dispatch of the
+    references takes 3-4x longer, and the optimizations lengthen the
+    compile."""
+    return jax.jit(fn).lower(*args).compile(
+        {"xla_backend_optimization_level": 0})(*args)
 
 
 def _pots(m):
@@ -171,11 +184,16 @@ def _pots(m):
 def kernels():
     """The four kernels' inputs in the port's layout (from the twins, with
     random cotangents) and the Pallas kernels' outputs on the same inputs,
-    each called directly in interpret mode with U=1."""
+    each called directly in interpret mode with U=1, in one XLA program."""
     rng = np.random.default_rng(8)
-    glob = jax_lds.init_pgm_param(jax.random.key(3), d, dtype=jnp.float64)
-    (I1, I2), Ic = jax_niw.expected_gaussian_natparam(glob[0])
-    mats = tuple(_t(m) for m in jax_mniw.expected_pair_potential(glob[1]))
+
+    def potentials():
+        glob = jax_lds.init_pgm_param(jax.random.key(3), d, dtype=jnp.float64)
+        return (jax_niw.expected_gaussian_natparam(glob[0]),
+                jax_mniw.expected_pair_potential(glob[1]))
+
+    ((I1, I2), Ic), mats = _compiled(potentials)
+    mats = tuple(_t(m) for m in mats)
     jd = _t(np.logaddexp(rng.standard_normal((B, T, d)), 0.0) + 0.4)
     h = _t(rng.standard_normal((B, T, d)))
     jd, h, _ = lds._prepare((jd, h), None, torch.from_numpy(LENGTHS))
@@ -194,26 +212,27 @@ def kernels():
 
     j = lambda *xs: tuple(jnp.asarray(a.numpy()) for a in xs)
     J0, h0, A, C, D, E, F, Pc = fin
-    fwd_ref = pallas_bidir._bidir_fwd_call(*j(J0, h0, A, C, D, E, F,
-                                              Pc[:, None]),
-                                           d=d, U=1, interpret=True)
     Jpre = torch.cat([J0[None], J[:-1]])
     hpre = torch.cat([h0[None], hh[:-1]])
-    adj_ref = pallas_bidir._bidir_adj_call(
-        *j(D, Jpre + A, hpre + F, filt[10], filt[11], filt[12][None]),
-        d=d, U=1, interpret=True)
     # the Pallas sampler takes the per-sequence blocks per lane, S-tiled
     tile = lambda a: a.repeat(1, 1, S)
     P2, P3, Jft, hft, epsf, xT = sin
-    samp_fwd_ref = pallas_vjp._sampler_fwd_call(
-        *j(tile(P2), tile(P3), tile(Jft), tile(hft), epsf, xT), d=d, U=1,
-        interpret=True)
     xnext = torch.cat([x[1:], xT[None]])
-    samp_adj_ref = pallas_vjp._sampler_adj_call(
-        *j(tile(P2), tile(P3), tile(Jft), tile(hft), x, xnext, samp[7]),
-        d=d, U=1, interpret=True)
-    return dict(filt=filt, samp=samp, fwd_ref=fwd_ref, adj_ref=adj_ref,
-                samp_fwd_ref=samp_fwd_ref, samp_adj_ref=samp_adj_ref)
+    kw = dict(d=d, U=1, interpret=True)
+
+    def references(fwd, adj, samp_fwd, samp_adj):
+        return dict(fwd_ref=pallas_bidir._bidir_fwd_call(*fwd, **kw),
+                    adj_ref=pallas_bidir._bidir_adj_call(*adj, **kw),
+                    samp_fwd_ref=pallas_vjp._sampler_fwd_call(*samp_fwd,
+                                                              **kw),
+                    samp_adj_ref=pallas_vjp._sampler_adj_call(*samp_adj,
+                                                              **kw))
+
+    return dict(filt=filt, samp=samp, **_compiled(
+        references, j(J0, h0, A, C, D, E, F, Pc[:, None]),
+        j(D, Jpre + A, hpre + F, filt[10], filt[11], filt[12][None]),
+        j(tile(P2), tile(P3), tile(Jft), tile(hft), epsf, xT),
+        j(tile(P2), tile(P3), tile(Jft), tile(hft), x, xnext, samp[7])))
 
 
 def test_bidir_twin_matches_pallas_kernel(kernels):
@@ -545,16 +564,9 @@ def test_fb_pass_matches_interleaved_layout():
     ``bidir_adj`` runs both directions' adjoints in one launch."""
     Bi, Ti, di = 5, 4, 2
     rng = np.random.default_rng(12)
-    glob = jax_lds.init_pgm_param(jax.random.key(13), di, dtype=jnp.float64)
-    (I1, I2), Ic = jax_niw.expected_gaussian_natparam(glob[0])
-    mats = tuple(jnp.broadcast_to(m, (Ti - 1,) + m.shape)
-                 for m in jax_mniw.expected_pair_potential(glob[1]))
     lengths = np.array([4, 3, 2, 4, 1])
     jd = np.logaddexp(rng.standard_normal((Bi, Ti, di)), 0.0) + 0.4
     h = rng.standard_normal((Bi, Ti, di))
-    pairs = jax_lds._ragged_pairs(mats, lengths, Ti, jnp.float64)
-    N1 = -0.5 * jnp.vectorize(jnp.diag, signature="(d)->(d,d)")(jd)
-    leaves = (I1, I2, Ic) + tuple(pairs) + (N1, jnp.asarray(h))
     assert not (-(-2 * Bi // 8) < 2 * (-(-Bi // 8)))  # the JAX default
 
     def fb(lib, xs, fused_adj=False):
@@ -569,17 +581,31 @@ def test_fb_pass_matches_interleaved_layout():
                [(Bi,), (Bi, Ti, di, di), (Bi, Ti, di), (Bi, Ti, di, di),
                 (Bi, Ti, di)]]
 
-    def loss(lib, xs, fused_adj=False):
-        to = jnp.asarray if lib is jnp else _t
-        return sum((to(w) * o).sum()
-                   for w, o in zip(weights, fb(lib, xs, fused_adj)))
+    def loss(xs):
+        return sum((_t(w) * o).sum() for w, o in zip(weights, fb(torch, xs)))
 
-    ref_out, ref_grads, fused_grads = jax.jit(lambda xs: (
-        fb(jnp, xs), jax.grad(lambda ys: loss(jnp, ys))(xs),
-        jax.grad(lambda ys: loss(jnp, ys, fused_adj=True))(xs)))(leaves)
+    def references(jd, h):
+        # the leaves, then one trace of each layout's forward: its values
+        # and, pulled back along the loss's weights (its gradient in the
+        # outputs), the gradients
+        glob = jax_lds.init_pgm_param(jax.random.key(13), di,
+                                      dtype=jnp.float64)
+        (I1, I2), Ic = jax_niw.expected_gaussian_natparam(glob[0])
+        mats = tuple(jnp.broadcast_to(m, (Ti - 1,) + m.shape)
+                     for m in jax_mniw.expected_pair_potential(glob[1]))
+        pairs = jax_lds._ragged_pairs(mats, lengths, Ti, jnp.float64)
+        N1 = -0.5 * jnp.vectorize(jnp.diag, signature="(d)->(d,d)")(jd)
+        xs = (I1, I2, Ic) + tuple(pairs) + (N1, h)
+        out, pull = jax.vjp(lambda ys: fb(jnp, ys), xs)
+        fused = jax.vjp(lambda ys: fb(jnp, ys, fused_adj=True), xs)[1]
+        cot = jax.tree.unflatten(jax.tree.structure(out),
+                                 [jnp.asarray(w) for w in weights])
+        return xs, out, pull(cot)[0], fused(cot)[0]
+
+    leaves, ref_out, ref_grads, fused_grads = _compiled(references, jd, h)
     ins = [_t(x).requires_grad_() for x in leaves]
     out = fb(torch, ins)
-    grads = torch.autograd.grad(loss(torch, ins), ins)
+    grads = torch.autograd.grad(loss(ins), ins)
     _close(out, ref_out)
     _close(grads, ref_grads)
     _close(grads, fused_grads)
